@@ -8,7 +8,10 @@ tensor every kernel wrapper runs its plain PyTorch version.
 
 Slice 1 ports the serving path: LLaMA through the ragged continuous-
 batching engine (``inference.continuous``), with ragged paged attention
-and paged decode attention as CUDA kernels.
+and paged decode attention as CUDA kernels. Slice 2 ports the training
+path: ``jit_api.TrainStep`` over ``LlamaForCausalLM`` with recompute, the
+fused linear cross-entropy and AdamW, and flash attention forward and
+backward (MHA and GQA) as CUDA kernels.
 """
 from . import device
 

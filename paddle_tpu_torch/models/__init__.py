@@ -1,1 +1,1 @@
-"""Models of the port (slice 1: LLaMA for serving)."""
+"""Models of the port (LLaMA, for serving and training)."""

@@ -38,3 +38,19 @@ def load_paddle_tpu_state(model, arrays):
         for name, t in staged.items():
             params[name].copy_(t.to(params[name].dtype))
     return model
+
+
+def export_paddle_tpu_state(model):
+    """The inverse of ``load_paddle_tpu_state``: {name: np.ndarray} in the
+    reference's layout (Linear weights transposed back to [in, out]), f32
+    for every floating parameter (bf16 values widen exactly)."""
+    linear = {f"{n}.weight" for n, m in model.named_modules()
+              if isinstance(m, nn.Linear)}
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().to("cpu")
+        if t.is_floating_point():
+            t = t.float()
+        a = t.numpy()
+        out[name] = np.ascontiguousarray(a.T if name in linear else a)
+    return out

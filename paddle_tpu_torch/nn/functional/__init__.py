@@ -4,10 +4,16 @@ Counterparts: ``rms_norm`` of ``paddle_tpu/nn/functional/norm.py``, and
 ``rope_rotate``, ``fused_rotary_position_embedding`` and ``swiglu`` of
 ``paddle_tpu/incubate/nn/functional.py``. The reference lowers them to XLA
 fused math, not to Pallas kernels; the arithmetic (f32 inside, cast back to
-the input dtype) is kept step for step.
+the input dtype) is kept step for step. The attention functionals live in
+``flash_attention.py`` and are re-exported here, as the reference's
+``nn.functional`` does.
 """
 import torch
 import torch.nn.functional as F
+
+from .flash_attention import (  # noqa: F401  (re-exported)
+    flash_attention, scaled_dot_product_attention, sdp_kernel,
+)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):

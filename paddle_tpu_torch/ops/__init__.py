@@ -1,2 +1,3 @@
-"""Attention ops of the serving path, each with a hand-written CUDA kernel
-(``csrc/``, built by ``_build``) and its plain PyTorch version."""
+"""Attention ops of the serving and training paths, each with a
+hand-written CUDA kernel (``csrc/``, built by ``_build``) and its plain
+PyTorch version."""

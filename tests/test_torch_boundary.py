@@ -9,7 +9,11 @@ the device or the kernel.
 - a kernel wrapper given a CUDA tensor launches its kernel or raises: when
   the kernel library cannot be had it raises, without running the plain
   version and without counting a launch. A stub stands in for the CUDA
-  tensor, so no card is needed.
+  tensor, so no card is needed. That holds for the serving kernels and for
+  every flash-attention entry, forward and backward, the flash dispatch
+  itself, and the AdamW update;
+- the training entry points (``LlamaForCausalLM``, ``TrainStep``) default
+  to the card too.
 """
 import ast
 import json
@@ -24,8 +28,14 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch import device
 from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
-from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.jit_api import TrainStep
+from paddle_tpu_torch.models.llama import (
+    LlamaForCausalLM, LlamaPretrainingCriterion, llama_tiny,
+)
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import adamw as tadamw
+from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
 
@@ -130,6 +140,8 @@ def library_missing(monkeypatch):
     monkeypatch.setattr(_build, "library", missing)
     monkeypatch.setattr(trpa, "_ragged_math", plain_forbidden)
     monkeypatch.setattr(tpa, "_paged_math", plain_forbidden)
+    monkeypatch.setattr(tfa, "_attention_math", plain_forbidden)
+    monkeypatch.setattr(tadamw, "_adamw_math", plain_forbidden)
 
 
 def test_ragged_wrapper_raises_without_its_kernel(library_missing):
@@ -146,6 +158,54 @@ def test_paged_wrapper_raises_without_its_kernel(library_missing):
     with pytest.raises(_build.KernelBuildError, match="paged_attention"):
         tpa.paged_decode_attention(q, None, None, None, None)
     assert tpa.paged_decode_attention.launches == n
+
+
+def test_training_entry_points_default_to_the_card(no_cuda):
+    cfg = llama_tiny(num_hidden_layers=1, fuse_linear_cross_entropy=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    opt = AdamW(parameters=model.parameters())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrainStep(model, LlamaPretrainingCriterion(cfg), opt)
+    step = TrainStep(model, LlamaPretrainingCriterion(cfg), opt,
+                     device="cpu")
+    ids = np.arange(1, 10, dtype=np.int32)[None]
+    assert torch.isfinite(step(ids[:, :-1], ids[:, 1:]))
+
+
+FLASH_CALLS = {
+    "flash_fwd": lambda s: tfa.flash_fwd(s, s, s, True, 1.0),
+    "flash_bwd_delta": lambda s: tfa.flash_bwd_delta(s, s),
+    "flash_bwd_dkdv": lambda s: tfa.flash_bwd_dkdv(s, s, s, s, s, s, True,
+                                                   1.0),
+    "flash_bwd_dq": lambda s: tfa.flash_bwd_dq(s, s, s, s, s, s, True, 1.0),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(FLASH_CALLS))
+def test_flash_wrappers_raise_without_their_kernels(library_missing, entry):
+    before = [k.launches for k in tfa.KERNELS]
+    with pytest.raises(_build.KernelBuildError, match="flash_attention"):
+        FLASH_CALLS[entry](_CudaStub(2, 64, 4, 64))
+    assert [k.launches for k in tfa.KERNELS] == before
+
+
+def test_flash_dispatch_raises_without_its_kernel(library_missing):
+    before = [k.launches for k in tfa.KERNELS]
+    q = _CudaStub(2, 64, 4, 64)
+    with pytest.raises(_build.KernelBuildError, match="flash_attention_fwd"):
+        tfa.flash_attention_fwd(q, q, q, causal=True)
+    assert [k.launches for k in tfa.KERNELS] == before
+
+
+def test_adamw_wrapper_raises_without_its_kernel(library_missing):
+    n = tadamw.adamw_update.launches
+    p = _CudaStub(4, 8)
+    with pytest.raises(_build.KernelBuildError, match="adamw"):
+        tadamw.adamw_update(p, p, p, p, lr=1e-4, beta1=0.9, beta2=0.999,
+                            eps=1e-8, step=1)
+    assert tadamw.adamw_update.launches == n
 
 
 def test_build_raises_when_nvcc_is_missing(monkeypatch, tmp_path):
