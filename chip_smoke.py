@@ -9,38 +9,53 @@ Phases, one JSON line each (any failed phase exits non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — compile every kernel under paddle_tpu_torch/ops/csrc;
-3. K4     — ragged paged attention against its plain version at LLaMA-2-7B
-            attention shapes (MHA, then GQA), with CUDA-event timings;
-4. K5     — paged decode attention, likewise;
-5. serve equality — LLaMA-2-7B widths, 2 layers, f32: greedy tokens served
-            on the card (kernels) equal those served on the CPU (plain
-            versions);
-6. slice  — LLaMA-2-7B, full width and depth, bf16, seeded weights: 8
-            requests through the ragged continuous-batching engine, with
-            both kernels' launch counts taken over that run alone;
-7. profile — the same traffic again under torch.profiler: device time by
-            kernel family and the device's idle share;
-8. k1     — flash attention (K1) forward and backward against the plain
+3. k1     — flash attention (K1) forward and backward against the plain
             version's autograd at LLaMA-2-7B attention shapes (B 2, S 2048,
             32 heads of 128, bf16, causal), plus a full (non-causal) and an
             Sq != Sk causal case and an f32 case, O and every gradient
             held row by row (``row_check``); CUDA-event timings of every
             kernel entry, the plain version and F.sdpa;
-9. k2     — the same for GQA (K2): Hq 64 / Hkv 8 (llama2_70b attention),
+4. k2     — the same for GQA (K2): Hq 64 / Hkv 8 (llama2_70b attention),
             also held to the plain version with the splash kernel's
             rounding of q;
-10. train_equal — f32, LLaMA-2-7B widths, 2 layers, B 1, S 256: three
+5. adamw  — the AdamW update kernel against its plain version;
+6. codec  — the int8 KV codec on the card against the CPU: codes, scales
+            and dequantized values bit-identical (zero, +-absmax and .5-tie
+            rows included);
+7. k4, k5 — ragged paged attention (K4) and paged decode attention (K5)
+            against their plain versions at LLaMA-2-7B attention shapes
+            (MHA, then GQA), with CUDA-event timings;
+8. k4_int8, k5_int8 — their int8-pool variants likewise, q in bf16 and
+            f32;
+9. serve_equal — LLaMA-2-7B widths, 2 layers, f32: tokens served on the
+            card (kernels) equal those served on the CPU (plain versions),
+            in four runs: float pools greedy, int8 pools greedy, float
+            pools sampled, float pools with the prefix cache;
+10. slice — LLaMA-2-7B, full width and depth, bf16, seeded weights: 8
+            requests through the ragged continuous-batching engine, with
+            both kernels' launch counts taken over that run alone;
+11. profile — the same traffic again under torch.profiler: device time by
+            kernel family and the device's idle share;
+12. slice_int8 — the slice over int8 KV pools: the int8 kernels' launch
+            counts (and none of the float ones), the pools' size and the
+            share of tokens equal to the bf16 slice's; then its prompts
+            once more with 16 new tokens under torch.profiler;
+13. slice_sampled_prefix — the same model, float pools, the prefix cache
+            and sampling: one request carrying a 512-token system prompt,
+            then 8 that share it; prefix_hit_pages must be > 0; then the 8
+            once more with 16 new tokens under torch.profiler;
+14. train_equal — f32, LLaMA-2-7B widths, 2 layers, B 1, S 256: three
             TrainSteps on the card (kernels) and on the CPU (plain
             versions) from the same weights and batches give the same
             losses, the same gradients at every step, and parameters
             apart only where a gradient sat at zero;
-11. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
+15. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
             "full", fused linear cross-entropy, AdamW; B 2, S 2048, 2
             warm-up and 8 timed steps; tokens/s, MFU, peak memory, losses
             and the flash kernels' launch counts over the timed steps;
-12. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
+16. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
             B 1, S 2048: 1 warm-up and 3 timed steps;
-13. train_profile — two steps of `train` under torch.profiler.
+17. train_profile — two steps of `train` under torch.profiler.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and the contract's last line. ``--only k1,k2`` runs the named phases alone
@@ -63,14 +78,23 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense tensor-core bf16
 TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
              "torch.float32": (1e-4, 1e-4)}   # summation order only
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
-PHASES = ("k1", "k2", "adamw", "k4", "k5", "serve_equal", "slice",
-          "profile", "train_equal", "train", "train_profile", "train_gqa")
+PHASES = ("k1", "k2", "adamw", "codec", "k4", "k5", "k4_int8", "k5_int8",
+          "serve_equal", "slice", "profile", "slice_int8",
+          "slice_sampled_prefix", "train_equal", "train", "train_profile",
+          "train_gqa")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
+PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 PAGES_PER_SEQ = MAX_LEN // BS
 NUM_PAGES = 1 + MAX_SEQS * PAGES_PER_SEQ
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase row also gets the seconds since the start."""
+    if "phase" in obj:
+        obj["t_s"] = round(time.perf_counter() - T0, 1)
     print(json.dumps(obj), flush=True)
 
 
@@ -133,10 +157,27 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def phase_k4(seed=1):
+def int8_pools(gen, hkv):
+    """An int8 K/V pool pair: seeded f32 rows quantized on the card."""
+    import torch
+
+    from paddle_tpu_torch.ops.quantization import quantize_pages
+
+    kf, vf = pools(gen, hkv, torch.float32)
+    return quantize_pages(kf), quantize_pages(vf)
+
+
+def pool_row_bytes(hkv, quant, elt):
+    """Bytes of one token's K and V rows over all kv heads: D codes plus a
+    4-byte scale each for an int8 pool, D elements of q's type else."""
+    return 2 * hkv * ((D + 4) if quant else D * elt)
+
+
+def phase_k4(seed=1, quant=False):
     """6 decode rows, one 256-token prefill chunk and one empty row:
     S = 8 rows in a T = 264 stream (2 pad tokens), the mixed dispatch's
-    shapes; MHA then GQA (Hkv = 8)."""
+    shapes; MHA then GQA (Hkv = 8). ``quant``: the int8 variant over an
+    int8 pool, with q in bf16 and in f32."""
     import numpy as np
     import torch
 
@@ -144,7 +185,7 @@ def phase_k4(seed=1):
 
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    dtype = torch.bfloat16
+    dtypes = (torch.bfloat16, torch.float32) if quant else (torch.bfloat16,)
     T = CHUNK + MAX_SEQS
     q_lens = np.array([1, 1, 1, CHUNK, 1, 0, 1, 1], np.int32)
     kv_lens = rng.randint(1, MAX_LEN + 1, MAX_SEQS).astype(np.int32)
@@ -155,42 +196,52 @@ def phase_k4(seed=1):
     n_valid = int(cu[-1])
     rows = []
     for hkv in (HQ, 8):
-        kp, vp = pools(gen, hkv, dtype)
+        kp, vp = (int8_pools(gen, hkv) if quant
+                  else pools(gen, hkv, torch.bfloat16))
         pt = page_table(rng)
-        q = torch.randn((T, HQ, D), generator=gen, device="cuda").to(dtype)
-        args = (q, kp, vp, torch.from_numpy(kv_lens).cuda(), pt,
-                torch.from_numpy(cu).cuda())
-        scale = D ** -0.5
-        got = rpa.ragged_paged_attention(*args)
-        torch.cuda.synchronize()
-        want = rpa._ragged_math(*args, scale)
-        err = compare(f"ragged_paged_attention Hkv={hkv}", got, want, n_valid)
-        ms = cuda_ms(lambda: rpa.ragged_paged_attention(*args))
-        plain_ms = cuda_ms(lambda: rpa._ragged_math(*args, scale), reps=5,
-                           warmup=1)
-        live = kv_lens[q_lens > 0].astype(np.int64)
-        limits = np.concatenate([
-            kv_lens[b] - q_lens[b] + np.arange(q_lens[b]) + 1
-            for b in range(MAX_SEQS)]).astype(np.int64)
-        elt = q.element_size()
-        nbytes = (int(live.sum()) * hkv * D * 2 * elt + 2 * T * HQ * D * elt
-                  + (kv_lens.nbytes + pt.numel() * 4 + cu.nbytes))
-        ops = int(limits.sum()) * HQ * D * 4
-        b_ms, b_by = bound(nbytes, ops, str(dtype))
-        row = {"phase": "k4", "hkv": hkv, "hq": HQ, "d": D, "bs": BS,
-               "T": T, "valid_tokens": n_valid, "q_lens": q_lens.tolist(),
-               "kv_lens": kv_lens.tolist(), "dtype": str(dtype),
-               "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "ops": ops}
-        emit(row)
-        rows.append(row)
+        q32 = torch.randn((T, HQ, D), generator=gen, device="cuda")
+        for dtype in dtypes:
+            q = q32.to(dtype)
+            args = (q, kp, vp, torch.from_numpy(kv_lens).cuda(), pt,
+                    torch.from_numpy(cu).cuda())
+            scale = D ** -0.5
+            got = rpa.ragged_paged_attention(*args)
+            torch.cuda.synchronize()
+            want = rpa._ragged_math(*args, scale)
+            err = compare(f"ragged_paged_attention Hkv={hkv} {dtype}"
+                          f"{' int8 pool' if quant else ''}", got, want,
+                          n_valid)
+            ms = cuda_ms(lambda: rpa.ragged_paged_attention(*args))
+            plain_ms = cuda_ms(lambda: rpa._ragged_math(*args, scale),
+                               reps=5, warmup=1)
+            live = kv_lens[q_lens > 0].astype(np.int64)
+            limits = np.concatenate([
+                kv_lens[b] - q_lens[b] + np.arange(q_lens[b]) + 1
+                for b in range(MAX_SEQS)]).astype(np.int64)
+            elt = q.element_size()
+            nbytes = (int(live.sum()) * pool_row_bytes(hkv, quant, elt)
+                      + 2 * T * HQ * D * elt
+                      + (kv_lens.nbytes + pt.numel() * 4 + cu.nbytes))
+            ops = int(limits.sum()) * HQ * D * 4
+            b_ms, b_by = bound(nbytes, ops, str(dtype))
+            row = {"phase": "k4_int8" if quant else "k4", "hkv": hkv,
+                   "hq": HQ, "d": D, "bs": BS, "T": T,
+                   "valid_tokens": n_valid, "q_lens": q_lens.tolist(),
+                   "kv_lens": kv_lens.tolist(), "dtype": str(dtype),
+                   "pool": "int8" if quant else str(dtype),
+                   "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "ops": ops}
+            emit(row)
+            rows.append(row)
         del kp, vp
     return rows
 
 
-def phase_k5(seed=2):
-    """B = 8 decode rows, kv lengths up to 2048; MHA then GQA (Hkv = 8)."""
+def phase_k5(seed=2, quant=False):
+    """B = 8 decode rows, kv lengths up to 2048; MHA then GQA (Hkv = 8).
+    ``quant``: the int8 variant over an int8 pool, with q in bf16 and in
+    f32."""
     import numpy as np
     import torch
 
@@ -198,41 +249,105 @@ def phase_k5(seed=2):
 
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    dtype = torch.bfloat16
+    dtypes = (torch.bfloat16, torch.float32) if quant else (torch.bfloat16,)
     lengths = rng.randint(1, MAX_LEN + 1, MAX_SEQS).astype(np.int32)
     lengths[0] = 1      # a row frozen at the scratch page reads page 0
     rows = []
     for hkv in (HQ, 8):
-        kp, vp = pools(gen, hkv, dtype)
+        kp, vp = (int8_pools(gen, hkv) if quant
+                  else pools(gen, hkv, torch.bfloat16))
         pt = page_table(rng)
         pt[0] = 0
-        q = torch.randn((MAX_SEQS, HQ, D), generator=gen,
-                        device="cuda").to(dtype)
-        args = (q, kp, vp, torch.from_numpy(lengths).cuda(), pt)
-        scale = D ** -0.5
-        got = pa.paged_decode_attention(*args)
-        torch.cuda.synchronize()
-        want = pa._paged_math(*args, scale)
-        err = compare(f"paged_decode_attention Hkv={hkv}", got, want,
-                      MAX_SEQS)
-        ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
-        plain_ms = cuda_ms(lambda: pa._paged_math(*args, scale), reps=5,
-                           warmup=1)
-        elt = q.element_size()
-        tokens = int(lengths.astype(np.int64).sum())
-        nbytes = (tokens * hkv * D * 2 * elt + 2 * MAX_SEQS * HQ * D * elt
-                  + lengths.nbytes + pt.numel() * 4)
-        ops = tokens * HQ * D * 4
-        b_ms, b_by = bound(nbytes, ops, str(dtype))
-        row = {"phase": "k5", "hkv": hkv, "hq": HQ, "d": D, "bs": BS,
-               "B": MAX_SEQS, "lengths": lengths.tolist(),
-               "dtype": str(dtype), "max_abs_err": err, "kernel_ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "bytes": nbytes, "ops": ops}
-        emit(row)
-        rows.append(row)
+        q32 = torch.randn((MAX_SEQS, HQ, D), generator=gen, device="cuda")
+        for dtype in dtypes:
+            q = q32.to(dtype)
+            args = (q, kp, vp, torch.from_numpy(lengths).cuda(), pt)
+            scale = D ** -0.5
+            got = pa.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            want = pa._paged_math(*args, scale)
+            err = compare(f"paged_decode_attention Hkv={hkv} {dtype}"
+                          f"{' int8 pool' if quant else ''}", got, want,
+                          MAX_SEQS)
+            ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
+            plain_ms = cuda_ms(lambda: pa._paged_math(*args, scale), reps=5,
+                               warmup=1)
+            elt = q.element_size()
+            tokens = int(lengths.astype(np.int64).sum())
+            nbytes = (tokens * pool_row_bytes(hkv, quant, elt)
+                      + 2 * MAX_SEQS * HQ * D * elt
+                      + lengths.nbytes + pt.numel() * 4)
+            ops = tokens * HQ * D * 4
+            b_ms, b_by = bound(nbytes, ops, str(dtype))
+            row = {"phase": "k5_int8" if quant else "k5", "hkv": hkv,
+                   "hq": HQ, "d": D, "bs": BS, "B": MAX_SEQS,
+                   "lengths": lengths.tolist(), "dtype": str(dtype),
+                   "pool": "int8" if quant else str(dtype),
+                   "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "ops": ops}
+            emit(row)
+            rows.append(row)
         del kp, vp
     return rows
+
+
+def codec_rows():
+    """f32 rows for the codec check: seeded rows at spread magnitudes, an
+    all-zero row, rows whose absmax is +max and -max (codes 127 and
+    -128), and rows of values on .5 ties after scaling."""
+    import numpy as np
+
+    rng = np.random.RandomState(9)
+    x = (rng.randn(4096, D)
+         * rng.lognormal(0.0, 2.0, (4096, 1))).astype(np.float32)
+    x[0:2] = 0.0
+    x[1, :3] = (1.0, -1.0, 0.5)
+    x[2] = np.abs(x[2])
+    x[3] = -np.abs(x[3])
+    # absmax 127.5 makes the scale factor 1: every value a tie k + 0.5
+    x[4] = np.arange(D, dtype=np.float32) - 63.5
+    x[4, 0] = 127.5
+    x[5] = -x[4]
+    return x
+
+
+def phase_codec():
+    """The int8 codec on the card against the CPU on the same f32 rows:
+    codes, scales and dequantized values bit-identical (CUDA's float ->
+    int8 cast of a NaN or an out-of-range value would show here)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops.quantization import from_int8, quantize_to_int8
+
+    x = torch.from_numpy(codec_rows())
+    cpu = quantize_to_int8(x)
+    gpu = quantize_to_int8(x.cuda())
+    codes_diff = int((gpu.weight.cpu() != cpu.weight).sum())
+    scales_diff = int((gpu.scales.cpu().view(torch.int32)
+                       != cpu.scales.view(torch.int32)).sum())
+    deq_cpu = from_int8(cpu.weight, cpu.scales)
+    deq_gpu = from_int8(gpu.weight, gpu.scales).cpu()
+    deq_diff = int((deq_gpu.view(torch.int32)
+                    != deq_cpu.view(torch.int32)).sum())
+    special = cpu.weight[:6, :4].tolist()
+    row = {"phase": "codec", "rows": int(x.shape[0]), "d": D,
+           "codes_differing": codes_diff, "scales_differing": scales_diff,
+           "dequantized_differing": deq_diff,
+           "zero_row_codes_nonzero": int((gpu.weight[0] != 0).sum()),
+           "first_codes_of_special_rows": special}
+    emit(row)
+    if codes_diff or scales_diff or deq_diff or row["zero_row_codes_nonzero"]:
+        bad = np.argwhere((gpu.weight.cpu() != cpu.weight).numpy())[:8]
+        raise AssertionError(
+            "codec: card and CPU differ at (row, col) "
+            + json.dumps([[int(r), int(c), int(gpu.weight[r, c]),
+                           int(cpu.weight[r, c])] for r, c in bad]))
+    if cpu.weight[1, :3].tolist() != [127, -128, 64]:
+        raise AssertionError(f"codec: row [1, -1, 0.5] gave "
+                             f"{cpu.weight[1, :3].tolist()}")
+    return row
 
 
 def _counts():
@@ -242,7 +357,11 @@ def _counts():
     )
 
     return {"ragged_paged_attention": ragged_paged_attention.launches,
-            "paged_decode_attention": paged_decode_attention.launches}
+            "paged_decode_attention": paged_decode_attention.launches,
+            "ragged_paged_attention_int8":
+                ragged_paged_attention.launches_int8,
+            "paged_decode_attention_int8":
+                paged_decode_attention.launches_int8}
 
 
 def _reset_counts():
@@ -253,11 +372,127 @@ def _reset_counts():
 
     ragged_paged_attention.launches = 0
     paged_decode_attention.launches = 0
+    ragged_paged_attention.launches_int8 = 0
+    paged_decode_attention.launches_int8 = 0
+
+
+FLOAT_KERNELS = ("ragged_paged_attention", "paged_decode_attention")
+INT8_KERNELS = ("ragged_paged_attention_int8", "paged_decode_attention_int8")
+
+
+def check_launches(counts, int8):
+    """The serving path ran through its kernels: both of the pool type's
+    launched, and none of the other pool type's."""
+    ran, idle = ((INT8_KERNELS, FLOAT_KERNELS) if int8
+                 else (FLOAT_KERNELS, INT8_KERNELS))
+    if min(counts[k] for k in ran) < 1 or max(counts[k] for k in idle) > 0:
+        raise AssertionError(f"expected launches of {ran} and none of "
+                             f"{idle}: {counts}")
+
+
+def _pool_codes_differing(gpu_eng, cpu_eng):
+    """Int8 codes and scales that differ between the card's pools and the
+    CPU's after the same serve (page allocation is deterministic)."""
+    import torch
+
+    codes = scales = 0
+    for gpu_pair, cpu_pair in zip(gpu_eng.pools, cpu_eng.pools):
+        for g, c in zip(gpu_pair, cpu_pair):
+            codes += int((g.weight.cpu() != c.weight).sum())
+            scales += int((g.scales.cpu().view(torch.int32)
+                           != c.scales.view(torch.int32)).sum())
+    return codes, scales
+
+
+# int8 pools turn an ulp of difference in a K/V value into a whole code
+# step: the same prefix's logits differ between card and CPU by about 1e-2
+# (so do the CPU's own after an ulp's move of every weight: `calibration`
+# below), where f32 pools keep them within about 1e-6. A greedy token can
+# then flip only at a near tie. 0.05 is 4% of the logits' spread (std
+# 1.28 at these random weights) and some 5x that noise.
+NEAR_TIE = 0.05
+
+
+def prefix_logits(model, tokens, kv_cache_dtype):
+    """f32 logits of the token after ``tokens``: one ragged pass over fresh
+    pools of a one-slot engine on the model's device (the engine's
+    prefill path; K4 on the card)."""
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops.ragged_paged_attention import RaggedLayerCache
+
+    dev = next(model.parameters()).device
+    eng = ContinuousBatchingEngine(model, max_seqs=1, page_size=BS,
+                                   max_len=256, kv_cache_dtype=kv_cache_dtype,
+                                   device=str(dev))
+    n = len(tokens)
+    npages = -(-n // BS)
+    table = torch.zeros((1, eng.pages_per_seq), dtype=torch.int32)
+    table[0, :npages] = torch.arange(1, npages + 1)
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    caches = [RaggedLayerCache(k, v, table.to(dev), i32([n]), i32([0, n]),
+                               i32([0] * n), i32(list(range(n))),
+                               torch.ones(n, dtype=torch.bool, device=dev))
+              for k, v in eng.pools]
+    ids = torch.as_tensor(tokens, dtype=torch.long, device=dev)[None]
+    with torch.no_grad():
+        h, _ = model.llama(ids, position_ids=caches[0].token_pos[None].long(),
+                           past_key_values=caches)
+        return model.head(h[0, -1]).float().cpu()
+
+
+def explain_divergences(gpu_model, cpu_model, got, want, kv_cache_dtype):
+    """Each request's first differing token, with the logits of its shared
+    prefix on the card and on the CPU: ``explained`` when the two agree
+    within NEAR_TIE and the CPU's logits for its token and the card's are
+    within NEAR_TIE of each other (a near tie, not a kernel fault)."""
+    import numpy as np
+
+    out = []
+    for rid, (g, w) in enumerate(zip(got, want)):
+        diff = np.nonzero(g != w)[0]
+        if len(diff) == 0:
+            continue
+        pos = int(diff[0])
+        lg = prefix_logits(gpu_model, w[:pos], kv_cache_dtype)
+        lc = prefix_logits(cpu_model, w[:pos], kv_cache_dtype)
+        noise = float((lg - lc).abs().max())
+        gap = float(lc[int(w[pos])] - lc[int(g[pos])])
+        out.append({"request": rid, "position": pos, "card": int(g[pos]),
+                    "cpu": int(w[pos]), "cpu_gap": gap,
+                    "logits_max_diff": noise,
+                    "explained": noise <= NEAR_TIE
+                    and abs(gap) <= NEAR_TIE})
+    return out
+
+
+def perturbed_copy(model):
+    """A copy of ``model`` with every weight moved one ulp, up or down at
+    random (seeded): the size of difference two summation orders make."""
+    import torch
+
+    twin = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in twin.parameters():
+            up = torch.rand(p.shape, generator=gen) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf)))
+    return twin
 
 
 def phase_serve_equal(seed=3):
-    """f32, LLaMA-2-7B widths, 2 layers: the same 4 prompts served greedily
-    on the card and on the CPU give the same token ids."""
+    """f32, LLaMA-2-7B widths, 2 layers: the same prompts served on the
+    card and on the CPU give the same token ids, in four runs: float pools
+    greedy; int8 pools greedy; float pools sampled (temperature 0.8, top-p
+    0.9, seed 0); float pools with the prefix cache, over two serve()
+    calls sharing a 64-token system prompt. The int8 run may differ only
+    at near ties (``explain_divergences``); its `calibration` serves the
+    CPU once more with every weight an ulp off and counts the requests
+    that diverge there, without a card."""
     import numpy as np
     import torch
 
@@ -269,56 +504,110 @@ def phase_serve_equal(seed=3):
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     rng = np.random.RandomState(seed)
-    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
-               for n in (7, 33, 70, 130)]
-    kw = dict(max_seqs=4, page_size=BS, max_len=256, decode_block=8,
-              prefill_chunk=64)
-    t0 = time.perf_counter()
-    _reset_counts()
-    got = ContinuousBatchingEngine(gpu_model, device="cuda", **kw).serve(
-        prompts, max_new_tokens=16)
-    counts = _counts()
-    t_gpu = time.perf_counter() - t0
-    want = ContinuousBatchingEngine(cpu_model, device="cpu", **kw).serve(
-        prompts, max_new_tokens=16)
-    t_cpu = time.perf_counter() - t0 - t_gpu
-    same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
-    emit({"phase": "serve_equal", "layers": 2, "dtype": "float32",
-          "prompt_lens": [len(p) for p in prompts], "new_tokens": 16,
-          "identical": same, "kernels": counts,
-          "gpu_s": t_gpu, "cpu_s": t_cpu})
-    if not all(same):
-        raise AssertionError(
-            "card and CPU served different tokens: "
-            + json.dumps([[g.tolist(), w.tolist()]
-                          for g, w, s in zip(got, want, same) if not s]))
-    if min(counts.values()) < 1:
-        raise AssertionError(f"the card's serve launched no kernel: {counts}")
+
+    def draw(n):
+        return rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+
+    prompts = [draw(n) for n in (7, 33, 70, 130)]
+    system = draw(64)
+    shared = [[np.concatenate([system, draw(n)]) for n in lens]
+              for lens in ((9, 40), (3, 25, 60))]
+    base = dict(max_seqs=4, page_size=BS, max_len=256, decode_block=8)
+    runs = (
+        ("float_greedy", dict(prefill_chunk=64), [prompts], {}),
+        ("int8_greedy", dict(kv_cache_dtype="int8"), [prompts], {}),
+        ("float_sampled", dict(prefill_chunk=64), [prompts],
+         dict(do_sample=True, temperature=0.8, top_p=0.9, seed=0)),
+        ("float_prefix_cache", dict(prefill_chunk=64,
+                                    enable_prefix_cache=True), shared, {}),
+    )
+    rows = []
+    for name, kw, batches, serve_kw in runs:
+        int8 = kw.get("kv_cache_dtype") == "int8"
+        engines = (ContinuousBatchingEngine(gpu_model, device="cuda",
+                                            **base, **kw),
+                   ContinuousBatchingEngine(cpu_model, device="cpu",
+                                            **base, **kw))
+        outs, secs = [], []
+        for i, eng in enumerate(engines):
+            if i == 0:
+                _reset_counts()
+            t0 = time.perf_counter()
+            outs.append([o for batch in batches
+                         for o in eng.serve(batch, max_new_tokens=16,
+                                            **serve_kw)])
+            if i == 0:
+                torch.cuda.synchronize()
+                counts = _counts()
+            secs.append(time.perf_counter() - t0)
+        got, want = outs
+        same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+        row = {"phase": "serve_equal", "run": name, "layers": 2,
+               "dtype": "float32",
+               "prompt_lens": [len(p) for b in batches for p in b],
+               "new_tokens": 16, "identical": same, "kernels": counts,
+               "gpu_s": secs[0], "cpu_s": secs[1]}
+        if int8:
+            row["codes_differing"], row["scales_differing"] = (
+                _pool_codes_differing(*engines))
+            row["divergences"] = explain_divergences(
+                gpu_model, cpu_model, got, want, "int8")
+            twin = perturbed_copy(cpu_model)
+            moved = ContinuousBatchingEngine(
+                twin, device="cpu", **base, **kw).serve(
+                    prompts, max_new_tokens=16)
+            row["calibration"] = {
+                "cpu_ulp_perturbed_requests_differing": sum(
+                    not np.array_equal(a, b) for a, b in zip(moved, want)),
+                "divergences": explain_divergences(
+                    twin, cpu_model, moved, want, "int8")}
+            del twin
+            # a request that differs passes only at an explained near tie
+            same = [s or any(d["request"] == i and d["explained"]
+                             for d in row["divergences"])
+                    for i, s in enumerate(same)]
+            row["identical_or_near_tie"] = same
+        if kw.get("enable_prefix_cache"):
+            row["prefix_hit_pages"] = [e.stats["prefix_hit_pages"]
+                                       for e in engines]
+        emit(row)
+        rows.append(row)
+        if not all(same):
+            raise AssertionError(
+                f"serve_equal {name}: card and CPU served different tokens"
+                + (f" beyond near ties {row['divergences']}" if int8
+                   else "")
+                + (f" ({row['codes_differing']} int8 codes and "
+                   f"{row['scales_differing']} scales differ between the "
+                   "pools)" if int8 else "") + ": "
+                + json.dumps([[g.tolist(), w.tolist()]
+                              for g, w, s in zip(got, want, same) if not s]))
+        check_launches(counts, int8)
+        if kw.get("enable_prefix_cache"):
+            hits = row["prefix_hit_pages"]
+            if hits[0] != hits[1] or hits[0] < 1:
+                raise AssertionError(f"serve_equal {name}: prefix hits "
+                                     f"card/CPU {hits}")
+        del engines
     del gpu_model
     torch.cuda.empty_cache()
+    return rows
 
 
-def phase_slice(seed=0, new_tokens=64):
-    """LLaMA-2-7B, full width and depth, bf16, seeded weights: 8 requests
-    of 32-1024 prompt tokens and 64 new tokens each, greedy."""
+def slice_prompts(seed, vocab):
+    """The slice's 8 seeded prompts of 32-1024 tokens."""
     import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, n).astype(np.int32)
+            for n in rng.randint(32, 1025, MAX_SEQS)]
+
+
+def _timed_serve(eng, prompts, new_tokens, **serve_kw):
+    """One serve() on the card with launch counts reset just before and
+    read just after: (outputs, wall seconds, TTFT median, counts)."""
     import torch
 
-    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
-
-    cfg = llama2_7b(dtype="bfloat16")
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
-    eng = ContinuousBatchingEngine(
-        model, max_seqs=MAX_SEQS, page_size=BS, max_len=MAX_LEN,
-        decode_block=8, prefill_chunk=CHUNK, device="cuda")
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    rng = np.random.RandomState(seed)
-    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
-               for n in rng.randint(32, 1025, MAX_SEQS)]
-    eng.serve([prompts[0][:16]], max_new_tokens=2)   # warm-up
     first = {}
 
     def on_token(rid, tok):
@@ -327,31 +616,136 @@ def phase_slice(seed=0, new_tokens=64):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    out = eng.serve(prompts, max_new_tokens=new_tokens, on_token=on_token)
+    out = eng.serve(prompts, max_new_tokens=new_tokens, on_token=on_token,
+                    **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    vocab = eng.model.config.vocab_size
     for p, o in zip(prompts, out):
         if o is None or len(o) != len(p) + new_tokens:
-            raise AssertionError(f"request returned {None if o is None else len(o)}"
-                                 f" tokens, expected {len(p) + new_tokens}")
-        if not ((o >= 0) & (o < cfg.vocab_size)).all():
+            raise AssertionError(
+                f"request returned {None if o is None else len(o)} tokens, "
+                f"expected {len(p) + new_tokens}")
+        if not ((o >= 0) & (o < vocab)).all():
             raise AssertionError("token id out of range")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
     ttft = sorted(first[r] - t0 for r in range(len(prompts)))
-    row = {"phase": "slice", "model": "llama2_7b", "layers": 32,
-           "dtype": "bfloat16", "max_seqs": MAX_SEQS, "page_size": BS,
-           "max_len": MAX_LEN, "decode_block": 8, "prefill_chunk": CHUNK,
+    return out, wall, statistics.median(ttft), counts
+
+
+def phase_slice(model, seed=0, new_tokens=64, kv_cache_dtype=None,
+                reference=None):
+    """LLaMA-2-7B, full width and depth, bf16, seeded weights: 8 requests
+    of 32-1024 prompt tokens and 64 new tokens each, greedy. With
+    ``kv_cache_dtype="int8"`` (phase `slice_int8`) the pools are int8 and
+    ``prefill_chunk`` is left out (the int8 engine refuses it; its ragged
+    chunk is 256 anyway); ``reference`` is the bf16 slice's (row, outputs),
+    for the pool size and the share of equal tokens."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    int8 = kv_cache_dtype == "int8"
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(
+        model, max_seqs=MAX_SEQS, page_size=BS, max_len=MAX_LEN,
+        decode_block=8, kv_cache_dtype=kv_cache_dtype,
+        prefill_chunk=None if int8 else CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    prompts = slice_prompts(seed, model.config.vocab_size)
+    eng.serve([prompts[0][:16]], max_new_tokens=2)   # warm-up
+    out, wall, ttft, counts = _timed_serve(eng, prompts, new_tokens)
+    check_launches(counts, int8)
+    row = {"phase": "slice_int8" if int8 else "slice", "model": "llama2_7b",
+           "layers": 32, "dtype": "bfloat16",
+           "kv_cache_dtype": "int8" if int8 else "bfloat16",
+           "max_seqs": MAX_SEQS, "page_size": BS, "max_len": MAX_LEN,
+           "decode_block": 8, "prefill_chunk": None if int8 else CHUNK,
+           "ragged_chunk": eng._ragged_chunk,
            "prompt_lens": [len(p) for p in prompts],
            "new_tokens": new_tokens, "wall_s": wall,
            "generated_tok_per_s": len(prompts) * new_tokens / wall,
-           "ttft_median_s": statistics.median(ttft),
-           "setup_s": t_setup, "decode_steps": eng.stats["decode_steps"],
+           "ttft_median_s": ttft, "setup_s": t_setup,
+           "decode_steps": eng.stats["decode_steps"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "pool_bytes": eng.pool_bytes(), "kernels": counts}
+    if reference is not None:
+        ref_row, ref_out = reference
+        row["pool_bytes_vs_bf16"] = eng.pool_bytes() / ref_row["pool_bytes"]
+        gen = [(o[len(p):], r[len(p):])
+               for p, o, r in zip(prompts, out, ref_out)]
+        row["tokens_equal_to_bf16_share"] = (
+            sum(int((a == b).sum()) for a, b in gen)
+            / sum(len(a) for a, _ in gen))
+        row["requests_equal_to_bf16"] = sum(
+            bool(np.array_equal(a, b)) for a, b in gen)
+    emit(row)
+    if int8:
+        # 16 new tokens: the trace of 64 takes the profiler ~2 minutes
+        row["profile"] = _device_profile(
+            "slice_int8_profile",
+            lambda: eng.serve(prompts, max_new_tokens=PROFILE_NEW_TOKENS))
+    return row, eng, prompts, out
+
+
+def phase_slice_sampled_prefix(model, seed=0, new_tokens=64):
+    """LLaMA-2-7B bf16, 32 layers, float pools with the prefix cache and
+    sampling (temperature 0.8, top-p 0.9, seed 0): one request carrying a
+    512-token system prompt, then 8 requests of that system prompt plus
+    32-256 tokens of their own, each sharing its 32 pages."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    sampled = dict(do_sample=True, temperature=0.8, top_p=0.9, seed=0)
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(seed + 1)
+    system = rng.randint(1, vocab, 512).astype(np.int32)
+    first = np.concatenate([system, rng.randint(1, vocab, 32)
+                            .astype(np.int32)])
+    prompts = [np.concatenate([system, rng.randint(1, vocab, n)
+                               .astype(np.int32)])
+               for n in rng.randint(32, 257, MAX_SEQS)]
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(
+        model, max_seqs=MAX_SEQS, page_size=BS, max_len=MAX_LEN,
+        decode_block=8, prefill_chunk=CHUNK, enable_prefix_cache=True,
+        device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    _, first_wall, first_ttft, _ = _timed_serve(eng, [first], new_tokens,
+                                                **sampled)
+    hits0 = eng.stats["prefix_hit_pages"]
+    out, wall, ttft, counts = _timed_serve(eng, prompts, new_tokens,
+                                           **sampled)
+    check_launches(counts, int8=False)
+    hits = eng.stats["prefix_hit_pages"] - hits0
+    row = {"phase": "slice_sampled_prefix", "model": "llama2_7b",
+           "layers": 32, "dtype": "bfloat16", "max_seqs": MAX_SEQS,
+           "page_size": BS, "max_len": MAX_LEN, "decode_block": 8,
+           "prefill_chunk": CHUNK, "sampling": sampled,
+           "system_prompt": len(system), "first_prompt": len(first),
+           "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": new_tokens, "first_wall_s": first_wall,
+           "first_ttft_s": first_ttft, "wall_s": wall,
+           "generated_tok_per_s": len(prompts) * new_tokens / wall,
+           "ttft_median_s": ttft, "setup_s": t_setup,
+           "prefix_hit_pages": hits,
+           "prefix_hit_pages_expected": MAX_SEQS * len(system) // BS,
+           "prefix_evictions": eng.stats["prefix_evictions"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "kernels": counts}
     emit(row)
-    return row, eng, prompts
+    if hits < 1:
+        raise AssertionError(f"slice_sampled_prefix: no prefix hit: {row}")
+    row["profile"] = _device_profile(
+        "slice_sampled_prefix_profile",
+        lambda: eng.serve(prompts, max_new_tokens=PROFILE_NEW_TOKENS,
+                          **sampled))
+    return row
 
 
 def _family(name):
@@ -1088,21 +1482,31 @@ def phase_train_profile(step, ids):
 
 def kernel_table(rows):
     """The contract's kernel line, from the phases that ran: every entry's
-    launches over the main path (serving's `slice`, training's `train`)."""
+    launches over the main path (serving's `slice`, `slice_int8` for the
+    int8 variants, training's `train`)."""
     table = []
-    for name, phase, src, ref in (
+    for name, phase, src, ref, main_phase in (
             ("ragged_paged_attention", "k4",
              "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-             "paddle_tpu/ops/ragged_paged_attention.py:258"),
+             "paddle_tpu/ops/ragged_paged_attention.py:258", "slice"),
             ("paged_decode_attention", "k5",
              "paddle_tpu_torch/ops/csrc/paged_attention.cu",
-             "paddle_tpu/ops/paged_attention.py:155")):
+             "paddle_tpu/ops/paged_attention.py:155", "slice"),
+            ("ragged_paged_attention_int8", "k4_int8",
+             "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+             "paddle_tpu/ops/ragged_paged_attention.py:258 (int8 pool, "
+             "dequantized at :227-230)", "slice_int8"),
+            ("paged_decode_attention_int8", "k5_int8",
+             "paddle_tpu_torch/ops/csrc/paged_attention.cu",
+             "paddle_tpu/ops/paged_attention.py:155 (int8 pool)",
+             "slice_int8")):
         if phase not in rows:
             continue
-        main_row = rows[phase][0]   # MHA: the shapes LLaMA-2-7B gives it
+        # MHA with a bf16 q: the shapes LLaMA-2-7B gives it
+        main_row = rows[phase][0]
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": ref,
-                      "launches": rows.get("slice", {}).get(
+                      "launches": rows.get(main_phase, {}).get(
                           "kernels", {}).get(name),
                       "max_abs_err": max(r["max_abs_err"]
                                          for r in rows[phase]),
@@ -1205,18 +1609,40 @@ def main(argv=None):
         rows["k2"] = phase_flash("k2", 64, 8, seed=7)
     if runs("adamw"):
         rows["adamw"] = phase_adamw()
+    if runs("codec"):
+        phase_codec()
     if runs("k4"):
         rows["k4"] = phase_k4()
     if runs("k5"):
         rows["k5"] = phase_k5()
+    if runs("k4_int8"):
+        rows["k4_int8"] = phase_k4(quant=True)
+    if runs("k5_int8"):
+        rows["k5_int8"] = phase_k5(quant=True)
     if runs("serve_equal"):
         phase_serve_equal()
-    if runs("slice"):
-        rows["slice"], eng, prompts = phase_slice()
-        if runs("profile"):
-            phase_profile(eng, prompts)
-        # free the serving model and engine before training
-        del eng
+    serving = [p for p in ("slice", "profile", "slice_int8",
+                           "slice_sampled_prefix") if runs(p)]
+    if serving:
+        from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+
+        model = LlamaForCausalLM(llama2_7b(dtype="bfloat16"), device="cuda",
+                                 seed=0)
+        ref = None
+        if runs("slice") or runs("profile"):
+            rows["slice"], eng, prompts, out = phase_slice(model)
+            ref = (rows["slice"], out)
+            if runs("profile"):
+                phase_profile(eng, prompts)
+            del eng
+        if runs("slice_int8"):
+            rows["slice_int8"], eng, _, _ = phase_slice(
+                model, kv_cache_dtype="int8", reference=ref)
+            del eng
+        if runs("slice_sampled_prefix"):
+            rows["slice_sampled_prefix"] = phase_slice_sampled_prefix(model)
+        # free the serving model and engines before training
+        del model
         gc.collect()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()

@@ -11,7 +11,9 @@ batching engine (``inference.continuous``), with ragged paged attention
 and paged decode attention as CUDA kernels. Slice 2 ports the training
 path: ``jit_api.TrainStep`` over ``LlamaForCausalLM`` with recompute, the
 fused linear cross-entropy and AdamW, and flash attention forward and
-backward (MHA and GQA) as CUDA kernels.
+backward (MHA and GQA) as CUDA kernels. Slice 3 extends serving: int8 KV
+pools (the int8 codec, ``ops.quantization``, and int8-pool variants of the
+two serving kernels), sampling (``generation``) and the prefix cache.
 """
 from . import device
 

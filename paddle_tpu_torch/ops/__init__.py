@@ -1,3 +1,4 @@
 """Attention ops of the serving and training paths, each with a
 hand-written CUDA kernel (``csrc/``, built by ``_build``) and its plain
-PyTorch version."""
+PyTorch version; the int8 KV codec of the serving pools
+(``quantization``)."""

@@ -15,6 +15,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,6 +113,48 @@ def check(ok, kernel, what):
     """Raise ValueError for an operand the kernel does not take."""
     if not ok:
         raise ValueError(f"{kernel}: {what}")
+
+
+def pool_operands(kernel, q, k_pages, v_pages):
+    """Validate a K/V pool pair for a kernel of query ``q``: both float in
+    q's dtype, or both int8 ``QuantizedTensor``s (int8 codes, f32 scales
+    ``[Hkv, P, bs, 1]``). Returns the data pointers in the C entry's order
+    (k, v; or k codes, k scales, v codes, v scales) and the weight shape
+    ``(Hkv, P, bs, D)``."""
+    from .quantization import is_quantized
+
+    quant = is_quantized(k_pages)
+    check(quant == is_quantized(v_pages), kernel,
+          "k and v pools must both be int8 or both float")
+    if quant:
+        tensors = (k_pages.weight, k_pages.scales, v_pages.weight,
+                   v_pages.scales)
+        shape = tuple(k_pages.weight.shape)
+        for pool in (k_pages, v_pages):
+            check(pool.weight.dtype == torch.int8
+                  and pool.scales.dtype == torch.float32, kernel,
+                  "an int8 pool is int8 codes with float32 scales")
+            check(tuple(pool.weight.shape) == shape
+                  and tuple(pool.scales.shape) == shape[:3] + (1,), kernel,
+                  "int8 pools must be codes [Hkv, P, bs, D] with scales "
+                  "[Hkv, P, bs, 1]")
+    else:
+        tensors = (k_pages, v_pages)
+        shape = tuple(k_pages.shape)
+        check(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype, kernel,
+              "float pools must have q's dtype")
+        check(tuple(v_pages.shape) == shape, kernel,
+              "pools must be [Hkv, P, bs, D]")
+    check(q.is_cuda, kernel, "q must be a CUDA tensor")
+    check(str(q.dtype) in DTYPE_CODES, kernel,
+          f"dtype {q.dtype} not in {sorted(DTYPE_CODES)}")
+    check(len(shape) == 4, kernel, "pools must be [Hkv, P, bs, D]")
+    for t in tensors:
+        check(t.device == q.device, kernel, "operands must share q's device")
+        check(t.is_contiguous(), kernel, "operands must be contiguous")
+        check(t.data_ptr() % 16 == 0, kernel,
+              "operands must be 16-byte aligned")
+    return [t.data_ptr() for t in tensors], shape
 
 
 def check_status(rc, kernel):

@@ -29,6 +29,16 @@
 //
 // Rows frozen at the scratch page (engine caps 0) arrive with lengths = 1
 // and page-table row 0: they read page 0, offset 0, which is legal.
+//
+// The int8 variant (paged_decode_attention_int8_launch) reads an int8 pool:
+// codes [Hkv, P, bs, D] plus one f32 scale per row. A lane's D/32 codes are
+// one 4-byte load at D = 128, and a page's scales are one load per lane
+// (lane t holds row t's; page_size <= 32), passed to the warp by a shuffle
+// as each row is read. Each row costs D + 4 bytes instead of 2D in bf16:
+// the byte floor falls to (D + 4) / 2D = 0.52 of the bf16 kernel's. The
+// codes are dequantized in registers (code * scale / 127.5, in f32) and
+// everything after the load is the float kernel's arithmetic; q and the
+// output stay f32 or bf16.
 
 #include "attention_common.cuh"
 
@@ -38,15 +48,21 @@ using namespace ptt;
 
 constexpr int kWarps = 8;
 
-template <typename T, int D, int G>
+// KT: the pool's element type, T (float pool) or int8_t (int8 pool, with
+// per-row scales k_scales / v_scales [Hkv, P, bs]; unread for a float pool)
+template <typename T, typename KT, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
+    paged_decode_kernel(const T* __restrict__ q,
+                        const KT* __restrict__ k_pages,
+                        const KT* __restrict__ v_pages,
+                        const float* __restrict__ k_scales,
+                        const float* __restrict__ v_scales,
                         const int* __restrict__ lengths,
                         const int* __restrict__ page_indices,
                         T* __restrict__ out, int num_pages, int page_size,
                         int pages_per_seq, float scale) {
   constexpr int EPL = D / 32;
+  constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int num_kv_heads = gridDim.y;
@@ -74,18 +90,32 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   const size_t page_elems = (size_t)page_size * D;
-  const T* kh = k_pages + (size_t)h * num_pages * page_elems + lane * EPL;
-  const T* vh = v_pages + (size_t)h * num_pages * page_elems + lane * EPL;
+  const KT* kh = k_pages + (size_t)h * num_pages * page_elems + lane * EPL;
+  const KT* vh = v_pages + (size_t)h * num_pages * page_elems + lane * EPL;
+  const size_t head_rows = (size_t)h * num_pages * page_size;  // scale rows
   const int* pt = page_indices + (size_t)b * pages_per_seq;
   for (int j = warp; j < npages; j += kWarps) {
-    const size_t base = (size_t)pt[j] * page_elems;
+    const size_t prow = (size_t)pt[j] * page_size;
+    const size_t base = prow * D;
     const int ntok = min(page_size, len - j * page_size);
+    float ksc = 0.f;  // int8 pool: lane t holds row t's scales
+    float vsc = 0.f;
+    if constexpr (kInt8) {
+      if (lane < ntok) {
+        ksc = k_scales[head_rows + prow + lane];
+        vsc = v_scales[head_rows + prow + lane];
+      }
+    }
 #pragma unroll 4
     for (int t = 0; t < ntok; ++t) {
       float kr[EPL];
       float vr[EPL];
-      load_row<T, EPL>(kh + base + (size_t)t * D, kr);
-      load_row<T, EPL>(vh + base + (size_t)t * D, vr);
+      load_row<KT, EPL>(kh + base + (size_t)t * D, kr);
+      load_row<KT, EPL>(vh + base + (size_t)t * D, vr);
+      if constexpr (kInt8) {  // ntok is uniform over the warp
+        dequantize<EPL>(kr, __shfl_sync(0xffffffffu, ksc, t));
+        dequantize<EPL>(vr, __shfl_sync(0xffffffffu, vsc, t));
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
@@ -130,63 +160,47 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, typename KT, int D, int G>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const void* k_scales, const void* v_scales,
                    const void* lengths, const void* page_indices, void* out,
                    int batch, int num_kv_heads, int num_pages, int page_size,
                    int pages_per_seq, float scale, cudaStream_t stream) {
   dim3 grid(batch, num_kv_heads);
-  paged_decode_kernel<T, D, G><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(lengths),
+  paged_decode_kernel<T, KT, D, G><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k_pages),
+      static_cast<const KT*>(v_pages), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
       static_cast<const int*>(page_indices), static_cast<T*>(out), num_pages,
       page_size, pages_per_seq, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_group(int group, const void* q, const void* k_pages,
-                         const void* v_pages, const void* lengths,
-                         const void* page_indices, void* out, int batch,
-                         int num_kv_heads, int num_pages, int page_size,
-                         int pages_per_seq, float scale, cudaStream_t stream) {
-#define PTT_CASE(G_)                                                        \
-  case G_:                                                                  \
-    return launch<T, D, G_>(q, k_pages, v_pages, lengths, page_indices, out, \
-                            batch, num_kv_heads, num_pages, page_size,      \
-                            pages_per_seq, scale, stream);
-  switch (group) {
-    PTT_CASE(1)
-    PTT_CASE(2)
-    PTT_CASE(4)
-    PTT_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PTT_CASE
-}
-
-template <typename T>
-cudaError_t launch_dim(int head_dim, int group, const void* q,
+// One dispatch over head_dim and group for a (q type, pool type) pair.
+template <typename T, typename KT>
+cudaError_t launch_any(int head_dim, int group, const void* q,
                        const void* k_pages, const void* v_pages,
+                       const void* k_scales, const void* v_scales,
                        const void* lengths, const void* page_indices,
                        void* out, int batch, int num_kv_heads, int num_pages,
                        int page_size, int pages_per_seq, float scale,
                        cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch_group<T, 64>(group, q, k_pages, v_pages, lengths,
-                                 page_indices, out, batch, num_kv_heads,
-                                 num_pages, page_size, pages_per_seq, scale,
-                                 stream);
-    case 128:
-      return launch_group<T, 128>(group, q, k_pages, v_pages, lengths,
-                                  page_indices, out, batch, num_kv_heads,
-                                  num_pages, page_size, pages_per_seq, scale,
-                                  stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define PTT_CASE(D_, G_)                                                    \
+  if (head_dim == D_ && group == G_)                                        \
+    return launch<T, KT, D_, G_>(q, k_pages, v_pages, k_scales, v_scales,   \
+                                 lengths, page_indices, out, batch,         \
+                                 num_kv_heads, num_pages, page_size,        \
+                                 pages_per_seq, scale, stream);
+  PTT_CASE(64, 1)
+  PTT_CASE(64, 2)
+  PTT_CASE(64, 4)
+  PTT_CASE(64, 8)
+  PTT_CASE(128, 1)
+  PTT_CASE(128, 2)
+  PTT_CASE(128, 4)
+  PTT_CASE(128, 8)
+#undef PTT_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -203,13 +217,39 @@ extern "C" int paged_decode_attention_launch(
     int pages_per_seq, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return launch_dim<float>(head_dim, group, q, k_pages, v_pages, lengths,
-                             page_indices, out, batch, num_kv_heads, num_pages,
-                             page_size, pages_per_seq, scale, s);
+    return launch_any<float, float>(
+        head_dim, group, q, k_pages, v_pages, nullptr, nullptr, lengths,
+        page_indices, out, batch, num_kv_heads, num_pages, page_size,
+        pages_per_seq, scale, s);
   if (dtype == ptt::kBFloat16)
-    return launch_dim<__nv_bfloat16>(head_dim, group, q, k_pages, v_pages,
-                                     lengths, page_indices, out, batch,
-                                     num_kv_heads, num_pages, page_size,
-                                     pages_per_seq, scale, s);
+    return launch_any<__nv_bfloat16, __nv_bfloat16>(
+        head_dim, group, q, k_pages, v_pages, nullptr, nullptr, lengths,
+        page_indices, out, batch, num_kv_heads, num_pages, page_size,
+        pages_per_seq, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// The int8 variant: the same operands, each pool given as int8 codes
+// [num_kv_heads, num_pages, page_size, head_dim] and f32 scales
+// [num_kv_heads, num_pages, page_size, 1]; q/out f32 or bf16 (dtype);
+// page_size <= 32.
+extern "C" int paged_decode_attention_int8_launch(
+    const void* q, const void* k_codes, const void* k_scales,
+    const void* v_codes, const void* v_scales, const void* lengths,
+    const void* page_indices, void* out, int batch, int num_kv_heads,
+    int group, int head_dim, int num_pages, int page_size, int pages_per_seq,
+    float scale, int dtype, void* stream) {
+  if (page_size > 32) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kFloat32)
+    return launch_any<float, int8_t>(
+        head_dim, group, q, k_codes, v_codes, k_scales, v_scales, lengths,
+        page_indices, out, batch, num_kv_heads, num_pages, page_size,
+        pages_per_seq, scale, s);
+  if (dtype == ptt::kBFloat16)
+    return launch_any<__nv_bfloat16, int8_t>(
+        head_dim, group, q, k_codes, v_codes, k_scales, v_scales, lengths,
+        page_indices, out, batch, num_kv_heads, num_pages, page_size,
+        pages_per_seq, scale, s);
   return cudaErrorInvalidValue;
 }

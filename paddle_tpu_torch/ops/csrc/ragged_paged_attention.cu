@@ -33,6 +33,14 @@
 // pages over 3.35 TB/s or the products over the bf16 tensor-core peak,
 // whichever is larger; wgmma tiles, TMA page loads and double buffering
 // are later work.
+//
+// The int8 variant (ragged_paged_attention_int8_launch) reads an int8 pool:
+// codes [Hkv, P, bs, D] plus one f32 scale per row. A block dequantizes
+// each page once as it stages it (code * scale / 127.5, in f32; 16 codes
+// per thread and load) into f32 shared memory, so the four warps that all
+// read every staged row share one dequantization; everything after staging
+// is the float kernel's arithmetic, and q and the output stay f32 or bf16.
+// Each live row costs D + 4 bytes of device memory instead of 2D in bf16.
 
 #include "attention_common.cuh"
 
@@ -44,10 +52,15 @@ constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;  // (token, head) pairs a block
 
-template <typename T, int D>
+// KT: the pool's element type, T (float pool) or int8_t (int8 pool, with
+// per-row scales k_scales / v_scales [Hkv, P, bs]; unread for a float pool)
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    ragged_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
+    ragged_paged_kernel(const T* __restrict__ q,
+                        const KT* __restrict__ k_pages,
+                        const KT* __restrict__ v_pages,
+                        const float* __restrict__ k_scales,
+                        const float* __restrict__ v_scales,
                         const int* __restrict__ kv_lens,
                         const int* __restrict__ page_indices,
                         const int* __restrict__ cu_q_lens,
@@ -55,9 +68,11 @@ __global__ void __launch_bounds__(kWarps * 32)
                         int group, int num_pages, int page_size,
                         int pages_per_seq, float scale) {
   constexpr int EPL = D / 32;
+  constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
+  using ST = std::conditional_t<kInt8, float, KT>;  // staged element type
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);
-  T* vs = ks + (size_t)page_size * D;
+  ST* ks = reinterpret_cast<ST*>(smem_raw);
+  ST* vs = ks + (size_t)page_size * D;
 
   const int b = blockIdx.x;
   const int tile = blockIdx.y;
@@ -120,17 +135,28 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int* pt = page_indices + (size_t)b * pages_per_seq;
   const size_t page_elems = (size_t)page_size * D;
-  const T* kh = k_pages + (size_t)h * num_pages * page_elems;
-  const T* vh = v_pages + (size_t)h * num_pages * page_elems;
-  const int vec_per_page = (int)(page_elems * sizeof(T) / 16);
+  const KT* kh = k_pages + (size_t)h * num_pages * page_elems;
+  const KT* vh = v_pages + (size_t)h * num_pages * page_elems;
+  const size_t head_rows = (size_t)h * num_pages * page_size;  // scale rows
+  const int vec_per_page = (int)(page_elems * sizeof(KT) / 16);
   for (int j = 0; j < npages; ++j) {
     __syncthreads();  // the previous page is consumed by every warp
     const size_t base = (size_t)pt[j] * page_elems;
     const uint4* ksrc = reinterpret_cast<const uint4*>(kh + base);
     const uint4* vsrc = reinterpret_cast<const uint4*>(vh + base);
-    for (int idx = threadIdx.x; idx < vec_per_page; idx += blockDim.x) {
-      reinterpret_cast<uint4*>(ks)[idx] = ksrc[idx];
-      reinterpret_cast<uint4*>(vs)[idx] = vsrc[idx];
+    if constexpr (kInt8) {
+      // 16 codes a load, all of one row (D is a multiple of 16)
+      const size_t srow = head_rows + (size_t)pt[j] * page_size;
+      for (int idx = threadIdx.x; idx < vec_per_page; idx += blockDim.x) {
+        const int t = idx * 16 / D;
+        dequantize16(ksrc[idx], k_scales[srow + t], ks + (size_t)idx * 16);
+        dequantize16(vsrc[idx], v_scales[srow + t], vs + (size_t)idx * 16);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < vec_per_page; idx += blockDim.x) {
+        reinterpret_cast<uint4*>(ks)[idx] = ksrc[idx];
+        reinterpret_cast<uint4*>(vs)[idx] = vsrc[idx];
+      }
     }
     __syncthreads();
     const int p0 = j * page_size;
@@ -144,8 +170,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int t = 0; t < nmax; ++t) {
       float kr[EPL];
       float vr[EPL];
-      load_row<T, EPL>(ks + (size_t)t * D + lane * EPL, kr);
-      load_row<T, EPL>(vs + (size_t)t * D + lane * EPL, vr);
+      load_row<ST, EPL>(ks + (size_t)t * D + lane * EPL, kr);
+      load_row<ST, EPL>(vs + (size_t)t * D + lane * EPL, vr);
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         if (t < n[i]) {  // uniform over the warp
@@ -176,8 +202,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const void* k_scales, const void* v_scales,
                    const void* kv_lens, const void* page_indices,
                    const void* cu_q_lens, void* out, int num_tokens,
                    int num_seqs, int num_kv_heads, int group, int num_pages,
@@ -186,35 +213,43 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const int tokens_per_tile = kRows / group;
   dim3 grid(num_seqs + 1, (num_tokens + tokens_per_tile - 1) / tokens_per_tile,
             num_kv_heads);
-  const size_t smem = 2 * (size_t)page_size * D * sizeof(T);
-  ragged_paged_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(kv_lens),
+  // two staged pages: int8 codes are staged dequantized, as f32
+  const size_t smem = 2 * (size_t)page_size * D *
+                      (std::is_same_v<KT, int8_t> ? sizeof(float) : sizeof(KT));
+  ragged_paged_kernel<T, KT, D><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k_pages),
+      static_cast<const KT*>(v_pages), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const int*>(kv_lens),
       static_cast<const int*>(page_indices),
       static_cast<const int*>(cu_q_lens), static_cast<T*>(out), num_tokens,
       num_seqs, group, num_pages, page_size, pages_per_seq, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k_pages,
-                       const void* v_pages, const void* kv_lens,
+// One dispatch over head_dim for a (q type, pool type) pair.
+template <typename T, typename KT>
+cudaError_t launch_any(int head_dim, const void* q, const void* k_pages,
+                       const void* v_pages, const void* k_scales,
+                       const void* v_scales, const void* kv_lens,
                        const void* page_indices, const void* cu_q_lens,
                        void* out, int num_tokens, int num_seqs,
                        int num_kv_heads, int group, int num_pages,
                        int page_size, int pages_per_seq, float scale,
                        cudaStream_t stream) {
+  if (group < 1 || kRows % group != 0) return cudaErrorInvalidValue;
   switch (head_dim) {
     case 64:
-      return launch<T, 64>(q, k_pages, v_pages, kv_lens, page_indices,
-                           cu_q_lens, out, num_tokens, num_seqs, num_kv_heads,
-                           group, num_pages, page_size, pages_per_seq, scale,
-                           stream);
+      return launch<T, KT, 64>(q, k_pages, v_pages, k_scales, v_scales,
+                               kv_lens, page_indices, cu_q_lens, out,
+                               num_tokens, num_seqs, num_kv_heads, group,
+                               num_pages, page_size, pages_per_seq, scale,
+                               stream);
     case 128:
-      return launch<T, 128>(q, k_pages, v_pages, kv_lens, page_indices,
-                            cu_q_lens, out, num_tokens, num_seqs,
-                            num_kv_heads, group, num_pages, page_size,
-                            pages_per_seq, scale, stream);
+      return launch<T, KT, 128>(q, k_pages, v_pages, k_scales, v_scales,
+                                kv_lens, page_indices, cu_q_lens, out,
+                                num_tokens, num_seqs, num_kv_heads, group,
+                                num_pages, page_size, pages_per_seq, scale,
+                                stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -235,17 +270,42 @@ extern "C" int ragged_paged_attention_launch(
     void* out, int num_tokens, int num_seqs, int num_kv_heads, int group,
     int head_dim, int num_pages, int page_size, int pages_per_seq, float scale,
     int dtype, void* stream) {
-  if (group < 1 || kRows % group != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return launch_dim<float>(head_dim, q, k_pages, v_pages, kv_lens,
-                             page_indices, cu_q_lens, out, num_tokens,
-                             num_seqs, num_kv_heads, group, num_pages,
-                             page_size, pages_per_seq, scale, s);
+    return launch_any<float, float>(
+        head_dim, q, k_pages, v_pages, nullptr, nullptr, kv_lens,
+        page_indices, cu_q_lens, out, num_tokens, num_seqs, num_kv_heads,
+        group, num_pages, page_size, pages_per_seq, scale, s);
   if (dtype == ptt::kBFloat16)
-    return launch_dim<__nv_bfloat16>(head_dim, q, k_pages, v_pages, kv_lens,
-                                     page_indices, cu_q_lens, out, num_tokens,
-                                     num_seqs, num_kv_heads, group, num_pages,
-                                     page_size, pages_per_seq, scale, s);
+    return launch_any<__nv_bfloat16, __nv_bfloat16>(
+        head_dim, q, k_pages, v_pages, nullptr, nullptr, kv_lens,
+        page_indices, cu_q_lens, out, num_tokens, num_seqs, num_kv_heads,
+        group, num_pages, page_size, pages_per_seq, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// The int8 variant: the same operands, each pool given as int8 codes
+// [num_kv_heads, num_pages, page_size, head_dim] and f32 scales
+// [num_kv_heads, num_pages, page_size, 1]; q/out f32 or bf16 (dtype). The
+// two staged pages (dequantized, f32) take 2 * page_size * head_dim * 4
+// bytes, which must fit 48 KB.
+extern "C" int ragged_paged_attention_int8_launch(
+    const void* q, const void* k_codes, const void* k_scales,
+    const void* v_codes, const void* v_scales, const void* kv_lens,
+    const void* page_indices, const void* cu_q_lens, void* out,
+    int num_tokens, int num_seqs, int num_kv_heads, int group, int head_dim,
+    int num_pages, int page_size, int pages_per_seq, float scale, int dtype,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::kFloat32)
+    return launch_any<float, int8_t>(
+        head_dim, q, k_codes, v_codes, k_scales, v_scales, kv_lens,
+        page_indices, cu_q_lens, out, num_tokens, num_seqs, num_kv_heads,
+        group, num_pages, page_size, pages_per_seq, scale, s);
+  if (dtype == ptt::kBFloat16)
+    return launch_any<__nv_bfloat16, int8_t>(
+        head_dim, q, k_codes, v_codes, k_scales, v_scales, kv_lens,
+        page_indices, cu_q_lens, out, num_tokens, num_seqs, num_kv_heads,
+        group, num_pages, page_size, pages_per_seq, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -8,10 +8,15 @@ over the shared page pool through its own page-table row. Query i of row b
 ``< kv_lens[b] - q_len + i + 1``: ``kv_lens`` counts tokens AFTER this
 step's writes.
 
+The pool is float (q's dtype) or int8: a ``QuantizedTensor(weight,
+scales)`` pair of int8 codes and one f32 scale per row
+(``ops/quantization.py``).
+
 ``ragged_paged_attention`` picks its tier from the tensor's device: a CUDA
 tensor launches the hand-written kernel K4
-(``csrc/ragged_paged_attention.cu``), a CPU tensor runs the plain version
-``_ragged_math``. There is no fallback between them.
+(``csrc/ragged_paged_attention.cu``; its int8 variant for an int8 pool), a
+CPU tensor runs the plain version ``_ragged_math``. There is no fallback
+between them.
 """
 import ctypes
 import dataclasses
@@ -19,13 +24,15 @@ import dataclasses
 import torch
 
 from . import _build
+from .quantization import from_int8, is_quantized, quantize_to_int8
 
 
 @dataclasses.dataclass
 class RaggedLayerCache:
     """One layer's ragged paged cache view.
 
-    k_pages/v_pages: [num_kv_heads, num_pages, page_size, head_dim]
+    k_pages/v_pages: [num_kv_heads, num_pages, page_size, head_dim], or
+                     a QuantizedTensor of that weight shape (int8 pool)
     page_indices:    [S, pages_per_seq] int32 rows into the pool
     kv_lens:         [S] int32 — valid tokens per row AFTER this step's
                      writes land (post-write totals; self-attention incl.)
@@ -35,8 +42,8 @@ class RaggedLayerCache:
     valid:           [T] bool — False for pad tokens (writes -> scratch)
     """
 
-    k_pages: torch.Tensor
-    v_pages: torch.Tensor
+    k_pages: object
+    v_pages: object
     page_indices: torch.Tensor
     kv_lens: torch.Tensor
     cu_q_lens: torch.Tensor
@@ -46,7 +53,8 @@ class RaggedLayerCache:
 
     @property
     def page_size(self):
-        return self.k_pages.shape[2]
+        k = self.k_pages
+        return (k.weight if is_quantized(k) else k).shape[2]
 
 
 def write_ragged_kv(pages, page_indices, row_of, token_pos, valid, new):
@@ -57,13 +65,24 @@ def write_ragged_kv(pages, page_indices, row_of, token_pos, valid, new):
     new: [T, Hkv, D]. Token t lands at absolute position token_pos[t] of
     row row_of[t] -> page page_indices[row_of[t], token_pos[t] // bs],
     offset token_pos[t] % bs. Invalid (pad) tokens go to scratch page 0,
-    offset 0; their duplicate writes collide only with each other there."""
-    bs = pages.shape[2]
+    offset 0; their duplicate writes collide only with each other there.
+    An int8 pool takes the f32 upcast quantized per (token, head): codes
+    and scale written in place. At the scratch row the codes and the scale
+    may then come from different pad tokens; that is harmless, since the
+    scratch page is never read."""
+    quant = is_quantized(pages)
+    bs = (pages.weight if quant else pages).shape[2]
     row_of, token_pos = row_of.long(), token_pos.long()
     page_of = torch.where(valid, page_indices.long()[row_of, token_pos // bs],
                           0)
     off = torch.where(valid, token_pos % bs, 0)
-    pages[:, page_of, off, :] = new.transpose(0, 1).to(pages.dtype)
+    new_ht = new.transpose(0, 1)   # [Hkv, T, D]
+    if quant:
+        qt = quantize_to_int8(new_ht.float())
+        pages.weight[:, page_of, off, :] = qt.weight
+        pages.scales[:, page_of, off, :] = qt.scales.to(pages.scales.dtype)
+        return pages
+    pages[:, page_of, off, :] = new_ht.to(pages.dtype)
     return pages
 
 
@@ -81,9 +100,11 @@ def _ragged_meta(cu_q_lens, row_of, kv_lens):
 def _ragged_math(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
                  scale):
     """Plain version of K4: online softmax over page columns, each step
-    gathering ONE page per packed token ([T, Hkv, bs, D])."""
+    gathering ONE page per packed token ([T, Hkv, bs, D]; an int8 pool
+    dequantizes the gathered page)."""
     T, Hq, D = q.shape
-    Hkv, _, bs, _ = k_pages.shape
+    quant = is_quantized(k_pages)
+    Hkv, _, bs, _ = (k_pages.weight if quant else k_pages).shape
     npages = page_indices.shape[1]
     group = Hq // Hkv
     cu = cu_q_lens.long()
@@ -97,6 +118,13 @@ def _ragged_math(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
     m = torch.full((T, Hkv, group), -1e30, dtype=torch.float32,
                    device=q.device)
     pt = page_indices.long()
+
+    def gather(pages, pid):
+        if quant:
+            return from_int8(pages.weight[:, pid].transpose(0, 1),
+                             pages.scales[:, pid].transpose(0, 1))
+        return pages[:, pid].transpose(0, 1).float()
+
     # pages past every live row's KV extent are fully masked, so the loop
     # stops at the longest live row (as the reference's dynamic trip count)
     q_lens = cu[1:] - cu[:-1]
@@ -104,8 +132,8 @@ def _ragged_math(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
                              0).max())
     for j in range(min(n_live, npages)):
         pid = pt[row_of, j]
-        kb = k_pages[:, pid].transpose(0, 1).float()   # [T, Hkv, bs, D]
-        vb = v_pages[:, pid].transpose(0, 1).float()
+        kb = gather(k_pages, pid)   # [T, Hkv, bs, D]
+        vb = gather(v_pages, pid)
         s = torch.einsum("thgd,thkd->thgk", qs, kb)
         pos = j * bs + torch.arange(bs, device=q.device)
         s = torch.where(pos[None, None, None, :] < limit[:, None, None, None],
@@ -122,6 +150,9 @@ def _ragged_math(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the int8 entry takes each pool as two pointers: codes and scales
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
 TILE_PAIRS = 16   # (token, query head) pairs per block: group must divide it
 SMEM_LIMIT = 48 * 1024
@@ -129,30 +160,31 @@ SMEM_LIMIT = 48 * 1024
 
 def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
                  scale):
-    """Launch K4 on the current stream; validates every operand first."""
+    """Launch K4 (its int8 variant for an int8 pool) on the current
+    stream; validates every operand first."""
     name = "ragged_paged_attention"
+    quant = is_quantized(k_pages)
     fn = _build.entry("ragged_paged_attention",
-                      "ragged_paged_attention_launch", _ARGTYPES)
+                      "ragged_paged_attention_int8_launch" if quant
+                      else "ragged_paged_attention_launch",
+                      _ARGTYPES_INT8 if quant else _ARGTYPES)
     T, Hq, D = q.shape
-    Hkv, P, bs, Dk = k_pages.shape
+    pool_ptrs, (Hkv, P, bs, Dk) = _build.pool_operands(name, q, k_pages,
+                                                       v_pages)
     S = page_indices.shape[0]
     chk = _build.check
-    chk(q.is_cuda, name, "q must be a CUDA tensor")
-    for t in (k_pages, v_pages, kv_lens, page_indices, cu_q_lens):
+    for t in (kv_lens, page_indices, cu_q_lens):
         chk(t.device == q.device, name, "operands must share q's device")
-    for t in (q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens):
+    for t in (q, kv_lens, page_indices, cu_q_lens):
         chk(t.is_contiguous(), name, "operands must be contiguous")
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
-    chk(str(q.dtype) in _build.DTYPE_CODES, name,
-        f"dtype {q.dtype} not in {sorted(_build.DTYPE_CODES)}")
-    chk(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype, name,
-        "pools must have q's dtype")
-    chk(v_pages.shape == k_pages.shape and Dk == D, name,
-        "pools must be [Hkv, P, bs, D] with q's D")
+    chk(Dk == D, name, "pools must be [Hkv, P, bs, D] with q's D")
     chk(D in HEAD_DIMS, name, f"head_dim {D} not in {HEAD_DIMS}")
     chk(Hq % Hkv == 0 and TILE_PAIRS % (Hq // Hkv) == 0, name,
         f"Hq/Hkv = {Hq}/{Hkv} must divide {TILE_PAIRS}")
-    chk(2 * bs * D * q.element_size() <= SMEM_LIMIT, name,
+    # two staged pages; an int8 pool's are staged dequantized, in f32
+    staged = 2 * bs * D * (4 if quant else q.element_size())
+    chk(staged <= SMEM_LIMIT, name,
         f"two pages of {bs}x{D} exceed {SMEM_LIMIT} bytes of shared memory")
     chk(kv_lens.dtype == torch.int32 and kv_lens.shape == (S,), name,
         "kv_lens must be int32 [S]")
@@ -162,14 +194,17 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
         "cu_q_lens must be int32 [S+1]")
     chk(T > 0, name, "empty token stream")
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),
+    rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
+            page_indices.data_ptr(), cu_q_lens.data_ptr(),
             out.data_ptr(), T, S, Hkv, Hq // Hkv, D, P, bs,
             page_indices.shape[1], float(scale),
             _build.DTYPE_CODES[str(q.dtype)],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_status(rc, name)
-    ragged_paged_attention.launches += 1
+    if quant:
+        ragged_paged_attention.launches_int8 += 1
+    else:
+        ragged_paged_attention.launches += 1
     return out
 
 
@@ -180,9 +215,10 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
     q: [T, Hq, D] packed token stream; returns [T, Hq, D] in q's dtype.
     kv_lens must already include this step's tokens. Pad tokens (beyond
     cu_q_lens[-1]) return finite values that callers discard: zeros from
-    the kernel, the reference's masked garbage from the plain version. A
-    CUDA q launches K4 (counted in ``ragged_paged_attention.launches``); a
-    CPU q runs the plain version."""
+    the kernel, the reference's masked garbage from the plain version. The
+    pools are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches
+    K4 (counted in ``ragged_paged_attention.launches``, the int8 variant in
+    ``.launches_int8``); a CPU q runs the plain version."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if q.device.type == "cpu":
@@ -193,3 +229,4 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_int8 = 0

@@ -9,9 +9,10 @@ the device or the kernel.
 - a kernel wrapper given a CUDA tensor launches its kernel or raises: when
   the kernel library cannot be had it raises, without running the plain
   version and without counting a launch. A stub stands in for the CUDA
-  tensor, so no card is needed. That holds for the serving kernels and for
-  every flash-attention entry, forward and backward, the flash dispatch
-  itself, and the AdamW update;
+  tensor, so no card is needed. That holds for the serving kernels (their
+  int8-pool variants too) and for every flash-attention entry, forward and
+  backward, the flash dispatch itself, and the AdamW update; a K/V pool
+  pair of one int8 and one float pool is refused;
 - the training entry points (``LlamaForCausalLM``, ``TrainStep``) default
   to the card too.
 """
@@ -38,6 +39,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
+from paddle_tpu_torch.ops.quantization import QuantizedTensor
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(paddle_tpu_torch.__file__).parent
@@ -158,6 +160,40 @@ def test_paged_wrapper_raises_without_its_kernel(library_missing):
     with pytest.raises(_build.KernelBuildError, match="paged_attention"):
         tpa.paged_decode_attention(q, None, None, None, None)
     assert tpa.paged_decode_attention.launches == n
+
+
+INT8_CALLS = {
+    "ragged_paged_attention": lambda q, p: trpa.ragged_paged_attention(
+        q, p, p, None, None, None),
+    "paged_decode_attention": lambda q, p: tpa.paged_decode_attention(
+        q, p, p, None, None),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(INT8_CALLS))
+def test_int8_wrappers_raise_without_their_kernels(library_missing, entry):
+    wrapper = (trpa.ragged_paged_attention if entry.startswith("ragged")
+               else tpa.paged_decode_attention)
+    before = (wrapper.launches, wrapper.launches_int8)
+    pool = QuantizedTensor(_CudaStub(2, 5, 16, 16), _CudaStub(2, 5, 16, 1))
+    with pytest.raises(_build.KernelBuildError,
+                       match=entry.replace("_decode", "")):
+        INT8_CALLS[entry](_CudaStub(4, 4, 16), pool)
+    assert (wrapper.launches, wrapper.launches_int8) == before
+
+
+def test_kernels_refuse_a_mixed_int8_and_float_pool_pair():
+    q = torch.zeros(4, 4, 16)
+    codes = torch.zeros(2, 5, 16, 16, dtype=torch.int8)
+    int8 = QuantizedTensor(codes, torch.ones(2, 5, 16, 1))
+    with pytest.raises(ValueError, match="both be int8 or both float"):
+        _build.pool_operands("k", q, int8, torch.zeros(2, 5, 16, 16))
+    with pytest.raises(ValueError, match="both be int8 or both float"):
+        _build.pool_operands("k", q, torch.zeros(2, 5, 16, 16), int8)
+    bad_scales = QuantizedTensor(codes, torch.ones(2, 5, 16, 1,
+                                                   dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="float32 scales"):
+        _build.pool_operands("k", q, bad_scales, bad_scales)
 
 
 def test_training_entry_points_default_to_the_card(no_cuda):
