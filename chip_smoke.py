@@ -18,48 +18,64 @@ Phases, one JSON line each (any failed phase exits non-zero):
 4. k2     — the same for GQA (K2): Hq 64 / Hkv 8 (llama2_70b attention),
             also held to the plain version with the splash kernel's
             rounding of q;
-5. adamw  — the AdamW update kernel against its plain version;
-6. codec  — the int8 KV codec on the card against the CPU: codes, scales
+5. k3     — segment-masked flash attention (K3), held as k1 is: packed
+            rows of LLaMA-2-7B attention (B 2, S 2048 packed from
+            conversations of 64-1024 tokens, bf16, causal), MHA with K1's
+            causal forward and forward + backward timed beside, GQA 64/8,
+            an f32 case; the varlen form ([total, 32, 128], total no
+            multiple of 64) causal and full, cross-offset, and with an
+            empty key sequence; bounds from the visible pairs alone, and
+            F.sdpa with the boolean segment mask as the library time;
+6. adamw  — the AdamW update kernel against its plain version;
+7. codec  — the int8 KV codec on the card against the CPU: codes, scales
             and dequantized values bit-identical (zero, +-absmax and .5-tie
             rows included);
-7. k4, k5 — ragged paged attention (K4) and paged decode attention (K5)
+8. k4, k5 — ragged paged attention (K4) and paged decode attention (K5)
             against their plain versions at LLaMA-2-7B attention shapes
             (MHA, then GQA), with CUDA-event timings;
-8. k4_int8, k5_int8 — their int8-pool variants likewise, q in bf16 and
+9. k4_int8, k5_int8 — their int8-pool variants likewise, q in bf16 and
             f32;
-9. serve_equal — LLaMA-2-7B widths, 2 layers, f32: tokens served on the
+10. serve_equal — LLaMA-2-7B widths, 2 layers, f32: tokens served on the
             card (kernels) equal those served on the CPU (plain versions),
             in four runs: float pools greedy, int8 pools greedy, float
             pools sampled, float pools with the prefix cache;
-10. slice — LLaMA-2-7B, full width and depth, bf16, seeded weights: 8
+11. slice — LLaMA-2-7B, full width and depth, bf16, seeded weights: 8
             requests through the ragged continuous-batching engine, with
             both kernels' launch counts taken over that run alone;
-11. profile — the same traffic again under torch.profiler: device time by
+12. profile — the same traffic again under torch.profiler: device time by
             kernel family and the device's idle share;
-12. slice_int8 — the slice over int8 KV pools: the int8 kernels' launch
+13. slice_int8 — the slice over int8 KV pools: the int8 kernels' launch
             counts (and none of the float ones), the pools' size and the
             share of tokens equal to the bf16 slice's; then its prompts
             once more with 16 new tokens under torch.profiler;
-13. slice_sampled_prefix — the same model, float pools, the prefix cache
+14. slice_sampled_prefix — the same model, float pools, the prefix cache
             and sampling: one request carrying a 512-token system prompt,
             then 8 that share it; prefix_hit_pages must be > 0; then the 8
             once more with 16 new tokens under torch.profiler;
-14. train_equal — f32, LLaMA-2-7B widths, 2 layers, B 1, S 256: three
+15. train_equal — f32, LLaMA-2-7B widths, 2 layers, B 1, S 256: three
             TrainSteps on the card (kernels) and on the CPU (plain
             versions) from the same weights and batches give the same
             losses, the same gradients at every step, and parameters
             apart only where a gradient sat at zero;
-15. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
+16. train_packed_equal — the same on packed rows (S 256 cut into 3-5
+            segments, through K3), then each segment's logits from the
+            packed row against its standalone forward (K1) on the card;
+17. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
             "full", fused linear cross-entropy, AdamW; B 2, S 2048, 2
             warm-up and 8 timed steps; tokens/s, MFU, peak memory, losses
             and the flash kernels' launch counts over the timed steps;
-16. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
-            B 1, S 2048: 1 warm-up and 3 timed steps;
-17. train_profile — two steps of `train` under torch.profiler.
+18. train_profile — two steps of `train` under torch.profiler;
+19. train_packed — SFT packing on `train`'s model and optimizer: B 2 x S
+            2048 of k3's packed rows, 2 warm-up and 8 timed steps, K3's
+            exact launch counts and none of K1's, MFU from the visible
+            pairs, `train`'s step time beside; two steps profiled;
+20. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
+            B 1, S 2048: 1 warm-up and 3 timed steps.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and the contract's last line. ``--only k1,k2`` runs the named phases alone
-(with the build), to iterate on a kernel: it ends in a ``partial_run`` line
+(with the build), to iterate on a kernel (``--only k3,train_packed_equal,
+train_packed`` for the packed path): it ends in a ``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
 a run of every phase (no arguments) reads as a passing smoke. Imports no
 JAX and nothing of the JAX package.
@@ -78,10 +94,10 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense tensor-core bf16
 TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
              "torch.float32": (1e-4, 1e-4)}   # summation order only
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
-PHASES = ("k1", "k2", "adamw", "codec", "k4", "k5", "k4_int8", "k5_int8",
-          "serve_equal", "slice", "profile", "slice_int8",
-          "slice_sampled_prefix", "train_equal", "train", "train_profile",
-          "train_gqa")
+PHASES = ("k1", "k2", "k3", "adamw", "codec", "k4", "k5", "k4_int8",
+          "k5_int8", "serve_equal", "slice", "profile", "slice_int8",
+          "slice_sampled_prefix", "train_equal", "train_packed_equal",
+          "train", "train_profile", "train_packed", "train_gqa")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 PAGES_PER_SEQ = MAX_LEN // BS
@@ -757,7 +773,10 @@ def _family(name):
     for kernel in ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv",
                    "flash_bwd_dq"):
         if kernel + "_kernel" in name:
-            return "flash_attention_" + kernel.removeprefix("flash_")
+            # K3 is the kernels' segment-mask instantiation (<..., true>;
+            # its delta pass is K1's kernel)
+            seg = "seg_" if "true>" in name else ""
+            return "flash_attention_" + seg + kernel.removeprefix("flash_")
     if "adamw_kernel" in name:
         return "adamw_update"
     if any(s in name.lower()
@@ -804,7 +823,7 @@ def row_check(got, want, elementwise, spare=None):
     diff = g - w
     norm = w.norm(dim=-1)
     rms_row = float(norm.square().mean().sqrt())
-    ratio = diff.norm(dim=-1) / (norm + 0.1 * rms_row)
+    ratio = _row_ratios(got, want)
     bad = ratio > tol
     out = {"max_abs_err": float(diff.abs().max()),
            "max_abs_want": float(w.abs().max()),
@@ -823,6 +842,15 @@ def row_check(got, want, elementwise, spare=None):
         out["bad_elements"] = int((diff.abs() > atol + rtol * w.abs()).sum())
     out["finite"] = bool(torch.isfinite(g).all())
     return out
+
+
+def _row_ratios(got, want):
+    """Per row (the last dim), ``row_check``'s ratio of the row's error
+    to its limit's scale."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    norm = w.norm(dim=-1)
+    return (g - w).norm(dim=-1) / (norm + 0.1 * norm.square().mean().sqrt())
 
 
 def _few_keys(B, sq, sk, hq, causal, device="cuda"):
@@ -844,31 +872,40 @@ def _visible_pairs(sq, sk, causal):
     return sum(min(sk, max(0, i + off + 1)) for i in range(sq))
 
 
-def _flash_bounds(B, sq, sk, hq, hkv, elt, causal):
+def _flash_bounds(pairs, B, sq, sk, hq, hkv, elt, id_bytes=0):
     """{entry: (bytes, ops)}: each input read once, each output written
-    once; ops of the products the visible pairs need (2 flops per
-    multiply-add): forward Q K^T and P V; dK/dV also recomputes S and dP;
-    dQ needs S, dP and dS K. `bwd` is the whole backward at 2.5x the
-    forward's products."""
-    pairs = _visible_pairs(sq, sk, causal) * B * hq
+    once (``id_bytes``: K3's segment ids, positions and range table); ops
+    of the products the ``pairs`` visible (query, key, head) triples need
+    (2 flops per multiply-add): forward Q K^T and P V; dK/dV also
+    recomputes S and dP; dQ needs S, dP and dS K. `bwd` is the whole
+    backward at 2.5x the forward's products."""
     nq, nk = B * sq * hq * D, B * sk * hkv * D
     rows = B * hq * sq * 4
     fwd_ops = 4 * pairs * D
     return {
-        "fwd": ((2 * nq + 2 * nk) * elt + rows, fwd_ops),
+        "fwd": ((2 * nq + 2 * nk) * elt + rows + id_bytes, fwd_ops),
         "bwd_delta": (2 * nq * elt + rows, 2 * nq),
-        "bwd_dkdv": ((2 * nq + 4 * nk) * elt + 2 * rows, 2 * fwd_ops),
-        "bwd_dq": ((3 * nq + 2 * nk) * elt + 2 * rows, 3 * fwd_ops // 2),
-        "bwd": ((4 * nq + 4 * nk) * elt + 2 * rows, 5 * fwd_ops // 2),
+        "bwd_dkdv": ((2 * nq + 4 * nk) * elt + 2 * rows + id_bytes,
+                     2 * fwd_ops),
+        "bwd_dq": ((3 * nq + 2 * nk) * elt + 2 * rows + id_bytes,
+                   3 * fwd_ops // 2),
+        "bwd": ((4 * nq + 4 * nk) * elt + 2 * rows + id_bytes,
+                5 * fwd_ops // 2),
     }
 
 
-def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed):
-    """One flash-attention case on the card: each kernel entry against its
-    plain version on the same inputs, and forward and backward end to end
-    against the plain version's autograd; with
-    ``timed``, CUDA-event medians of every entry, the plain version and
-    F.scaled_dot_product_attention (the library time)."""
+def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
+               public=None, beside_k1=False):
+    """One flash-attention case on the card: K1/K2 (``segs`` None, the
+    bottom-right causal mask) or K3 (``segs``, a ``Segments`` on the card).
+    Each kernel entry against its plain version on the same inputs, and
+    forward and backward end to end against the plain version's autograd;
+    ``public(q, k, v)``, the entry point a user calls, must give the
+    kernel's output bit for bit. With ``timed``, CUDA-event medians of
+    every entry, the plain version and F.scaled_dot_product_attention (the
+    library time; K3: with the boolean segment mask, built outside the
+    timed region); ``beside_k1`` also times K1's causal forward and forward
+    + backward on the same tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -880,104 +917,183 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed):
     q, do = rand((B, sq, hq, D)), rand((B, sq, hq, D))
     k, v = rand((B, sk, hkv, D)), rand((B, sk, hkv, D))
     scale = D ** -0.5
+    if segs is None:
+        def attn(a, b, c):
+            return fa.FlashAttention.apply(a, b, c, causal, scale)
 
-    def fwd_bwd(attn):
+        def plain(a, b, c, s=scale):
+            return fa._attention_math(a, b, c, causal, s)
+
+        def plain_bwd(out):
+            return fa._attention_bwd_math(q, k, v, out, do, causal, scale)
+
+        entry = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, causal, scale),
+            "bwd_delta": lambda o: fa.flash_bwd_delta(o, do),
+            "bwd_dkdv": lambda lse, dl: fa.flash_bwd_dkdv(
+                q, k, v, do, lse, dl, causal, scale),
+            "bwd_dq": lambda lse, dl: fa.flash_bwd_dq(
+                q, k, v, do, lse, dl, causal, scale)}
+        few = _few_keys(B, sq, sk, hq, causal)
+        pairs = _visible_pairs(sq, sk, causal) * B * hq
+        id_bytes, lib_mask, extra = 0, None, {}
+    else:
+        # the tables built once, outside the timed calls, as LlamaModel
+        # prepares them once for every layer
+        key_ranges, query_ranges = fa._tile_ranges(segs, causal)
+
+        def attn(a, b, c):
+            return fa.SegmentFlashAttention.apply(
+                a, b, c, *segs, key_ranges, query_ranges, causal, scale)
+
+        def plain(a, b, c, s=scale):
+            return fa._segment_math(a, b, c, segs, causal, s)
+
+        def plain_bwd(out):
+            return fa._segment_bwd_math(q, k, v, out, do, segs, causal,
+                                        scale)
+
+        entry = {
+            "fwd": lambda: fa.seg_flash_fwd(q, k, v, segs, key_ranges,
+                                            causal, scale),
+            "bwd_delta": lambda o: fa.seg_flash_bwd_delta(o, do),
+            "bwd_dkdv": lambda lse, dl: fa.seg_flash_bwd_dkdv(
+                q, k, v, do, lse, dl, segs, query_ranges, causal, scale),
+            "bwd_dq": lambda lse, dl: fa.seg_flash_bwd_dq(
+                q, k, v, do, lse, dl, segs, key_ranges, causal, scale)}
+        seen = segs.mask(causal).sum(-1)
+        few = (seen < FEW_KEYS).reshape(-1).repeat_interleave(hq)
+        pairs = int(seen.sum()) * hq
+        id_bytes = 4 * (segs.seg_q.numel() + segs.pos_q.numel()
+                        + segs.seg_k.numel() + segs.pos_k.numel()
+                        + key_ranges.numel())
+        lib_mask = segs.mask(causal)[:, None]
+        n_kt, n_qt = -(-sk // 64), -(-sq // 64)
+        k1_tiles = (sum(min(n_kt, i + 1) for i in range(n_qt)) if causal
+                    else n_qt * n_kt)
+        extra = {"segments_per_row": [len(torch.unique(r))
+                                      for r in segs.seg_q],
+                 "rows_seeing_no_key": int((seen == 0).sum()),
+                 "tile_pairs_visited": int(
+                     (key_ranges[..., 1] - key_ranges[..., 0]).sum()),
+                 "tile_pairs_k1_causal": B * k1_tiles}
+
+    def fwd_bwd(fn):
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        out = attn(qq, kk, vv, causal, scale)
+        out = fn(qq, kk, vv)
         out.backward(do)
         return out.detach(), qq.grad, kk.grad, vv.grad
 
     def held(got, want, names, spare=None):
         """{tensor: row_check}; O and f32 gradients also element by
-        element; ``spare`` applies to dQ."""
+        element; ``spare``: {tensor: rows counted apart}."""
         return {n: row_check(g, w, n == "o" or dtype == torch.float32,
-                             spare if n == "dq" else None)
+                             (spare or {}).get(n))
                 for n, g, w in zip(names, got, want)}
 
-    got = fwd_bwd(fa.FlashAttention.apply)
+    got = fwd_bwd(attn)
     torch.cuda.synchronize()
-    plain = fwd_bwd(fa._attention_math)
+    want = fwd_bwd(plain)
     # each entry against its plain version on its own inputs: the forward
     # against the plain forward, the backward entries against the plain
-    # backward given the kernel's stored O (``_attention_bwd_math``)
-    checks = held(got, plain, ("o",))
-    checks.update(held(got[1:], fa._attention_bwd_math(
-        q, k, v, got[0], do, causal, scale), ("dq", "dk", "dv")))
+    # backward given the kernel's stored O
+    given_o = plain_bwd(got[0])
+    checks = held(got, want, ("o",))
+    checks.update(held(got[1:], given_o, ("dq", "dk", "dv")))
     # end to end, against autograd of the plain forward: that takes delta
     # = rowsum(dO * O) from the f32 softmax where the kernels (and the
     # reference's TPU kernel) take the stored O, rounded to bf16; in a
     # query row that sees only a few keys P sits on one or two of them
     # and dQ nearly cancels, but delta's rounding does not, so those rows
-    # of dQ are counted apart
-    few = _few_keys(B, sq, sk, hq, causal)
-    end_to_end = held(got[1:], plain[1:], ("dq", "dk", "dv"), few)
+    # of dQ are counted apart. K3's short segments put many more rows near
+    # that regime (query rows seeing tens of keys; the keys of a short
+    # segment's end, seen by a few queries that see a few keys): there
+    # delta's rounding alone, in the plain version, moves a dQ or dK row
+    # past half the limit, and such rows (the plain backward given the
+    # stored O against autograd) are counted apart too
+    spare = {"dq": few}
+    if segs is not None:
+        tol = ROW_TOL[str(dtype)]
+        for i, n in enumerate(("dq", "dk", "dv")):
+            moved = _row_ratios(given_o[i], want[i + 1]) > tol / 2
+            extra[f"{n}_rows_moved_by_delta_rounding"] = int(moved.sum())
+            spare[n] = moved | spare[n] if n in spare else moved
+    del given_o
+    end_to_end = held(got[1:], want[1:], ("dq", "dk", "dv"), spare)
     splash = None
     if hq != hkv and dtype == torch.bfloat16:
-        # the reference's splash kernel (K2) scales q in its storage dtype
-        # before the products (paddle_tpu/ops/flash_attention.py:161); the
-        # port's kernels scale the f32 scores, as K1 does: hold them to
-        # that rounding end to end as well
-        splash = held(got, fwd_bwd(lambda a, b, c, cz, s: fa._attention_math(
-            (a * s).to(a.dtype), b, c, cz, 1.0)), ("o", "dq", "dk", "dv"),
-            few)
-    del plain
-    out, lse = fa.flash_fwd(q, k, v, causal, scale)
-    delta = fa.flash_bwd_delta(out, do)
+        # the reference's splash kernel (K2; K3's GQA too) scales q in its
+        # storage dtype before the products
+        # (paddle_tpu/ops/flash_attention.py:161, :301); the port's kernels
+        # scale the f32 scores, as K1 does: hold them to that rounding end
+        # to end as well
+        splash = held(got, fwd_bwd(lambda a, b, c: plain(
+            (a * scale).to(a.dtype), b, c, 1.0)), ("o", "dq", "dk", "dv"),
+            spare)
+    del want
+    out, lse = entry["fwd"]()
+    delta = entry["bwd_delta"](out)
     want_delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
     err = {name: c["max_abs_err"] for name, c in checks.items()}
     err["delta"] = compare(f"flash delta {hq}/{hkv}", delta,
                            want_delta.contiguous(), B)
     row = {"B": B, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": D,
-           "causal": causal, "dtype": str(dtype), "max_abs_err": err,
-           "checks": checks, "end_to_end": end_to_end}
+           "causal": causal, "dtype": str(dtype), "visible_pairs": pairs,
+           **extra, "max_abs_err": err, "checks": checks,
+           "end_to_end": end_to_end}
     if splash is not None:
         row["end_to_end_splash_rounding"] = splash
+    if public is not None:
+        row["public_entry_equal"] = bool(torch.equal(public(q, k, v),
+                                                     got[0]))
     bad = [f"{against} {name}: {c}"
            for against, cs in (("entry", checks), ("end to end", end_to_end),
                                ("splash", splash or {}))
            for name, c in cs.items()
            if c["bad_rows"] or c["bad_elements"] or not c["finite"]]
+    if row.get("public_entry_equal") is False:
+        bad.append("the public entry point differs from the kernel path")
     if bad:
         emit(row)
-        raise AssertionError(f"flash {hq}/{hkv} causal={causal} {dtype}: "
+        raise AssertionError(f"flash {hq}/{hkv} causal={causal} {dtype}"
+                             f"{' segments' if segs else ''}: "
                              + "; ".join(bad))
     if not timed:
         return row
     kern = {
-        "fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
-        "bwd_delta": cuda_ms(lambda: fa.flash_bwd_delta(out, do)),
-        "bwd_dkdv": cuda_ms(lambda: fa.flash_bwd_dkdv(
-            q, k, v, do, lse, delta, causal, scale)),
-        "bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(
-            q, k, v, do, lse, delta, causal, scale)),
-        "fwd_bwd": cuda_ms(lambda: fwd_bwd(fa.FlashAttention.apply)),
+        "fwd": cuda_ms(entry["fwd"]),
+        "bwd_delta": cuda_ms(lambda: entry["bwd_delta"](out)),
+        "bwd_dkdv": cuda_ms(lambda: entry["bwd_dkdv"](lse, delta)),
+        "bwd_dq": cuda_ms(lambda: entry["bwd_dq"](lse, delta)),
+        "fwd_bwd": cuda_ms(lambda: fwd_bwd(attn)),
     }
     qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
-    plain_out = fa._attention_math(qp, kp, vp, causal, scale)
+    plain_out = plain(qp, kp, vp)
 
     def plain_grad(inputs):
         return lambda: torch.autograd.grad(plain_out, inputs, do,
                                            retain_graph=True)
 
     with torch.no_grad():
-        plain_fwd = cuda_ms(lambda: fa._attention_math(q, k, v, causal,
-                                                       scale), reps=5,
-                            warmup=1)
-    plain = {
+        plain_fwd = cuda_ms(lambda: plain(q, k, v), reps=5, warmup=1)
+    plain_ms = {
         "fwd": plain_fwd,
         "bwd_delta": cuda_ms(lambda: (out.float() * do.float()).sum(-1)
                              .transpose(1, 2).contiguous(), reps=5, warmup=1),
         "bwd_dkdv": cuda_ms(plain_grad((kp, vp)), reps=5, warmup=1),
         "bwd_dq": cuda_ms(plain_grad((qp,)), reps=5, warmup=1),
-        "fwd_bwd": cuda_ms(lambda: fwd_bwd(fa._attention_math), reps=5,
-                           warmup=1),
+        "fwd_bwd": cuda_ms(lambda: fwd_bwd(plain), reps=5, warmup=1),
     }
     del plain_out
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
 
     def sdpa(a, b, c):
+        if lib_mask is None:
+            return F.scaled_dot_product_attention(
+                a, b, c, is_causal=causal, scale=scale,
+                enable_gqa=hq != hkv)
         return F.scaled_dot_product_attention(
-            a, b, c, is_causal=causal, scale=scale, enable_gqa=hq != hkv)
+            a, b, c, attn_mask=lib_mask, scale=scale, enable_gqa=hq != hkv)
 
     def sdpa_fwd_bwd():
         a, b, c = (t.detach().requires_grad_() for t in (qt, kt, vt))
@@ -986,14 +1102,20 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed):
     library = {"fwd": cuda_ms(lambda: sdpa(qt, kt, vt)),
                "fwd_bwd": cuda_ms(sdpa_fwd_bwd)}
     bounds = {}
-    for name, (nbytes, ops) in _flash_bounds(B, sq, sk, hq, hkv,
+    for name, (nbytes, ops) in _flash_bounds(pairs, B, sq, sk, hq, hkv,
                                               q.element_size(),
-                                              causal).items():
+                                              id_bytes).items():
         b_ms, b_by = bound(nbytes, ops, str(dtype))
         bounds[name] = {"bytes": nbytes, "ops": ops, "bound_ms": b_ms,
                         "bound_by": b_by}
-    row.update(kernel_ms=kern, plain_ms=plain, library_ms=library,
+    row.update(kernel_ms=kern, plain_ms=plain_ms, library_ms=library,
                bounds=bounds)
+    if beside_k1:
+        row["k1_causal_ms"] = {
+            "fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, True, scale)),
+            "fwd_bwd": cuda_ms(lambda: fwd_bwd(
+                lambda a, b, c: fa.FlashAttention.apply(a, b, c, True,
+                                                        scale)))}
     return row
 
 
@@ -1019,6 +1141,140 @@ def phase_flash(phase, hq, hkv, seed):
         row = flash_case(gen, c["B"], c["sq"], c["sk"], hq, hkv, c["causal"],
                          c["dtype"], c["timed"])
         row["phase"] = phase
+        emit(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+SFT_LENGTHS = (64, 1024)   # conversation lengths of the packed rows
+
+
+def sft_rows(seed, B, S, lengths=SFT_LENGTHS):
+    """Segment ids [B, S] (int32) of rows packed greedily, in order, from
+    seeded conversation lengths uniform in ``lengths``: a conversation
+    that does not fit in what is left of a row opens the next row, and the
+    row's tail becomes a padding segment with an id of its own. Returns the
+    ids and each row's conversation lengths."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def draw():
+        return int(rng.randint(lengths[0], lengths[1] + 1))
+
+    rows, convs, n = [], [], draw()
+    for _ in range(B):
+        lens = []
+        while sum(lens) + n <= S:
+            lens.append(n)
+            n = draw()
+        parts = lens + ([S - sum(lens)] if sum(lens) < S else [])
+        rows.append(np.concatenate([np.full(m, i, np.int32)
+                                    for i, m in enumerate(parts)]))
+        convs.append(lens)
+    return np.stack(rows), convs
+
+
+def sft_labels(ids, seg, convs):
+    """Next-token labels of packed rows: -100 at each segment's last token
+    (no prediction across a boundary) and on the padding tail."""
+    import numpy as np
+
+    labels = np.roll(ids, -1, axis=1).astype(np.int64)
+    last = np.ones(seg.shape, bool)
+    last[:, :-1] = seg[:, 1:] != seg[:, :-1]
+    labels[last] = -100
+    for b, lens in enumerate(convs):
+        labels[b, sum(lens):] = -100
+    return labels
+
+
+def varlen_offsets(rng, n, pad):
+    """Cumulative offsets of ``n`` seeded lengths in SFT_LENGTHS, and a
+    total ``pad`` tokens past the last (tokens of the padding sequence)."""
+    import numpy as np
+
+    cu = np.zeros(n + 1, np.int64)
+    cu[1:] = np.cumsum(rng.randint(SFT_LENGTHS[0], SFT_LENGTHS[1] + 1, n))
+    return cu, int(cu[-1]) + pad
+
+
+def phase_k3(seed=9):
+    """K3 (segment-masked flash attention) on the card. Packed rows at
+    LLaMA-2-7B attention (B 2, S 2048 of conversations of 64-1024 tokens,
+    ``sft_rows``; bf16, causal): MHA 32/32 timed, with K1's causal forward
+    and forward + backward on the same tensors beside, through the public
+    ``flash_attention_packed`` too; GQA 64/8 on the same rows, timed; an
+    f32 case. The varlen form (batch 1 of [total, 32, 128], total no
+    multiple of 64, 5 padding tokens past the last sequence):
+    self-attention causal (timed, through ``flash_attn_unpadded`` too) and
+    full, a cross-offset case (each sequence's q and k lengths differ) and
+    one with an empty key sequence."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    tF = importlib.import_module(
+        "paddle_tpu_torch.nn.functional.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16, f32 = torch.bfloat16, torch.float32
+    seg, _ = sft_rows(seed, 2, 2048)
+    seg = torch.from_numpy(seg).cuda()
+    small = torch.from_numpy(sft_rows(seed + 1, 1, 300, (20, 120))[0]).cuda()
+    rng = np.random.RandomState(seed + 2)
+    cu_q, tq = varlen_offsets(rng, 3, 5)
+    cu_x, tx = varlen_offsets(rng, 3, 5)   # the cross-offset keys
+    cu_e = cu_q.copy()
+    cu_e[2:] -= cu_e[2] - cu_e[1]          # sequence 1 has no key
+    te = int(cu_e[-1]) + 5
+
+    def packed_entry(rows):
+        return lambda a, b, c: fa.flash_attention_packed(a, b, c, rows)
+
+    def varlen_entry(ck, causal):
+        return lambda a, b, c: tF.flash_attn_unpadded(
+            a[0], b[0], c[0], torch.from_numpy(cu_q).cuda(),
+            torch.from_numpy(ck).cuda(), None, None, causal=causal)[0][None]
+
+    def varlen(ck, tk):
+        return fa._varlen_segments(cu_q, ck, tq, tk, "cuda")
+
+    cases = [
+        ("packed", dict(B=2, sq=2048, sk=2048, hq=HQ, hkv=HQ, causal=True,
+                        dtype=bf16, timed=True,
+                        segs=fa._packed_segments(seg),
+                        public=packed_entry(seg), beside_k1=True)),
+        ("packed", dict(B=2, sq=2048, sk=2048, hq=64, hkv=8, causal=True,
+                        dtype=bf16, timed=True,
+                        segs=fa._packed_segments(seg))),
+        ("packed", dict(B=1, sq=300, sk=300, hq=HQ, hkv=HQ, causal=True,
+                        dtype=f32, timed=False,
+                        segs=fa._packed_segments(small))),
+        ("varlen", dict(B=1, sq=tq, sk=tq, hq=HQ, hkv=HQ, causal=True,
+                        dtype=bf16, timed=True, segs=varlen(cu_q, tq),
+                        public=varlen_entry(cu_q, True))),
+        ("varlen", dict(B=1, sq=tq, sk=tq, hq=HQ, hkv=HQ, causal=False,
+                        dtype=bf16, timed=False, segs=varlen(cu_q, tq),
+                        public=varlen_entry(cu_q, False))),
+        ("varlen_cross_offset", dict(B=1, sq=tq, sk=tx, hq=HQ, hkv=HQ,
+                                     causal=True, dtype=bf16, timed=False,
+                                     segs=varlen(cu_x, tx))),
+        ("varlen_empty_key", dict(B=1, sq=tq, sk=te, hq=HQ, hkv=HQ,
+                                  causal=True, dtype=bf16, timed=False,
+                                  segs=varlen(cu_e, te))),
+    ]
+    rows = []
+    for form, c in cases:
+        row = flash_case(gen, **c)
+        row.update(phase="k3", form=form)
+        if form.startswith("varlen"):
+            row["cu_q"] = cu_q.tolist()
+            row["cu_k"] = {"varlen": cu_q, "varlen_cross_offset": cu_x,
+                           "varlen_empty_key": cu_e}[form].tolist()
         emit(row)
         rows.append(row)
         torch.cuda.empty_cache()
@@ -1105,28 +1361,72 @@ def phase_adamw(seed=8):
     return rows
 
 
-def _flash_counts():
-    """Launch counts of the training path's kernels: the four flash
-    entries and the AdamW update."""
+def _flash_wrappers():
+    """{kernel line name: wrapper} of the training path's attention
+    kernels: K1/K2's four flash entries (flash_attention_fwd, ...) and
+    K3's (flash_attention_seg_fwd, ...)."""
     from paddle_tpu_torch.ops import flash_attention as fa
+
+    out = {"flash_attention_" + k.__name__.removeprefix("flash_"): k
+           for k in fa.KERNELS}
+    out.update({"flash_attention_seg_" + k.__name__.removeprefix(
+        "seg_flash_"): k for k in fa.SEG_KERNELS})
+    return out
+
+
+def _flash_counts():
+    """Launch counts of the training path's kernels: the K1/K2 and K3
+    flash entries and the AdamW update."""
     from paddle_tpu_torch.ops.adamw import adamw_update
 
-    counts = {"flash_attention_" + k.__name__.removeprefix("flash_"):
-              k.launches for k in fa.KERNELS}
+    counts = {name: k.launches for name, k in _flash_wrappers().items()}
     counts["adamw_update"] = adamw_update.launches
     return counts
 
 
 def _reset_flash_counts():
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops.adamw import adamw_update
 
-    for k in fa.KERNELS:
+    for k in _flash_wrappers().values():
         k.launches = 0
     adamw_update.launches = 0
 
 
-def _trainer(cfg, seed, device="cuda", model=None):
+def _expected_counts(layers, steps, n_params, packed):
+    """Exact launches of ``steps`` training steps under recompute "full"
+    or "dots": per layer and step two forwards (the forward and its
+    recompute) and one of each backward entry, of K3 for packed rows and
+    of K1/K2 otherwise, none of the other; one AdamW update per
+    parameter."""
+    want = {}
+    for name in _flash_wrappers():
+        ours = name.startswith("flash_attention_seg_") == packed
+        per_step = 2 if name.endswith("_fwd") else 1
+        want[name] = per_step * layers * steps if ours else 0
+    want["adamw_update"] = n_params * steps
+    return want
+
+
+def _packed(model):
+    """``model`` behind ``forward(ids, seg)`` -> ``model(ids,
+    segment_ids=seg)``: TrainStep hands its batch to the model
+    positionally, as the reference's does (paddle_tpu/jit_api.py:606)."""
+    from torch import nn
+
+    class Packed(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, ids, seg):
+            return self.model(ids, segment_ids=seg)
+
+    return Packed()
+
+
+def _trainer(cfg, seed, device="cuda", model=None, packed=False):
+    """(model, TrainStep) with AdamW lr 1e-4, decay 0.01; ``packed``: the
+    step drives ``_packed(model)`` on (ids, segment ids, labels)."""
     from paddle_tpu_torch.jit_api import TrainStep
     from paddle_tpu_torch.models.llama import (
         LlamaForCausalLM, LlamaPretrainingCriterion,
@@ -1137,7 +1437,8 @@ def _trainer(cfg, seed, device="cuda", model=None):
         model = LlamaForCausalLM(cfg, device=device, seed=seed)
     opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
                 weight_decay=0.01)
-    return model, TrainStep(model, LlamaPretrainingCriterion(cfg), opt,
+    return model, TrainStep(_packed(model) if packed else model,
+                            LlamaPretrainingCriterion(cfg), opt,
                             device=device)
 
 
@@ -1259,18 +1560,20 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, beta1,
     return per, worst
 
 
-def phase_train_equal(seed=4, steps=3, rel_tol=1e-4, grad_tol=1e-4,
-                      outlier_share=1e-5):
-    """f32, LLaMA-2-7B widths, 2 layers, B 1, S 256, fused CE, recompute
-    "full": three TrainSteps on the card (kernels) and on the CPU (plain
-    versions) from the same weights and batches, every gradient handed to
-    the optimizer kept. Held (f32: the two differ in summation order
-    only): the losses within ``rel_tol`` relative; every parameter's
-    gradient at every step within ``grad_tol`` in relative norm (Adam
-    hides a wrong gradient's size, so this is the backward's witness); and
-    the parameters in units of lr: at most ``outlier_share`` of the
-    elements more than 0.1 lr apart, each explained by a gradient or a
-    first moment within noise of zero (``_param_report``)."""
+def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
+                 grad_tol=1e-4, outlier_share=1e-5):
+    """f32, LLaMA-2-7B widths, 2 layers, fused CE, recompute "full": one
+    TrainStep per batch on the card (kernels) and on the CPU (plain
+    versions) from the same weights, every gradient handed to the optimizer
+    kept (``packed``: batches of ids, segment ids and labels through
+    ``_packed``). Held (f32: the two differ in summation order only): the
+    losses within ``rel_tol`` relative; every parameter's gradient at every
+    step within ``grad_tol`` in relative norm (Adam hides a wrong
+    gradient's size, so this is the backward's witness); the parameters in
+    units of lr: at most ``outlier_share`` of the elements more than 0.1 lr
+    apart, each explained by a gradient or a first moment within noise of
+    zero (``_param_report``); and the exact kernel launches on the card.
+    Returns the row and the card's model."""
     import torch
 
     from paddle_tpu_torch.models.llama import llama2_7b
@@ -1278,18 +1581,19 @@ def phase_train_equal(seed=4, steps=3, rel_tol=1e-4, grad_tol=1e-4,
     cfg = llama2_7b(use_recompute=True, recompute_policy="full",
                     fuse_linear_cross_entropy=True)
     cfg.num_hidden_layers = 2
-    cpu_model, cpu_step = _trainer(cfg, seed, device="cpu")
-    gpu_model, gpu_step = _trainer(cfg, seed,
+    cpu_model, cpu_step = _trainer(cfg, seed, device="cpu", packed=packed)
+    gpu_model, gpu_step = _trainer(cfg, seed, packed=packed,
                                    model=copy.deepcopy(cpu_model).to("cuda"))
     rec_gpu, rec_cpu = _record_gradients(gpu_step), _record_gradients(cpu_step)
-    ids = _tokens(seed, cfg.vocab_size, (steps, 1, 257))
     _reset_flash_counts()
     t0 = time.perf_counter()
-    gpu = [float(gpu_step(i[:, :-1], i[:, 1:])) for i in ids]
+    gpu = [float(gpu_step(*b)) for b in batches]
     counts = _flash_counts()
     t_gpu = time.perf_counter() - t0
-    cpu = [float(cpu_step(i[:, :-1], i[:, 1:])) for i in ids]
+    cpu = [float(cpu_step(*b)) for b in batches]
     t_cpu = time.perf_counter() - t0 - t_gpu
+    want = _expected_counts(2, len(batches), len(list(
+        cpu_model.parameters())), packed)
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
     grad_rel = _grad_report(rec_gpu, rec_cpu)
     worst_grad = max(((r, k, n) for k, step in enumerate(grad_rel, 1)
@@ -1299,24 +1603,26 @@ def phase_train_equal(seed=4, steps=3, rel_tol=1e-4, grad_tol=1e-4,
                for step in grad_rel]
     lr = gpu_step.optimizer.get_lr()
     with torch.no_grad():
-        per, worst = _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu,
-                                   lr, gpu_step.optimizer._beta1)
+        per, worst = _param_report(gpu_step.model, cpu_step.model, rec_gpu,
+                                   rec_cpu, lr, gpu_step.optimizer._beta1)
     n_el = sum(p.numel() for p in cpu_model.parameters())
     outliers = sum(r["outliers"] for r in per.values())
     unexplained = outliers - sum(r["explained"] for r in per.values())
-    emit({"phase": "train_equal", "layers": 2, "dtype": "float32", "B": 1,
-          "S": 256, "losses_gpu": gpu, "losses_cpu": cpu, "rel_err": rel,
-          "rel_tol": rel_tol,
-          "grad_rel_worst": {"rel": worst_grad[0], "step": worst_grad[1],
-                             "param": worst_grad[2]},
-          "grad_rel_by_step": by_step,
-          "grad_tol": grad_tol, "lr": lr, "elements": n_el,
-          "param_outliers": outliers, "param_unexplained": unexplained,
-          "outlier_share_limit": outlier_share,
-          "param_median_diff_lr_max": max(r["median_lr"]
-                                          for r in per.values()),
-          "param_diff": per, "param_diff_worst": worst, "kernels": counts,
-          "gpu_s": t_gpu, "cpu_s": t_cpu})
+    row = {"phase": phase, "layers": 2, "dtype": "float32",
+           "B": batches[0][0].shape[0], "S": batches[0][0].shape[1],
+           "losses_gpu": gpu, "losses_cpu": cpu, "rel_err": rel,
+           "rel_tol": rel_tol,
+           "grad_rel_worst": {"rel": worst_grad[0], "step": worst_grad[1],
+                              "param": worst_grad[2]},
+           "grad_rel_by_step": by_step,
+           "grad_tol": grad_tol, "lr": lr, "elements": n_el,
+           "param_outliers": outliers, "param_unexplained": unexplained,
+           "outlier_share_limit": outlier_share,
+           "param_median_diff_lr_max": max(r["median_lr"]
+                                           for r in per.values()),
+           "param_diff": per, "param_diff_worst": worst, "kernels": counts,
+           "expected_kernels": want, "gpu_s": t_gpu, "cpu_s": t_cpu}
+    emit(row)
     if max(rel) > rel_tol:
         raise AssertionError(f"card and CPU losses differ: {gpu} vs {cpu}")
     if worst_grad[0] > grad_tol:
@@ -1326,11 +1632,86 @@ def phase_train_equal(seed=4, steps=3, rel_tol=1e-4, grad_tol=1e-4,
             f"card and CPU parameters differ: {outliers} elements past "
             f"0.1 lr ({unexplained} with no gradient or moment within "
             "noise of 0)")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a flash kernel never launched: {counts}")
-    del gpu_model, gpu_step, rec_gpu, rec_cpu
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts}, expected {want}")
+    del gpu_step, rec_gpu, rec_cpu, cpu_model, cpu_step
+    return row, gpu_model
+
+
+def phase_train_equal(seed=4, steps=3):
+    """``_train_equal`` on B 1, S 256 of seeded uniform tokens."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    ids = _tokens(seed, llama2_7b().vocab_size, (steps, 1, 257))
+    _, model = _train_equal("train_equal", seed,
+                            [(i[:, :-1], i[:, 1:]) for i in ids])
+    del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def cut_rows(seed, B, S, n_segments=(3, 5)):
+    """Segment ids [B, S] (int32) of rows cut at seeded points into 3-5
+    segments each, and each row's segment lengths."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    rows, convs = [], []
+    for _ in range(B):
+        n = rng.randint(n_segments[0], n_segments[1] + 1)
+        cuts = np.sort(rng.choice(np.arange(1, S), n - 1, replace=False))
+        lens = np.diff(np.concatenate([[0], cuts, [S]])).tolist()
+        rows.append(np.concatenate([np.full(m, i, np.int32)
+                                    for i, m in enumerate(lens)]))
+        convs.append(lens)
+    return np.stack(rows), convs
+
+
+def phase_train_packed_equal(seed=10, steps=3, logit_tol=1e-4):
+    """``_train_equal`` on packed rows: B 1, S 256 cut into 3-5 segments
+    (``cut_rows``, a new cut and new tokens each step), labels -100 at each
+    segment's end. Then the reference's oracle (tests/test_packed_training
+    .py:20-40) on the card: each segment's logits from the packed row (K3)
+    equal that segment's standalone forward (K1), the largest difference
+    within ``logit_tol`` of the largest logit."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    vocab = llama2_7b().vocab_size
+    batches = []
+    for i in range(steps):
+        seg, convs = cut_rows(seed + i, 1, 256)
+        ids = _tokens(seed + i, vocab, (1, 256))
+        batches.append((ids, seg, sft_labels(ids, seg, convs)))
+    row, model = _train_equal("train_packed_equal", seed, batches,
+                              packed=True)
+    model.eval()
+    seg, _ = cut_rows(seed + steps, 1, 256)
+    ids = torch.from_numpy(_tokens(seed + steps, vocab, (1, 256))).cuda()
+    seg_t = torch.from_numpy(seg).cuda()
+    errs = []
+    with torch.no_grad():
+        packed = model(ids, segment_ids=seg_t)[0]
+        for s in torch.unique(seg_t[0]):
+            sl = seg_t[0] == s
+            alone = model(ids[:, sl])[0]
+            errs.append(float((packed[sl] - alone).abs().max()
+                              / alone.abs().max()))
+    oracle = {"phase": "train_packed_equal_oracle",
+              "segment_lengths": [int(n) for n in torch.unique(
+                  seg_t[0], return_counts=True)[1]],
+              "max_diff_over_max_logit": errs, "tol": logit_tol}
+    emit(oracle)
+    if max(errs) > logit_tol:
+        raise AssertionError(f"packed logits differ from the standalone "
+                             f"segments': {errs}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def _tokens(seed, vocab, shape):
@@ -1341,35 +1722,36 @@ def _tokens(seed, vocab, shape):
         0, vocab, shape).astype(np.int32)
 
 
-def _train_run(phase, cfg, B, S, warmup, steps, seed, check_trend=True):
-    """Warm-up steps, then ``steps`` timed steps with the kernels' counts
-    taken over the timed steps alone; a fresh seeded batch every step.
-    ``check_trend``: the loss must not rise over the steps."""
+def _timed_steps(phase, cfg, model, step, batches, warmup, packed=False,
+                 pairs=None, extra=None, check_trend=True):
+    """``warmup`` steps, then one timed step per remaining batch with the
+    kernels' counts taken over the timed steps alone (``_expected_counts``
+    exactly). MFU is ``flops_per_token(cfg, S)`` (the reference's, full
+    causal rows) x tokens/s / 989e12; with ``pairs`` (packed rows: the
+    visible (query, key) pairs of a batch, per head) the attention term
+    counts those pairs instead. ``check_trend``: the loss must not rise
+    over the steps."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
 
-    model, step = _trainer(cfg, seed)
-    ids = _tokens(seed, cfg.vocab_size, (warmup + steps, B, S + 1))
-    losses = [step(i[:, :-1], i[:, 1:]) for i in ids[:warmup]]
+    losses = [step(*b) for b in batches[:warmup]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_flash_counts()
     t0 = time.perf_counter()
-    losses += [step(i[:, :-1], i[:, 1:]) for i in ids[warmup:]]
+    losses += [step(*b) for b in batches[warmup:]]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _flash_counts()
     losses = [float(x) for x in losses]
+    steps = len(batches) - warmup
+    B, S = batches[0][0].shape
     tok_s = B * S * steps / wall
-    flops = LlamaForCausalLM.flops_per_token(cfg, seq_len=S)
     L = cfg.num_hidden_layers
-    want = {"flash_attention_fwd": 2 * L * steps,
-            "flash_attention_bwd_delta": L * steps,
-            "flash_attention_bwd_dkdv": L * steps,
-            "flash_attention_bwd_dq": L * steps,
-            "adamw_update": len(list(model.parameters())) * steps}
+    flops = LlamaForCausalLM.flops_per_token(cfg, seq_len=S)
+    want = _expected_counts(L, steps, len(list(model.parameters())), packed)
     row = {"phase": phase, "layers": L, "hidden": cfg.hidden_size,
            "heads": cfg.num_attention_heads,
            "kv_heads": cfg.num_key_value_heads,
@@ -1383,32 +1765,90 @@ def _train_run(phase, cfg, B, S, warmup, steps, seed, check_trend=True):
            "losses": losses,
            "loss_slope_per_step": float(np.polyfit(np.arange(len(losses)),
                                                    losses, 1)[0]),
-           "kernels": counts, "expected_kernels": want}
+           "kernels": counts, "expected_kernels": want, **(extra or {})}
+    if pairs is not None:
+        packed_flops = (LlamaForCausalLM.flops_per_token(cfg)
+                        + 12 * L * cfg.hidden_size * pairs / (B * S))
+        row.update(flops_per_token_packed=packed_flops,
+                   flops_formula="6 N + 12 L hidden (visible pairs per "
+                                 "head / tokens)",
+                   mfu=packed_flops * tok_s / 989e12,
+                   mfu_if_full_causal_rows=flops * tok_s / 989e12)
     emit(row)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
-    if not check_trend:
-        return row, model, step, ids
-    # uniform tokens hold the loss near its floor ln(vocab) at this lr, so
-    # "not rising" is read against the step-to-step spread of the losses
-    half = len(losses) // 2
-    if np.mean(losses[half:]) > np.mean(losses[:half]) + np.std(losses):
-        raise AssertionError(f"{phase}: loss rose {losses}")
-    return row, model, step, ids
+    if check_trend:
+        # uniform tokens hold the loss near its floor ln(vocab) at this lr,
+        # so "not rising" is read against the step-to-step spread
+        half = len(losses) // 2
+        if np.mean(losses[half:]) > np.mean(losses[:half]) + np.std(losses):
+            raise AssertionError(f"{phase}: loss rose {losses}")
+    return row
+
+
+def _token_batches(seed, vocab, n, B, S):
+    """n batches of (ids, next-token labels) of seeded uniform tokens."""
+    ids = _tokens(seed, vocab, (n, B, S + 1))
+    return [(i[:, :-1], i[:, 1:]) for i in ids]
 
 
 def phase_train(seed=0):
     """The slice: LLaMA-2-7B at full width and depth, bf16, as bench.py
     configures it (recompute "full", fused linear CE, AdamW lr 1e-4 and
-    weight decay 0.01); B 2, S 2048, 2 warm-up and 8 timed steps."""
+    weight decay 0.01); B 2, S 2048, 2 warm-up and 8 timed steps. Returns
+    the row, the model, its step and its batches."""
     from paddle_tpu_torch.models.llama import llama2_7b
 
     cfg = llama2_7b(dtype="bfloat16", use_recompute=True,
                     recompute_policy="full", fuse_linear_cross_entropy=True)
-    return _train_run("train", cfg, B=2, S=2048, warmup=2, steps=8,
-                      seed=seed)
+    model, step = _trainer(cfg, seed)
+    batches = _token_batches(seed, cfg.vocab_size, 10, 2, 2048)
+    row = _timed_steps("train", cfg, model, step, batches, warmup=2)
+    return row, model, step, batches
+
+
+PACKING_SEED = 9   # k3's and train_packed's packed rows
+
+
+def phase_train_packed(model, step, train_row, seed=11):
+    """SFT packing on `train`'s model and optimizer (LLaMA-2-7B bf16, 32
+    layers, recompute "full", fused linear CE, AdamW lr 1e-4), continued
+    after `train`: B 2 x S 2048 of k3's packed rows (``sft_rows``,
+    conversations of 64-1024 tokens, a padding tail with its own id), new
+    seeded tokens each step, labels -100 at each segment's last token and
+    on the padding; 2 warm-up and 8 timed steps, K3's exact launch counts
+    and none of K1's; `train`'s step ms beside. Then two steps under
+    torch.profiler. Returns the row."""
+    import numpy as np
+
+    from paddle_tpu_torch.jit_api import TrainStep
+
+    seg, convs = sft_rows(PACKING_SEED, 2, 2048)
+    ids = _tokens(seed, model.config.vocab_size, (10, 2, 2048))
+    batches = [(i, seg, sft_labels(i, seg, convs)) for i in ids]
+    lens = [np.unique(r, return_counts=True)[1] for r in seg]
+    pairs = int(sum((n * (n + 1) // 2).sum() for n in lens))
+    # train's loss and AdamW (its moments carry on) over the packed model
+    pstep = TrainStep(_packed(model), step.loss_fn, step.optimizer,
+                      device="cuda")
+    packing = {"conversation_lengths": list(SFT_LENGTHS),
+               "segments_per_row": [len(n) for n in lens],
+               "padding_tokens": [2048 - sum(c) for c in convs],
+               "visible_pairs_per_head": pairs,
+               "visible_share_of_causal": pairs / (2 * 2048 * 2049 // 2)}
+    row = _timed_steps("train_packed", model.config, model, pstep, batches,
+                       warmup=2, packed=True, pairs=pairs,
+                       extra={"packing": packing,
+                              "train_step_ms": train_row["step_ms"]})
+
+    def two_steps():
+        for b in batches[:2]:
+            pstep(*b)
+
+    row["profile"] = _device_profile("train_packed_profile", two_steps)
+    return row
 
 
 def phase_train_gqa(seed=5):
@@ -1422,9 +1862,10 @@ def phase_train_gqa(seed=5):
     cfg = llama2_70b(dtype="bfloat16", use_recompute=True,
                      recompute_policy="dots", fuse_linear_cross_entropy=True)
     cfg.num_hidden_layers = 2   # depth cut: 80 layers do not fit one card
-    row, model, step, _ = _train_run("train_gqa", cfg, B=1, S=2048,
-                                     warmup=1, steps=3, seed=seed,
-                                     check_trend=False)
+    model, step = _trainer(cfg, seed)
+    row = _timed_steps("train_gqa", cfg, model, step,
+                       _token_batches(seed, cfg.vocab_size, 4, 1, 2048),
+                       warmup=1, check_trend=False)
     del model, step
     torch.cuda.empty_cache()
     return row
@@ -1471,11 +1912,11 @@ def _device_profile(phase, fn):
     return row
 
 
-def phase_train_profile(step, ids):
+def phase_train_profile(step, batches):
     """Two more steps of `train` under torch.profiler."""
     def two_steps():
-        for i in ids[:2]:
-            step(i[:, :-1], i[:, 1:])
+        for b in batches[:2]:
+            step(*b)
 
     return _device_profile("train_profile", two_steps)
 
@@ -1483,7 +1924,7 @@ def phase_train_profile(step, ids):
 def kernel_table(rows):
     """The contract's kernel line, from the phases that ran: every entry's
     launches over the main path (serving's `slice`, `slice_int8` for the
-    int8 variants, training's `train`)."""
+    int8 variants, training's `train`, `train_packed` for K3)."""
     table = []
     for name, phase, src, ref, main_phase in (
             ("ragged_paged_attention", "k4",
@@ -1542,6 +1983,38 @@ def kernel_table(rows):
             row["gqa_ms"] = rows["k2"][0]["kernel_ms"][entry]
             row["gqa_launches"] = rows.get("train_gqa", {}).get(
                 "kernels", {}).get(name)
+        table.append(row)
+    # K3: the timed cases are packed MHA (the main path's shape), packed
+    # GQA 64/8 and varlen
+    timed = {(r["form"], r["hkv"]): r for r in rows.get("k3", [])
+             if "kernel_ms" in r}
+    for entry, keys in errs.items():
+        if "k3" not in rows:
+            break
+        name = "flash_attention_seg_" + entry
+        main_row = timed[("packed", HQ)]
+        row = {"name": name, "route": "cuda",
+               "source": "paddle_tpu_torch/ops/csrc/flash_attention_"
+                         + ("fwd.cu" if entry == "fwd" else "bwd.cu"),
+               "replaces": "paddle_tpu/ops/flash_attention.py:277 "
+                           "(flash_attention_packed: splash with "
+                           "SegmentIds)",
+               "launches": rows.get("train_packed", {}).get(
+                   "kernels", {}).get(name),
+               "max_abs_err": max(r["max_abs_err"][k] for r in rows["k3"]
+                                  for k in keys),
+               "ms": main_row["kernel_ms"][entry],
+               "plain_ms": main_row["plain_ms"][entry],
+               "bound_ms": main_row["bounds"][entry]["bound_ms"],
+               "bound_by": main_row["bounds"][entry]["bound_by"],
+               "library_ms": (main_row["library_ms"]["fwd"]
+                              if entry == "fwd" else None),
+               "also_replaces": "paddle_tpu/ops/flash_attention.py:227 "
+                                "(_splash_varlen)",
+               "gqa_ms": timed[("packed", 8)]["kernel_ms"][entry],
+               "varlen_ms": timed[("varlen", HQ)]["kernel_ms"][entry]}
+        if entry == "fwd":
+            row["k1_causal_fwd_ms"] = main_row["k1_causal_ms"]["fwd"]
         table.append(row)
     if "adamw" in rows:
         main_row = rows["adamw"][0]    # bf16, as the 7B step runs it
@@ -1607,6 +2080,8 @@ def main(argv=None):
         rows["k1"] = phase_flash("k1", HQ, HQ, seed=6)
     if runs("k2"):
         rows["k2"] = phase_flash("k2", 64, 8, seed=7)
+    if runs("k3"):
+        rows["k3"] = phase_k3(seed=PACKING_SEED)
     if runs("adamw"):
         rows["adamw"] = phase_adamw()
     if runs("codec"):
@@ -1652,11 +2127,16 @@ def main(argv=None):
                                  "allocated")
     if runs("train_equal"):
         phase_train_equal()
-    if runs("train"):
-        rows["train"], model, step, ids = phase_train()
+    if runs("train_packed_equal"):
+        phase_train_packed_equal()
+    if runs("train") or runs("train_packed"):
+        rows["train"], model, step, batches = phase_train()
         if runs("train_profile"):
-            phase_train_profile(step, ids)
-        del model, step
+            phase_train_profile(step, batches)
+        if runs("train_packed"):
+            rows["train_packed"] = phase_train_packed(model, step,
+                                                      rows["train"])
+        del model, step, batches
         gc.collect()
         torch.cuda.empty_cache()
     if runs("train_gqa"):

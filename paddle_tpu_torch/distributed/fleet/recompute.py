@@ -10,8 +10,11 @@ dropped after the forward and recomputed in the backward. Policies:
   ``aten.addmm``, ``aten.bmm``) and recompute the rest, the counterpart of
   ``dots_with_no_batch_dims_saveable``.
 
-Kernels launched inside the segment (the flash-attention forward) run
-again in the backward under every policy: only aten products are kept.
+Kernels launched inside the segment (the flash-attention forward, K1 or,
+for packed rows, K3) run again in the backward under every policy: only
+aten products are kept. Keyword arguments reach the segment as they are
+(a decoder layer's ``segment_ids``, as the reference's
+``models/llama.py`` :522-525 passes them).
 """
 import functools
 

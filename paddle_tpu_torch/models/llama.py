@@ -6,11 +6,14 @@ Two paths:
   continuous-batching engine, ``PagedLayerCache`` (one decode token per
   row) and ``RaggedLayerCache`` (a packed mixed prefill+decode stream);
 - training: with no cache, causal attention through
-  ``F.scaled_dot_product_attention`` (the flash kernels on the card),
-  optional per-layer recompute, and the fused linear cross-entropy.
+  ``F.scaled_dot_product_attention`` (the flash kernels on the card) or,
+  for SFT-packed rows given ``segment_ids``, through
+  ``flash_attention_packed`` (K3 on the card: attention stays within each
+  segment, and rope restarts at each segment's start), optional per-layer
+  recompute, and the fused linear cross-entropy.
 The fixed-shape or growing caches, MoE, context and sequence parallelism
-and packed segments raise NotImplementedError until a later slice of the
-port (see ROADMAP.md). Parameter names match the reference's
+raise NotImplementedError until a later slice of the port (see
+ROADMAP.md). Parameter names match the reference's
 ``named_parameters()``, so ``models.convert.load_paddle_tpu_state`` maps a
 reference checkpoint one to one.
 """
@@ -25,6 +28,7 @@ from ..nn.functional import (
     swiglu,
 )
 from ..nn.norm import RMSNorm
+from ..ops.flash_attention import flash_attention_packed, pack_segments
 from ..ops.paged_attention import (
     PagedLayerCache, paged_decode_attention, write_token_kv,
 )
@@ -33,6 +37,8 @@ from ..ops.ragged_paged_attention import (
 )
 
 _LATER = "comes in a later slice of the port (see ROADMAP.md)"
+_PACKED_CACHE = ("packed segment_ids do not compose with a decode cache — "
+                 "packing is a training path")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -150,12 +156,17 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(self.num_heads * self.head_dim, h, **kw)
 
     def forward(self, hidden_states, position_ids=None, past_key_value=None,
-                rope=None):
+                rope=None, segment_ids=None):
         """past_key_value:
         - None (training): causal self-attention over the S positions,
           rope at ``position_ids`` (default 0..S-1) with ``rope_theta``,
           then ``scaled_dot_product_attention(is_causal=True)``: the flash
-          kernels (K1, K2 for GQA) on the card. Returns (out, None);
+          kernels (K1, K2 for GQA) on the card. With ``segment_ids`` [B, S]
+          (SFT packing, ids contiguous and ascending along a row; or the
+          ``PackedSegments`` that ``LlamaModel`` prepares once), rope at
+          ``position_ids`` (default: each token's position in its segment)
+          and causal attention within each segment through
+          ``flash_attention_packed`` (K3 on the card). Returns (out, None);
         - PagedLayerCache: decode-only (S == 1); the new token's K/V land in
           the pool, then paged decode attention (K5);
         - RaggedLayerCache: S is a packed mixed prefill+decode stream
@@ -167,6 +178,8 @@ class LlamaAttention(nn.Module):
         per forward)."""
         paged = isinstance(past_key_value, PagedLayerCache)
         ragged = isinstance(past_key_value, RaggedLayerCache)
+        if segment_ids is not None and past_key_value is not None:
+            raise ValueError(_PACKED_CACHE)
         if past_key_value is not None and not (paged or ragged):
             raise NotImplementedError(
                 "LlamaAttention: only PagedLayerCache and RaggedLayerCache "
@@ -180,11 +193,19 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(hidden_states).view(B, S, self.num_kv_heads,
                                             self.head_dim)
         if past_key_value is None:
+            if segment_ids is not None:
+                segment_ids = pack_segments(segment_ids)
+                if position_ids is None:
+                    position_ids = segment_ids.position_ids
             q, k, _ = fused_rotary_position_embedding(
                 q, k, None, position_ids=position_ids,
                 rotary_emb_base=self.config.rope_theta)
-            out = scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               training=self.training)
+            if segment_ids is not None:
+                out = flash_attention_packed(q, k, v, segment_ids,
+                                             causal=True)
+            else:
+                out = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   training=self.training)
             out = out.reshape(B, S, self.num_heads * self.head_dim)
             return self.o_proj(out), None
         if position_ids is None:
@@ -238,9 +259,10 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
 
     def forward(self, hidden_states, position_ids=None, past_key_value=None,
-                rope=None):
+                rope=None, segment_ids=None):
         h, present = self.self_attn(self.input_layernorm(hidden_states),
-                                    position_ids, past_key_value, rope)
+                                    position_ids, past_key_value, rope,
+                                    segment_ids)
         h = hidden_states + h
         return h + self.mlp(self.post_attention_layernorm(h)), present
 
@@ -258,21 +280,35 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             **kw)
 
-    def forward(self, input_ids, position_ids=None, past_key_values=None):
+    def forward(self, input_ids, position_ids=None, past_key_values=None,
+                segment_ids=None):
         """With one paged or ragged cache per layer in ``past_key_values``:
         returns (normed hidden states, presents). Without: the training
         forward, returning the normed hidden states; each layer runs under
         ``recompute`` (``config.recompute_policy``) when
-        ``config.use_recompute`` and the model is training."""
+        ``config.use_recompute`` and the model is training. ``segment_ids``
+        [B, S] packs several sequences into each row (training only): each
+        layer attends within segments, and rope restarts at each segment's
+        start unless ``position_ids`` are given (reference :497-504). The
+        ids' positions and K3's tile tables are prepared here once
+        (``pack_segments``) for every layer."""
+        if segment_ids is not None:
+            if past_key_values is not None:
+                raise ValueError(_PACKED_CACHE)
+            segment_ids = pack_segments(torch.as_tensor(
+                segment_ids, device=input_ids.device))
+            if position_ids is None:
+                position_ids = segment_ids.position_ids
         h = self.embed_tokens(input_ids)
         if past_key_values is None:
             remat = self.config.use_recompute and self.training
             for layer in self.layers:
                 if remat:
                     h = recompute(layer, h, position_ids,
+                                  segment_ids=segment_ids,
                                   policy=self.config.recompute_policy)[0]
                 else:
-                    h = layer(h, position_ids)[0]
+                    h = layer(h, position_ids, segment_ids=segment_ids)[0]
             return self.norm(h)
         c0 = past_key_values[0]
         rope = rope_tables(c0.page_indices.shape[1] * c0.page_size,
@@ -348,17 +384,21 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.embed_tokens.weight.t()
 
     def forward(self, input_ids, position_ids=None, past_key_values=None,
-                labels=None):
+                labels=None, segment_ids=None):
         """Serving (caches given): returns (logits, presents) over the paged
         or ragged caches. Training (no cache), as the reference's :758-783:
         with ``fuse_linear_cross_entropy`` and labels, the fused loss from
         (hidden, lm weight, labels), never building [B, S, vocab] logits;
         fused and training without labels, (hidden, lm weight) for a loss
-        function; otherwise the logits, or their loss given labels."""
+        function; otherwise the logits, or their loss given labels.
+        ``segment_ids`` [B, S]: SFT-packed rows (``LlamaModel``); refused
+        with caches."""
         if past_key_values is not None:
+            if segment_ids is not None:
+                raise ValueError(_PACKED_CACHE)
             h, presents = self.llama(input_ids, position_ids, past_key_values)
             return self.head(h), presents
-        h = self.llama(input_ids, position_ids)
+        h = self.llama(input_ids, position_ids, segment_ids=segment_ids)
         if self.config.fuse_linear_cross_entropy and (labels is not None
                                                       or self.training):
             w = self.lm_weight()

@@ -6,14 +6,19 @@ and flash enabled (the reference's gate, :160), a call goes to
 ``ops.flash_attention.flash_attention_fwd``: the flash kernels on a CUDA
 tensor, their plain version on a CPU tensor. A mask or dropout takes
 ``_math_attention`` in plain PyTorch, which the reference also computes
-outside any Pallas kernel.
+outside any Pallas kernel. ``flash_attn_unpadded`` takes the varlen layout
+[total, num_heads, head_dim] to ``ops.flash_attention
+.flash_attention_varlen_fwd`` (K3), or with flash disabled to its plain
+version.
 """
 import contextlib
 
 import torch
 import torch.nn.functional as F
 
-from ...ops.flash_attention import flash_attention_fwd
+from ...ops.flash_attention import (
+    _varlen_math, flash_attention_fwd, flash_attention_varlen_fwd,
+)
 
 _sdp_config = {"enable_flash": True}
 
@@ -71,6 +76,29 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                                    scale=scale), None
     return _math_attention(query, key, value, None, causal, drop,
                            scale), None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
+                        causal=False, return_softmax=False, training=True,
+                        name=None):
+    """Varlen attention (reference :118): query [total_q, Hq, D], key and
+    value [total_k, Hkv, D], sequence b at ``cu_seqlens_q[b]:[b + 1]`` and
+    ``cu_seqlens_k[b]:[b + 1]``; returns (out, None). With flash enabled,
+    ``flash_attention_varlen_fwd`` (K3's kernels on a CUDA tensor); else
+    its plain version. As in the reference, ``dropout`` and the max lengths
+    are not read. Cross-offset causal (top-left within each sequence) runs
+    the same kernel as self-attention, where the reference takes its dense
+    path: the function is the same."""
+    scale = scale or 1.0 / (query.shape[-1] ** 0.5)
+    if _sdp_config["enable_flash"]:
+        out = flash_attention_varlen_fwd(query, key, value, cu_seqlens_q,
+                                         cu_seqlens_k, causal=causal,
+                                         scale=scale)
+    else:
+        out = _varlen_math(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                           causal, scale)
+    return out, None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

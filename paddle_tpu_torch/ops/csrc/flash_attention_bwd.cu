@@ -1,9 +1,10 @@
-// K1/K2 backward: flash attention gradients, hand-written for Hopper
+// K1/K2/K3 backward: flash attention gradients, hand-written for Hopper
 // (sm_90a).
 //
 // Replaces: the backward half of paddle_tpu/ops/flash_attention.py::
-// _get_pallas_impl (jax's Pallas TPU flash attention custom VJP: dq, dk, dv)
-// and of ::_splash_impl / _splash_kernel (GQA, kv heads unexpanded).
+// _get_pallas_impl (jax's Pallas TPU flash attention custom VJP: dq, dk, dv),
+// of ::_splash_impl / _splash_kernel (GQA, kv heads unexpanded) and, with
+// segment ids, of ::_splash_varlen and ::flash_attention_packed (K3).
 //
 // Given q, k, v (paddle layout [B, S, H, D]), the forward's out and f32
 // lse [B, Hq, Sq], and dout, with P = exp(scale * Q K^T - lse) under the
@@ -15,19 +16,26 @@
 // 1. delta: one warp per (batch, row, head), a fused multiply and sum.
 // 2. dK/dV: one block per (64-key tile, kv head, batch). It loops over the
 //    `group` query heads of its kv head and, for each, over the query tiles
-//    on or below the diagonal, recomputing P from Q, K and the lse. dV and
-//    dK accumulate in registers across all of them, so the GQA sum over the
-//    group happens inside the block: no atomics, deterministic results.
+//    that can see its keys (K1/K2: on or below the diagonal; K3: the range
+//    its key tile's segments reach, from a table built outside the kernel),
+//    recomputing P from Q, K and the lse. dV and dK accumulate in registers
+//    across all of them, so the GQA sum over the group happens inside the
+//    block: no atomics, deterministic results.
 // 3. dQ: one block per (64-row query tile, query head, batch), looping over
-//    the key tiles up to its causal limit; dQ accumulates in registers.
+//    the key tiles up to its causal limit (K3: over its key-tile range); dQ
+//    accumulates in registers.
+// K3's mask (same segment and, under a causal mask, pos_q >= pos_k) is the
+// forward's, from per-token ids staged in shared memory beside the tiles;
+// a query row that saw no key has lse -inf and no visible entry, so P and
+// dS are 0 there.
 // P is written over S and dS over dP row by row, which keeps both gradient
-// kernels at 107 KB of shared memory, so two blocks share an SM.
-// P and dS are rounded to the input type before their products, as the
+// kernels at 107 KB of shared memory (K3: 108 KB), so two blocks share an
+// SM. P and dS are rounded to the input type before their products, as the
 // TPU kernel rounds them; every sum is f32.
-// What bounds it on the H100: the products (about 2.5x the forward's)
-// against 989 TFLOP/s bf16. Recomputing S in both the dK/dV and the dQ
-// pass costs one extra Q K^T product over a design with atomic dQ, in
-// exchange for deterministic sums.
+// What bounds it on the H100: the products (about 2.5x the forward's, per
+// visible pair) against 989 TFLOP/s bf16. Recomputing S in both the dK/dV
+// and the dQ pass costs one extra Q K^T product over a design with atomic
+// dQ, in exchange for deterministic sums.
 
 #include "flash_common.cuh"
 
@@ -123,8 +131,9 @@ struct BwdTiles {
   // query rows i0.. and keys j0.., in T: P written over S and dS over dP
   // row by row (one warp owns a row and reads it whole before writing).
   // Returns the row pitch of P and dS in T elements.
-  __device__ int probs_and_dscores(int i0, int j0, int sq, int sk,
-                                   bool causal, float scale) {
+  template <bool SEG>
+  __device__ int probs_and_dscores(const Mask<SEG>& mask, int i0, int j0,
+                                   float scale) {
     using L = BwdSmem<T, D>;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -134,7 +143,7 @@ struct BwdTiles {
 #pragma unroll
       for (int c = 0; c < kBc / 32; ++c) {
         const int col = lane + 32 * c;
-        pv[c] = visible(i0 + r, j0 + col, sq, sk, causal)
+        pv[c] = mask(i0, r, j0, col)
                     ? __expf(Ss[r * L::kPS + col] * scale - lse_s[r])
                     : 0.f;
         ds[c] = pv[c] * (dPs[r * L::kPS + col] - delta_s[r]);
@@ -164,17 +173,21 @@ struct BwdTiles {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, T* __restrict__ dk,
                           T* __restrict__ dv, int sq, int sk, int hq,
-                          int group, bool causal, float scale) {
+                          int group, bool causal, float scale,
+                          Segments segs) {
   using L = BwdSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdTiles<T, D> t(smem_raw);
+  SegTile* ids =
+      SEG ? reinterpret_cast<SegTile*>(smem_raw + L::kBytes) : nullptr;
+  const Mask<SEG> mask{ids, sq, sk, causal};
 
   const int j0 = blockIdx.x * kBc;
   const int hk = blockIdx.y;
@@ -185,26 +198,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t kv_off = ((size_t)b * sk * hkv + hk) * D;
   load_tiles<T, D, kBc>(t.Ks, k + kv_off, t.Vs, v + kv_off, j0, sk,
                         k_stride);
+  // the query tiles [t_lo, t_hi) that can see this key tile
+  const int n_qt = (sq + kBr - 1) / kBr;
+  int t_lo;
+  int t_hi = n_qt;
+  if constexpr (SEG) {
+    load_ids<kBc>(ids->seg_k, ids->pos_k, segs.seg_k + (size_t)b * sk,
+                  segs.pos_k + (size_t)b * sk, j0, sk);
+    const int2 rg = tile_range(segs.ranges, b, gridDim.x, blockIdx.x, n_qt);
+    t_lo = rg.x;
+    t_hi = rg.y;
+  } else {
+    // the first query row that sees key j0 under the causal mask
+    t_lo = (causal ? max(0, j0 - (sk - sq)) : 0) / kBr;
+  }
 
   Acc<T, kBc, D> dk_acc;
   Acc<T, kBc, D> dv_acc;
   dk_acc.zero();
   dv_acc.zero();
-  // the first query row that sees key j0 under the causal mask
-  const int first = causal ? max(0, j0 - (sk - sq)) : 0;
-  const int it0 = first / kBr * kBr;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const size_t q_off = ((size_t)b * sq * hq + h) * D;
     const size_t row_off = ((size_t)b * hq + h) * sq;
-    for (int i0 = it0; i0 < sq; i0 += kBr) {
+    for (int it = t_lo; it < t_hi; ++it) {
+      const int i0 = it * kBr;
       __syncthreads();  // the previous tile is consumed
       t.load_query(q + q_off, dout + q_off, lse + row_off, delta + row_off,
                    i0, sq, q_stride);
+      if constexpr (SEG)
+        load_ids<kBr>(ids->seg_q, ids->pos_q, segs.seg_q + (size_t)b * sq,
+                      segs.pos_q + (size_t)b * sq, i0, sq);
       __syncthreads();
       t.scores();
       __syncthreads();
-      const int pitch = t.probs_and_dscores(i0, j0, sq, sk, causal, scale);
+      const int pitch = t.probs_and_dscores(mask, i0, j0, scale);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q: A = P^T (dS^T) is P (dS) read
       // column-major
@@ -226,16 +254,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_tile<T, D, kBc>(dv + kv_off, scratch, j0, sk, k_stride);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int sq, int sk, int group, bool causal, float scale) {
+                        int sq, int sk, int group, bool causal, float scale,
+                        Segments segs) {
   using L = BwdSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdTiles<T, D> t(smem_raw);
+  SegTile* ids =
+      SEG ? reinterpret_cast<SegTile*>(smem_raw + L::kBytes) : nullptr;
+  const Mask<SEG> mask{ids, sq, sk, causal};
 
   const int i0 = blockIdx.x * kBr;
   const int h = blockIdx.y;
@@ -250,19 +282,36 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t row_off = ((size_t)b * hq + h) * sq;
   t.load_query(q + q_off, dout + q_off, lse + row_off, delta + row_off, i0,
                sq, q_stride);
+  // the key tiles [t_lo, t_hi) this query tile sees
+  int t_lo = 0;
+  int t_hi;
+  if constexpr (SEG) {
+    load_ids<kBr>(ids->seg_q, ids->pos_q, segs.seg_q + (size_t)b * sq,
+                  segs.pos_q + (size_t)b * sq, i0, sq);
+    const int2 rg = tile_range(segs.ranges, b, gridDim.x, blockIdx.x,
+                               (sk + kBc - 1) / kBc);
+    t_lo = rg.x;
+    t_hi = rg.y;
+  } else {
+    const int last_row = min(i0 + kBr, sq) - 1;
+    const int n_keys = causal ? min(sk, last_row + (sk - sq) + 1) : sk;
+    t_hi = (n_keys + kBc - 1) / kBc;
+  }
 
   Acc<T, kBr, D> dq_acc;
   dq_acc.zero();
-  const int last_row = min(i0 + kBr, sq) - 1;
-  const int n_keys = causal ? min(sk, last_row + (sk - sq) + 1) : sk;
-  for (int j0 = 0; j0 < n_keys; j0 += kBc) {
-    __syncthreads();  // the previous K, V and dS are consumed
+  for (int jt = t_lo; jt < t_hi; ++jt) {
+    const int j0 = jt * kBc;
+    __syncthreads();  // the previous K, V, dS and ids are consumed
     load_tiles<T, D, kBc>(t.Ks, k + kv_off, t.Vs, v + kv_off, j0, sk,
                           k_stride);
+    if constexpr (SEG)
+      load_ids<kBc>(ids->seg_k, ids->pos_k, segs.seg_k + (size_t)b * sk,
+                    segs.pos_k + (size_t)b * sk, j0, sk);
     __syncthreads();
     t.scores();
     __syncthreads();
-    const int ds_pitch = t.probs_and_dscores(i0, j0, sq, sk, causal, scale);
+    const int ds_pitch = t.probs_and_dscores(mask, i0, j0, scale);
     __syncthreads();
     // dQ += dS K
     dq_acc.template mma<false, false, kBc>(
@@ -293,39 +342,45 @@ cudaError_t launch_delta(const void* out, const void* dout, void* delta,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
+constexpr size_t grad_smem() {
+  return BwdSmem<T, D>::kBytes + (SEG ? aligned(sizeof(SegTile)) : 0);
+}
+
+template <typename T, int D, bool SEG>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, int batch, int sq, int sk, int hq,
-                        int hkv, int causal, float scale,
+                        int hkv, int causal, float scale, Segments segs,
                         cudaStream_t stream) {
-  const size_t smem = BwdSmem<T, D>::kBytes;
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem);
+  const size_t smem = grad_smem<T, D, SEG>();
+  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T, D, SEG>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sk + kBc - 1) / kBc, hkv, batch);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkdv_kernel<T, D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, hq, hq / hkv,
-      causal != 0, scale);
+      causal != 0, scale, segs);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int batch, int sq, int sk, int hq, int hkv,
-                      int causal, float scale, cudaStream_t stream) {
-  const size_t smem = BwdSmem<T, D>::kBytes;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+                      int causal, float scale, Segments segs,
+                      cudaStream_t stream) {
+  const size_t smem = grad_smem<T, D, SEG>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D, SEG>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kBr - 1) / kBr, hq, batch);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), sq, sk, hq / hkv, causal != 0, scale);
+      static_cast<T*>(dq), sq, sk, hq / hkv, causal != 0, scale, segs);
   return cudaGetLastError();
 }
 
@@ -353,20 +408,44 @@ template <typename T, int D>
 struct DkDv {
   template <typename... Args>
   static cudaError_t run(Args... args) {
-    return launch_dkdv<T, D>(args...);
+    return launch_dkdv<T, D, false>(args...);
   }
 };
 template <typename T, int D>
 struct Dq {
   template <typename... Args>
   static cudaError_t run(Args... args) {
-    return launch_dq<T, D>(args...);
+    return launch_dq<T, D, false>(args...);
+  }
+};
+template <typename T, int D>
+struct SegDkDv {
+  template <typename... Args>
+  static cudaError_t run(Args... args) {
+    return launch_dkdv<T, D, true>(args...);
+  }
+};
+template <typename T, int D>
+struct SegDq {
+  template <typename... Args>
+  static cudaError_t run(Args... args) {
+    return launch_dq<T, D, true>(args...);
   }
 };
 
+// K1/K2's causal rule needs sq <= sk; K3's is per segment (causal 0 here).
 bool bad_shape(int sq, int sk, int hq, int hkv, int causal) {
   return hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 ||
          (causal && sq > sk);
+}
+
+Segments segments(const void* seg_q, const void* pos_q, const void* seg_k,
+                  const void* pos_k, const void* ranges) {
+  return Segments{static_cast<const int*>(seg_q),
+                  static_cast<const int*>(pos_q),
+                  static_cast<const int*>(seg_k),
+                  static_cast<const int*>(pos_k),
+                  static_cast<const int*>(ranges)};
 }
 
 }  // namespace
@@ -399,7 +478,8 @@ extern "C" int flash_attention_bwd_dkdv_launch(
     return cudaErrorInvalidValue;
   return dispatch<DkDv>(dtype, head_dim, q, k, v, dout, lse, delta, dk, dv,
                         batch, seq_q, seq_k, num_q_heads, num_kv_heads,
-                        causal, scale, static_cast<cudaStream_t>(stream));
+                        causal, scale, ptt::flash::Segments{},
+                        static_cast<cudaStream_t>(stream));
 }
 
 // dq from the forward's lse and the delta pass.
@@ -412,5 +492,45 @@ extern "C" int flash_attention_bwd_dq_launch(
     return cudaErrorInvalidValue;
   return dispatch<Dq>(dtype, head_dim, q, k, v, dout, lse, delta, dq, batch,
                       seq_q, seq_k, num_q_heads, num_kv_heads, causal, scale,
+                      ptt::flash::Segments{},
                       static_cast<cudaStream_t>(stream));
+}
+
+// K3 entries (K3's delta is flash_attention_bwd_delta_launch). seg_q/pos_q
+// [batch, seq_q] and seg_k/pos_k [batch, seq_k] int32, as
+// flash_attention_seg_fwd_launch; any seq_q, seq_k.
+
+// dk, dv; query_ranges [batch, ceil(seq_k / 64), 2] int32, the query tiles
+// [lo, hi) that can see each 64-key tile.
+extern "C" int flash_attention_seg_bwd_dkdv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* seg_q,
+    const void* pos_q, const void* seg_k, const void* pos_k,
+    const void* query_ranges, int batch, int seq_q, int seq_k,
+    int num_q_heads, int num_kv_heads, int head_dim, int causal, float scale,
+    int dtype, void* stream) {
+  if (batch < 1 || bad_shape(seq_q, seq_k, num_q_heads, num_kv_heads, 0))
+    return cudaErrorInvalidValue;
+  return dispatch<SegDkDv>(
+      dtype, head_dim, q, k, v, dout, lse, delta, dk, dv, batch, seq_q,
+      seq_k, num_q_heads, num_kv_heads, causal, scale,
+      segments(seg_q, pos_q, seg_k, pos_k, query_ranges),
+      static_cast<cudaStream_t>(stream));
+}
+
+// dq; key_ranges [batch, ceil(seq_q / 64), 2] int32, as the forward's.
+extern "C" int flash_attention_seg_bwd_dq_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* seg_q,
+    const void* pos_q, const void* seg_k, const void* pos_k,
+    const void* key_ranges, int batch, int seq_q, int seq_k, int num_q_heads,
+    int num_kv_heads, int head_dim, int causal, float scale, int dtype,
+    void* stream) {
+  if (batch < 1 || bad_shape(seq_q, seq_k, num_q_heads, num_kv_heads, 0))
+    return cudaErrorInvalidValue;
+  return dispatch<SegDq>(dtype, head_dim, q, k, v, dout, lse, delta, dq,
+                         batch, seq_q, seq_k, num_q_heads, num_kv_heads,
+                         causal, scale,
+                         segments(seg_q, pos_q, seg_k, pos_k, key_ranges),
+                         static_cast<cudaStream_t>(stream));
 }

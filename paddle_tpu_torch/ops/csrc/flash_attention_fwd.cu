@@ -1,34 +1,44 @@
-// K1/K2 forward: flash attention, hand-written for Hopper (sm_90a).
+// K1/K2/K3 forward: flash attention, hand-written for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/flash_attention.py::_get_pallas_impl (jax's Pallas
-// TPU flash attention, MHA) and ::_splash_impl / _splash_kernel (the splash
-// kernel, GQA with kv heads left unexpanded), forward half.
+// TPU flash attention, MHA), ::_splash_impl / _splash_kernel (the splash
+// kernel, GQA with kv heads left unexpanded) and, with segment ids,
+// ::_splash_varlen and ::flash_attention_packed (K3: the splash kernel with
+// SegmentIds), forward half.
 //
 // Computes, for q [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D] (paddle layout,
 // contiguous), out[b, i, h] = softmax_j(scale * q[b,i,h] . k[b,j,h/group])
-// . v[b,j,h/group] with group = Hq / Hkv, f32 online softmax, and the
-// row's log-sum-exp lse[b, h, i] = max + log(sum) of the scaled scores in
-// f32 for the backward. A causal mask is bottom-right aligned: query i sees
-// keys j <= i + Sk - Sq (the reference's tril(k = sk - sq)).
+// . v[b,j,h/group] over the keys j visible to i, with group = Hq / Hkv, f32
+// online softmax, and the row's log-sum-exp lse[b, h, i] = max + log(sum)
+// of the scaled scores in f32 for the backward. K1/K2: a causal mask is
+// bottom-right aligned, query i sees keys j <= i + Sk - Sq (the reference's
+// tril(k = sk - sq)). K3: key j is visible to query i when their segment ids
+// are equal and, under a causal mask, pos_q[i] >= pos_k[j]; a row that sees
+// no key writes 0 and lse -inf.
 //
 // Design: one block per (64-row query tile, query head, batch). Query head
 // h reads kv head h / group, which is all GQA needs: no expanded K/V. The
-// block stages its Q tile once, then walks the K/V tiles of 64 keys up to
-// the causal limit of its last row (tiles wholly past the diagonal are
-// skipped; the diagonal tile and the tails past Sq / Sk are masked):
+// block stages its Q tile once, then walks the K/V tiles of 64 keys: K1/K2
+// up to the causal limit of its last row (tiles wholly past the diagonal
+// are skipped; the diagonal tile and the tails past Sq / Sk are masked),
+// K3 over the key-tile range its query tile's segments can see (from a
+// table built outside the kernel, as the reference builds its segment ids
+// outside Pallas), so a packed row of short segments visits a few tiles
+// per query tile instead of every tile below the diagonal:
 //   S = Q K^T (tensor cores for bf16, f32 accumulation) -> shared f32,
 //   per-row max / sum update and P = exp(S - m) rounded to the input type
 //   (as the TPU kernel rounds p before its P.V product), written over S
 //   row by row (one warp owns a row),
 //   O = O * corr + P V with O held in registers (wmma accumulators; the
 //   per-row factors come in through a row-broadcast tile), so shared memory
-//   holds only the Q, K, V and score tiles (74 KB for bf16, D = 128).
-// What bounds it on the H100: the products (4 * Sq * Sk * D per head, half
-// of it under a causal mask) against 989 TFLOP/s bf16; the bytes of Q, K,
-// V and O are far below. This design uses wmma fragments (each warp a row
-// strip, one A fragment per k-step), 8 warps and synchronous tile loads
-// (all of a K/V pair's loads in flight at once); wgmma, TMA and
-// double-buffered tiles are later work.
+//   holds only the Q, K, V and score tiles (74 KB for bf16, D = 128; K3
+//   adds 1 KB of ids).
+// What bounds it on the H100: the products (4 * D per visible pair and
+// head) against 989 TFLOP/s bf16; the bytes of Q, K, V and O are far below.
+// This design uses wmma fragments (each warp a row strip, one A fragment
+// per k-step), 8 warps and synchronous tile loads (all of a K/V pair's
+// loads in flight at once); wgmma, TMA and double-buffered tiles are later
+// work.
 
 #include "flash_common.cuh"
 
@@ -55,12 +65,12 @@ struct FwdSmem {
   static constexpr size_t kBytes = kQ + 2 * kKV + kS + kBcast + 2 * kRow;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int sq, int sk, int group,
-                     bool causal, float scale) {
+                     bool causal, float scale, Segments segs) {
   using L = FwdSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
@@ -72,6 +82,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* Cs = reinterpret_cast<float*>(carve(p, L::kBcast));
   float* m_s = reinterpret_cast<float*>(carve(p, L::kRow));
   float* l_s = reinterpret_cast<float*>(carve(p, L::kRow));
+  SegTile* ids = SEG ? reinterpret_cast<SegTile*>(p) : nullptr;
 
   const int i0 = blockIdx.x * kBr;
   const int h = blockIdx.y;
@@ -90,16 +101,34 @@ __global__ void __launch_bounds__(kThreads, 2)
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
   }
-  const int last_row = min(i0 + kBr, sq) - 1;
-  const int n_keys = causal ? min(sk, last_row + (sk - sq) + 1) : sk;
+  // the key tiles [t_lo, t_hi) this query tile visits
+  int t_lo = 0;
+  int t_hi;
+  if constexpr (SEG) {
+    load_ids<kBr>(ids->seg_q, ids->pos_q, segs.seg_q + (size_t)b * sq,
+                  segs.pos_q + (size_t)b * sq, i0, sq);
+    const int2 rg = tile_range(segs.ranges, b, gridDim.x, blockIdx.x,
+                               (sk + kBc - 1) / kBc);
+    t_lo = rg.x;
+    t_hi = rg.y;
+  } else {
+    const int last_row = min(i0 + kBr, sq) - 1;
+    const int n_keys = causal ? min(sk, last_row + (sk - sq) + 1) : sk;
+    t_hi = (n_keys + kBc - 1) / kBc;
+  }
+  const Mask<SEG> mask{ids, sq, sk, causal};
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   Acc<T, kBr, D> o;  // the output tile, in registers across all K/V tiles
   o.zero();
 
-  for (int j0 = 0; j0 < n_keys; j0 += kBc) {
-    __syncthreads();  // the previous tile's K, V, P and factors are consumed
+  for (int jt = t_lo; jt < t_hi; ++jt) {
+    const int j0 = jt * kBc;
+    __syncthreads();  // the previous tile's K, V, P, factors, ids consumed
     load_tiles<T, D, kBc>(Ks, kb, Vs, vb, j0, sk, k_stride);
+    if constexpr (SEG)
+      load_ids<kBc>(ids->seg_k, ids->pos_k, segs.seg_k + (size_t)b * sk,
+                    segs.pos_k + (size_t)b * sk, j0, sk);
     __syncthreads();
     {
       Acc<T, kBr, kBc> s;
@@ -110,14 +139,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     // online softmax: each warp owns kBr / kWarps rows, a lane two columns
     for (int r = warp; r < kBr; r += kWarps) {
-      const int i = i0 + r;
       float sv[kBc / 32];
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < kBc / 32; ++c) {
         const int col = lane + 32 * c;
         const float x = Ss[r * L::kPS + col] * scale;
-        sv[c] = visible(i, j0 + col, sq, sk, causal) ? x : -INFINITY;
+        sv[c] = mask(i0, r, j0, col) ? x : -INFINITY;
         mx = fmaxf(mx, sv[c]);
       }
       mx = warp_max(mx);  // every lane has read its S values of row r
@@ -160,48 +188,60 @@ __global__ void __launch_bounds__(kThreads, 2)
                         q_stride);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int sq, int sk, int hq, int group,
-                   int causal, float scale, cudaStream_t stream) {
-  const size_t smem = FwdSmem<T, D>::kBytes;
+                   int causal, float scale, Segments segs,
+                   cudaStream_t stream) {
+  const size_t smem =
+      FwdSmem<T, D>::kBytes + (SEG ? aligned(sizeof(SegTile)) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, SEG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kBr - 1) / kBr, hq, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), sq, sk, group, causal != 0, scale);
+      static_cast<float*>(lse), sq, sk, group, causal != 0, scale, segs);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k,
-                       const void* v, void* out, void* lse, int batch, int sq,
-                       int sk, int hq, int group, int causal, float scale,
-                       cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, batch, sq, sk, hq, group,
-                           causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, batch, sq, sk, hq, group,
-                            causal, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <bool SEG>
+cudaError_t launch_typed(int dtype, int head_dim, const void* q,
+                         const void* k, const void* v, void* out, void* lse,
+                         int batch, int sq, int sk, int hq, int hkv,
+                         int causal, float scale, Segments segs,
+                         void* stream) {
+  if (hkv < 1 || hq % hkv != 0 || batch < 1 || sq < 1 || sk < 1)
+    return cudaErrorInvalidValue;
+  const int group = hq / hkv;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32 && head_dim == 64)
+    return launch<float, 64, SEG>(q, k, v, out, lse, batch, sq, sk, hq,
+                                  group, causal, scale, segs, s);
+  if (dtype == kFloat32 && head_dim == 128)
+    return launch<float, 128, SEG>(q, k, v, out, lse, batch, sq, sk, hq,
+                                   group, causal, scale, segs, s);
+  if (dtype == kBFloat16 && head_dim == 64)
+    return launch<__nv_bfloat16, 64, SEG>(q, k, v, out, lse, batch, sq, sk,
+                                          hq, group, causal, scale, segs, s);
+  if (dtype == kBFloat16 && head_dim == 128)
+    return launch<__nv_bfloat16, 128, SEG>(q, k, v, out, lse, batch, sq, sk,
+                                           hq, group, causal, scale, segs,
+                                           s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. q/out [batch, seq_q, num_q_heads, head_dim] and
+// Plain C entries for ctypes. q/out [batch, seq_q, num_q_heads, head_dim] and
 // k/v [batch, seq_k, num_kv_heads, head_dim], contiguous, one dtype (0 f32,
 // 1 bf16), 16-byte aligned; lse [batch, num_q_heads, seq_q] f32. num_kv_heads
-// must divide num_q_heads; a causal call needs seq_q <= seq_k (every query
-// row sees at least one key). Launches on `stream`, allocates nothing,
+// must divide num_q_heads. Each launches on `stream`, allocates nothing and
 // returns cudaGetLastError().
+
+// K1/K2: a causal call needs seq_q <= seq_k (every query row sees a key).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int batch, int seq_q, int seq_k,
@@ -209,17 +249,27 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           int head_dim, int causal,
                                           float scale, int dtype,
                                           void* stream) {
-  if (num_kv_heads < 1 || num_q_heads % num_kv_heads != 0 || seq_q < 1 ||
-      seq_k < 1 || (causal && seq_q > seq_k))
-    return cudaErrorInvalidValue;
-  const int group = num_q_heads / num_kv_heads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kFloat32)
-    return launch_dim<float>(head_dim, q, k, v, out, lse, batch, seq_q, seq_k,
-                             num_q_heads, group, causal, scale, s);
-  if (dtype == ptt::kBFloat16)
-    return launch_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse, batch,
-                                     seq_q, seq_k, num_q_heads, group, causal,
-                                     scale, s);
-  return cudaErrorInvalidValue;
+  if (causal && seq_q > seq_k) return cudaErrorInvalidValue;
+  return launch_typed<false>(dtype, head_dim, q, k, v, out, lse, batch, seq_q,
+                             seq_k, num_q_heads, num_kv_heads, causal, scale,
+                             ptt::flash::Segments{}, stream);
+}
+
+// K3: seg_q/pos_q [batch, seq_q] and seg_k/pos_k [batch, seq_k] int32;
+// key_ranges [batch, ceil(seq_q / 64), 2] int32, the key tiles [lo, hi)
+// each 64-row query tile visits (they must cover every visible pair).
+extern "C" int flash_attention_seg_fwd_launch(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* seg_q, const void* pos_q, const void* seg_k,
+    const void* pos_k, const void* key_ranges, int batch, int seq_q,
+    int seq_k, int num_q_heads, int num_kv_heads, int head_dim, int causal,
+    float scale, int dtype, void* stream) {
+  const ptt::flash::Segments segs{static_cast<const int*>(seg_q),
+                      static_cast<const int*>(pos_q),
+                      static_cast<const int*>(seg_k),
+                      static_cast<const int*>(pos_k),
+                      static_cast<const int*>(key_ranges)};
+  return launch_typed<true>(dtype, head_dim, q, k, v, out, lse, batch, seq_q,
+                            seq_k, num_q_heads, num_kv_heads, causal, scale,
+                            segs, stream);
 }

@@ -129,6 +129,72 @@ __device__ __forceinline__ bool visible(int i, int j, int sq, int sk,
   return i < sq && j < sk && (!causal || j <= i + (sk - sq));
 }
 
+// K3 (segment-masked attention): per-token int32 segment ids and positions
+// of the queries ([B, Sq]) and keys ([B, Sk]), and a tile-range table
+// [B, n_tiles, 2] giving, for each tile of the block's own side (query
+// tiles for the forward and dQ, key tiles for dK/dV), the tiles [lo, hi) of
+// the other side that can hold a visible pair. The ranges only skip work:
+// the in-tile mask below decides what is visible. K1/K2 pass nulls.
+struct Segments {
+  const int* seg_q;
+  const int* pos_q;
+  const int* seg_k;
+  const int* pos_k;
+  const int* ranges;
+};
+
+// Shared copies of one query tile's and one key tile's ids and positions.
+struct SegTile {
+  int seg_q[kBr];
+  int pos_q[kBr];
+  int seg_k[kBc];
+  int pos_k[kBc];
+};
+
+// Is key j0 + c visible to query i0 + r? K1/K2 (SEG false): the
+// bottom-right causal or the full mask. K3 (SEG true): the same segment
+// and, under a causal mask, pos_q >= pos_k, from the staged ids.
+template <bool SEG>
+struct Mask {
+  const SegTile* ids;
+  int sq;
+  int sk;
+  bool causal;
+
+  __device__ __forceinline__ bool operator()(int i0, int r, int j0,
+                                             int c) const {
+    if constexpr (SEG)
+      return i0 + r < sq && j0 + c < sk && ids->seg_q[r] == ids->seg_k[c] &&
+             (!causal || ids->pos_q[r] >= ids->pos_k[c]);
+    else
+      return visible(i0 + r, j0 + c, sq, sk, causal);
+  }
+};
+
+// Stage the ids and positions of rows [row0, row0 + R) of one batch row
+// (rows past n_rows are never visible: the mask bounds them).
+template <int R>
+__device__ __forceinline__ void load_ids(int* __restrict__ seg_dst,
+                                         int* __restrict__ pos_dst,
+                                         const int* __restrict__ seg,
+                                         const int* __restrict__ pos,
+                                         int row0, int n_rows) {
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const bool ok = row0 + r < n_rows;
+    seg_dst[r] = ok ? seg[row0 + r] : 0;
+    pos_dst[r] = ok ? pos[row0 + r] : 0;
+  }
+}
+
+// The tile range [lo, hi) of this block's tile from a K3 range table,
+// clamped to the other side's n_tiles.
+__device__ __forceinline__ int2 tile_range(const int* __restrict__ ranges,
+                                           int b, int n_own, int own,
+                                           int n_tiles) {
+  const int* rg = ranges + ((size_t)b * n_own + own) * 2;
+  return make_int2(max(rg[0], 0), min(rg[1], n_tiles));
+}
+
 template <typename T, int M, int N>
 struct Acc;
 

@@ -1,22 +1,32 @@
 """Flash attention, forward and backward (counterpart of
 ``paddle_tpu/ops/flash_attention.py``: K1, the MHA Pallas kernel reached
-through ``_get_pallas_impl``, and K2, the GQA splash kernel of
-``_splash_impl``).
+through ``_get_pallas_impl``; K2, the GQA splash kernel of
+``_splash_impl``; and K3, the splash kernel with segment ids of
+``flash_attention_packed`` and ``_splash_varlen``).
 
 Layout: q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D] (the paddle layout), with
-Hq a multiple of Hkv; the output is [B, Sq, Hq, D]. A causal mask is
-bottom-right aligned, ``tril(k=Sk-Sq)``, as the reference's (:382).
+Hq a multiple of Hkv; the output is [B, Sq, Hq, D]. K1/K2: a causal mask is
+bottom-right aligned, ``tril(k=Sk-Sq)``, as the reference's (:382). K3: a
+query sees the keys of its own segment and, when causal, only those at or
+before its position in the segment (``Segments``); the packed form takes
+[B, S] segment ids, the varlen form the [total, H, D] layout with
+cumulative offsets.
 
-``flash_attention_fwd`` picks its tier from the tensor's device: a CPU
-tensor runs the plain version ``_attention_math`` through autograd; a CUDA
-tensor goes through ``FlashAttention``, whose forward launches the forward
-kernel (``csrc/flash_attention_fwd.cu``, which also saves the row log-sum-
-exp) and whose backward launches the three backward kernels
+``flash_attention_fwd`` (and K3's ``flash_attention_packed`` and
+``flash_attention_varlen_fwd``) pick their tier from the tensor's device: a
+CPU tensor runs the plain version (``_attention_math``, ``_segment_math``)
+through autograd; a CUDA tensor goes through ``FlashAttention`` (or
+``SegmentFlashAttention``), whose forward launches the forward kernel
+(``csrc/flash_attention_fwd.cu``, which also saves the row log-sum-exp) and
+whose backward launches the three backward kernels
 (``csrc/flash_attention_bwd.cu``). GQA needs no second kernel: query head h
-reads kv head h // group inside the kernels. There is no fallback between
+reads kv head h // group inside the kernels. K3's kernels are K1's with the
+segment mask and a tile-range table (``_tile_ranges``) that lets each block
+visit only the tiles its segments can see. There is no fallback between
 the tiers: a kernel that cannot build or launch raises.
 """
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,38 +36,59 @@ HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 
 
-def _attention_math(q, k, v, causal, scale):
-    """Plain version (the reference's ``_xla_attention`` :377), in the
-    paddle layout: f32 scores and softmax, the KV heads expanded to Hq, the
-    bottom-right causal mask filled with the f32 minimum, probabilities
-    rounded to q's dtype before the product with V, as the reference does.
-    Differentiable by autograd."""
+def _causal_mask(q, k, causal):
+    """K1's bottom-right causal mask [Sq, Sk] (None when not causal)."""
+    if not causal:
+        return None
+    sq, sk = q.shape[1], k.shape[1]
+    return torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+
+
+def _masked_attention(q, k, v, mask, scale, zero_empty=False):
+    """Attention in the paddle layout under ``mask`` (None, or broadcast
+    to [B, Hq, Sq, Sk]; True = visible): f32 scores and softmax, the KV
+    heads expanded to Hq, masked scores filled with the f32 minimum,
+    probabilities rounded to q's dtype before the product with V, as the
+    reference does. A row that sees no key spreads over every key (the
+    reference's ``_xla_attention``), or with ``zero_empty`` comes out 0
+    (its ``_dense_varlen``). Differentiable by autograd."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     hq, hk = qt.shape[1], kt.shape[1]
     if hq != hk:
         kt = kt.repeat_interleave(hq // hk, dim=1)
         vt = vt.repeat_interleave(hq // hk, dim=1)
     logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
-    if causal:
-        sq, sk = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=q.device).tril(sk - sq)
+    if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.matmul(probs.float(), vt.float()).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if zero_empty:
+        probs = probs * mask.any(-1, keepdim=True)
+    out = torch.matmul(probs.to(q.dtype).float(), vt.float()).to(q.dtype)
     return out.transpose(1, 2)
 
 
+def _attention_math(q, k, v, causal, scale):
+    """Plain version of K1/K2 (the reference's ``_xla_attention`` :377):
+    ``_masked_attention`` under the bottom-right causal mask."""
+    return _masked_attention(q, k, v, _causal_mask(q, k, causal), scale)
+
+
 def _attention_bwd_math(q, k, v, out, dout, causal, scale):
+    """Plain version of K1/K2's backward entries: ``_masked_bwd`` under the
+    bottom-right causal mask."""
+    return _masked_bwd(q, k, v, out, dout, _causal_mask(q, k, causal), scale)
+
+
+def _masked_bwd(q, k, v, out, dout, mask, scale, zero_empty=False):
     """Plain version of the three backward entries on their own inputs:
     (dq, dk, dv) from q, k, v, the forward's output ``out`` as stored and
-    ``dout``, paddle layout. ``delta = rowsum(dout * out)`` in f32 from
-    ``out`` as stored, as the kernels and the reference's TPU kernel take
-    it (autograd of ``_attention_math`` takes it from the f32 softmax
-    instead); P recomputed in f32 with the bottom-right causal mask; dS =
-    P * (dP - delta); dq = scale dS K, dk = scale dS^T Q summed over each
-    kv head's group, dv = P^T dO; all in f32, each rounded once to q's
-    dtype."""
+    ``dout``, paddle layout, under ``_masked_attention``'s mask and
+    ``zero_empty``. ``delta = rowsum(dout * out)`` in f32 from ``out`` as
+    stored, as the kernels and the reference's TPU kernel take it
+    (autograd of the forward takes it from the f32 softmax instead); P
+    recomputed in f32; dS = P * (dP - delta); dq = scale dS K, dk = scale
+    dS^T Q summed over each kv head's group, dv = P^T dO; all in f32, each
+    rounded once to q's dtype."""
     qt, kt, vt, ot, dot = (x.transpose(1, 2).float()
                            for x in (q, k, v, out, dout))
     hkv, group = kt.shape[1], qt.shape[1] // kt.shape[1]
@@ -65,13 +96,11 @@ def _attention_bwd_math(q, k, v, out, dout, causal, scale):
         kt = kt.repeat_interleave(group, dim=1)
         vt = vt.repeat_interleave(group, dim=1)
     logits = torch.matmul(qt, kt.transpose(-1, -2)) * scale
-    mask = None
-    if causal:
-        sq, sk = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=q.device).tril(sk - sq)
+    if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     p = torch.softmax(logits, dim=-1)
+    if zero_empty:
+        p = p * mask.any(-1, keepdim=True)
     delta = (dot * ot).sum(-1, keepdim=True)
     ds = p * (torch.matmul(dot, vt.transpose(-1, -2)) - delta)
     if mask is not None:
@@ -149,7 +178,13 @@ def flash_fwd(q, k, v, causal, scale):
 def flash_bwd_delta(out, dout):
     """Launch the delta pass: rowsum(dout * out) in f32, [B, Hq, Sq].
     Counted in ``flash_bwd_delta.launches``."""
-    name = "flash_attention_bwd_delta"
+    delta = _delta(out, dout, "flash_attention_bwd_delta")
+    flash_bwd_delta.launches += 1
+    return delta
+
+
+def _delta(out, dout, name):
+    """Validate and launch the delta kernel (errors name ``name``)."""
     fn = _build.entry("flash_attention_bwd",
                       "flash_attention_bwd_delta_launch", _DELTA_ARGTYPES)
     chk = _build.check
@@ -170,7 +205,6 @@ def flash_bwd_delta(out, dout):
     rc = fn(out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, sq, hq, D,
             _build.DTYPE_CODES[str(out.dtype)], _stream(out))
     _build.check_status(rc, name)
-    flash_bwd_delta.launches += 1
     return delta
 
 
@@ -179,16 +213,22 @@ def _launch_grad(name, fn, q, k, v, dout, lse, delta, causal, scale, outs):
     ``outs`` (the gradient tensors, allocated by the caller)."""
     B, sq, sk, hq, hkv, D = _check_paddle_layout(
         name, q, k, v, causal, extra=(dout, lse, delta))
-    _build.check(dout.shape == q.shape and dout.dtype == q.dtype, name,
-                 "dout must match q")
-    for t in (lse, delta):
-        _build.check(t.dtype == torch.float32 and t.shape == (B, hq, sq),
-                     name, "lse and delta must be f32 [B, Hq, Sq]")
+    _check_grad_inputs(name, q, dout, lse, delta)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             B, sq, sk, hq, hkv, D, int(causal), float(scale),
             _build.DTYPE_CODES[str(q.dtype)], _stream(q))
     _build.check_status(rc, name)
+
+
+def _check_grad_inputs(name, q, dout, lse, delta):
+    """Validate a gradient kernel's dout, lse and delta against q."""
+    B, sq, hq = q.shape[0], q.shape[1], q.shape[2]
+    _build.check(dout.shape == q.shape and dout.dtype == q.dtype, name,
+                 "dout must match q")
+    for t in (lse, delta):
+        _build.check(t.dtype == torch.float32 and t.shape == (B, hq, sq),
+                     name, "lse and delta must be f32 [B, Hq, Sq]")
 
 
 def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal, scale):
@@ -263,3 +303,369 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     if q.device.type == "cpu":
         return _attention_math(q, k, v, causal, scale)
     return FlashAttention.apply(q, k, v, causal, scale)
+
+
+# -- K3: segment-masked attention (packed rows and varlen) -------------------
+
+class Segments(NamedTuple):
+    """K3's view of a call: int32 segment ids and positions of the queries
+    ([B, Sq]) and of the keys ([B, Sk]). Key j is visible to query i when
+    ``seg_q[i] == seg_k[j]`` and, under a causal mask, ``pos_q[i] >=
+    pos_k[j]``. Within a segment the positions rise by one per token."""
+
+    seg_q: torch.Tensor
+    pos_q: torch.Tensor
+    seg_k: torch.Tensor
+    pos_k: torch.Tensor
+
+    def mask(self, causal):
+        """[B, Sq, Sk] bool, True = visible."""
+        mask = self.seg_q[:, :, None] == self.seg_k[:, None, :]
+        if causal:
+            mask = mask & (self.pos_q[:, :, None] >= self.pos_k[:, None, :])
+        return mask
+
+
+def varlen_segment_ids(cu_seqlens, total):
+    """Token -> sequence index from cumulative offsets (reference :172):
+    cu [0, 3, 5], total 6 -> [0, 0, 0, 1, 1, 2]; tokens past cu[-1] get the
+    next id, the padding segment. int32 [total]."""
+    cu = torch.as_tensor(cu_seqlens).long()
+    tokens = torch.arange(total, device=cu.device)
+    return torch.searchsorted(cu[1:], tokens, right=True, out_int32=True)
+
+
+def packed_position_ids(segment_ids):
+    """[B, S] within-segment positions for rope (reference :324): each
+    token's index minus its segment's start, for ids contiguous and
+    ascending along a row (the packing contract). int32."""
+    seg = torch.as_tensor(segment_ids).to(torch.int32).contiguous()
+    start = torch.searchsorted(seg, seg, side="left", out_int32=True)
+    return torch.arange(seg.shape[-1], dtype=torch.int32,
+                        device=seg.device) - start
+
+
+def _packed_segments(segment_ids):
+    """Segments of packed rows: the ids on both sides and each token's
+    index in the row as its position, so causal is the reference's global
+    ``tril`` ∧ same segment for any ids (for contiguous segments, the same
+    as within-segment causal)."""
+    seg = torch.as_tensor(segment_ids).to(torch.int32).contiguous()
+    pos = torch.arange(seg.shape[-1], dtype=torch.int32,
+                       device=seg.device).expand(seg.shape).contiguous()
+    return Segments(seg, pos, seg, pos)
+
+
+def _varlen_segments(cu_q, cu_k, total_q, total_k, device):
+    """Segments of the varlen layout (batch 1): ids from ``cu_*`` and the
+    position within each sequence, ``index - cu[seg]``, as the reference's
+    ``_dense_varlen`` (:257): causal is top-left aligned within each
+    sequence, whatever its query and key lengths."""
+    out = []
+    for cu, total in ((cu_q, total_q), (cu_k, total_k)):
+        cu = torch.as_tensor(cu, device=device).long()
+        seg = varlen_segment_ids(cu, total)
+        pos = torch.arange(total, device=device) - cu[seg.long()]
+        out += [seg[None], pos.to(torch.int32)[None]]
+    return Segments(*out)
+
+
+def _segment_math(q, k, v, segs, causal, scale):
+    """Plain version of K3 (the reference's dense branches of
+    ``flash_attention_packed`` :309-321 and ``_dense_varlen`` :257):
+    ``_masked_attention`` under the segment mask, a row that sees no key
+    coming out 0. A packed query always sees itself, so there the f32
+    minimum and the varlen branch's -inf give the same bits."""
+    return _masked_attention(q, k, v, segs.mask(causal)[:, None], scale,
+                             zero_empty=True)
+
+
+def _segment_bwd_math(q, k, v, out, dout, segs, causal, scale):
+    """Plain version of K3's backward entries (``_masked_bwd`` under the
+    segment mask)."""
+    return _masked_bwd(q, k, v, out, dout, segs.mask(causal)[:, None], scale,
+                       zero_empty=True)
+
+
+def _tile_spans(lo, hi, tile, other_tile):
+    """Per-token spans [lo, hi) of the other side ([B, n]) -> per ``tile``
+    of tokens, the tiles of ``other_tile`` tokens that cover every span
+    ([B, n_tiles, 2] int32); (0, 0) for a tile whose tokens see nothing."""
+    B, n = lo.shape
+    n_tiles = -(-n // tile)
+    empty = lo >= hi
+    # rows past n and rows that see nothing: an empty span (big, 0)
+    big = torch.iinfo(torch.int64).max
+    lo_rows = lo.new_full((B, n_tiles * tile), big)
+    hi_rows = hi.new_zeros((B, n_tiles * tile))
+    lo_rows[:, :n] = lo.masked_fill(empty, big)
+    hi_rows[:, :n] = hi.masked_fill(empty, 0)
+    lo = lo_rows.view(B, n_tiles, tile).amin(-1)
+    hi = hi_rows.view(B, n_tiles, tile).amax(-1)
+    seen = lo < hi
+    return torch.stack([torch.where(seen, lo // other_tile, 0),
+                        torch.where(seen, -(-hi // other_tile), 0)],
+                       -1).to(torch.int32)
+
+
+def _tile_ranges(segs, causal, tile=64):
+    """K3's tile-range tables, built on the ids' device without a host
+    sync: (key_ranges [B, ceil(Sq / tile), 2], query_ranges [B, ceil(Sk /
+    tile), 2]), for each query tile the key tiles [lo, hi) that can hold a
+    key it sees (the forward and dQ walk these), for each key tile the query
+    tiles that can see it (dK/dV). With ids ascending along a row (the
+    packing contract, always true of varlen ids) each query's keys are the
+    span of its segment in k, cut at its own position when causal (and each
+    key's queries likewise), so the tables are tight. A row whose ids do not
+    ascend gets every tile: the tables only skip work, the kernels' in-tile
+    mask decides what is visible."""
+    seg_q, pos_q, seg_k, pos_k = segs
+    sq, sk = seg_q.shape[1], seg_k.shape[1]
+    k_lo = torch.searchsorted(seg_k, seg_q, side="left")
+    k_hi = torch.searchsorted(seg_k, seg_q, side="right")
+    q_lo = torch.searchsorted(seg_q, seg_k, side="left")
+    q_hi = torch.searchsorted(seg_q, seg_k, side="right")
+    if causal:
+        # a query sees its segment's keys up to its own position; a key is
+        # seen by its segment's queries from its own position on
+        first_k = pos_k.gather(1, k_lo.clamp(max=sk - 1))
+        k_hi = torch.minimum(k_hi, k_lo + (pos_q - first_k) + 1)
+        first_q = pos_q.gather(1, q_lo.clamp(max=sq - 1))
+        q_lo = torch.maximum(q_lo, q_lo + (pos_k - first_q))
+    key_ranges = _tile_spans(k_lo, k_hi, tile, tile)
+    query_ranges = _tile_spans(q_lo, q_hi, tile, tile)
+    ascending = ((seg_q[:, 1:] >= seg_q[:, :-1]).all(1)
+                 & (seg_k[:, 1:] >= seg_k[:, :-1]).all(1))[:, None, None]
+    # every tile, filled on the device (a host tensor's copy would
+    # synchronize the stream)
+    every_k, every_q = (torch.zeros_like(t) for t in (key_ranges,
+                                                      query_ranges))
+    every_k[..., 1] = -(-sk // tile)
+    every_q[..., 1] = -(-sq // tile)
+    return (torch.where(ascending, key_ranges, every_k),
+            torch.where(ascending, query_ranges, every_q))
+
+
+_SEG_FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_SEG_DKDV_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_SEG_DQ_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _segment_pointers(name, q, k, segs, ranges, tiles):
+    """Validate K3's ids and range table for q [B, Sq, ...] and k [B, Sk,
+    ...] and return their pointers in the C entries' order: seg_q, pos_q,
+    seg_k, pos_k, ranges (``tiles``: the row count the table's tiles split,
+    Sq for the forward and dQ, Sk for dK/dV)."""
+    chk = _build.check
+    B, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    for t, n in zip(segs, (sq, sq, sk, sk)):
+        chk(t.dtype == torch.int32 and tuple(t.shape) == (B, n), name,
+            "segment ids and positions must be int32 [B, Sq] and [B, Sk]")
+    chk(ranges.dtype == torch.int32
+        and tuple(ranges.shape) == (B, -(-tiles // 64), 2), name,
+        "the tile-range table must be int32 [B, n_tiles, 2]")
+    for t in (*segs, ranges):
+        chk(t.device == q.device, name, "operands must share q's device")
+        chk(t.is_contiguous(), name, "operands must be contiguous")
+    return [t.data_ptr() for t in (*segs, ranges)]
+
+
+def seg_flash_fwd(q, k, v, segs, key_ranges, causal, scale):
+    """Launch K3's forward kernel: returns (out [B, Sq, Hq, D] in q's
+    dtype, lse [B, Hq, Sq] f32, -inf where a row sees no key). Counted in
+    ``seg_flash_fwd.launches``."""
+    name = "flash_attention_seg_fwd"
+    fn = _build.entry("flash_attention_fwd", "flash_attention_seg_fwd_launch",
+                      _SEG_FWD_ARGTYPES)
+    # K3's causal rule is per segment: any Sq and Sk
+    B, sq, sk, hq, hkv, D = _check_paddle_layout(name, q, k, v, False)
+    ids = _segment_pointers(name, q, k, segs, key_ranges, sq)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, hq, sq), dtype=torch.float32, device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *ids, B, sq, sk, hq, hkv, D, int(causal),
+            float(scale), _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+    _build.check_status(rc, name)
+    seg_flash_fwd.launches += 1
+    return out, lse
+
+
+def seg_flash_bwd_delta(out, dout):
+    """Launch K3's delta pass: K1's kernel, rowsum(dout * out) in f32, [B,
+    Hq, Sq], counted apart in ``seg_flash_bwd_delta.launches``."""
+    delta = _delta(out, dout, "flash_attention_seg_bwd_delta")
+    seg_flash_bwd_delta.launches += 1
+    return delta
+
+
+def _launch_seg_grad(name, fn, q, k, v, dout, lse, delta, segs, ranges,
+                     tiles, causal, scale, outs):
+    """Validate the operands of a K3 gradient kernel and launch it, writing
+    ``outs`` (allocated by the caller)."""
+    B, sq, sk, hq, hkv, D = _check_paddle_layout(
+        name, q, k, v, False, extra=(dout, lse, delta))
+    _check_grad_inputs(name, q, dout, lse, delta)
+    ids = _segment_pointers(name, q, k, segs, ranges, tiles)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            *ids, B, sq, sk, hq, hkv, D, int(causal), float(scale),
+            _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+    _build.check_status(rc, name)
+
+
+def seg_flash_bwd_dkdv(q, k, v, dout, lse, delta, segs, query_ranges,
+                       causal, scale):
+    """Launch K3's dK/dV kernel over each key tile's query-tile range:
+    returns (dk, dv) shaped and typed as k. Counted in
+    ``seg_flash_bwd_dkdv.launches``."""
+    fn = _build.entry("flash_attention_bwd",
+                      "flash_attention_seg_bwd_dkdv_launch",
+                      _SEG_DKDV_ARGTYPES)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_seg_grad("flash_attention_seg_bwd_dkdv", fn, q, k, v, dout, lse,
+                     delta, segs, query_ranges, k.shape[1], causal, scale,
+                     (dk, dv))
+    seg_flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def seg_flash_bwd_dq(q, k, v, dout, lse, delta, segs, key_ranges, causal,
+                     scale):
+    """Launch K3's dQ kernel over each query tile's key-tile range: returns
+    dq shaped and typed as q. Counted in ``seg_flash_bwd_dq.launches``."""
+    fn = _build.entry("flash_attention_bwd",
+                      "flash_attention_seg_bwd_dq_launch", _SEG_DQ_ARGTYPES)
+    dq = torch.empty_like(q)
+    _launch_seg_grad("flash_attention_seg_bwd_dq", fn, q, k, v, dout, lse,
+                     delta, segs, key_ranges, q.shape[1], causal, scale,
+                     (dq,))
+    seg_flash_bwd_dq.launches += 1
+    return dq
+
+
+SEG_KERNELS = (seg_flash_fwd, seg_flash_bwd_delta, seg_flash_bwd_dkdv,
+               seg_flash_bwd_dq)
+for _k in SEG_KERNELS:
+    _k.launches = 0
+
+
+class SegmentFlashAttention(torch.autograd.Function):
+    """K3 attention: ``apply(q, k, v, seg_q, pos_q, seg_k, pos_k,
+    key_ranges, query_ranges, causal, scale)`` in the paddle layout with
+    ``Segments``' ids and positions and ``_tile_ranges``' tables for them.
+
+    On a CUDA tensor the forward launches K3's forward kernel, keeping its
+    lse; the backward launches K3's delta, dK/dV and dQ. On a CPU tensor
+    both directions run the plain version (the backward through autograd on
+    a recomputed forward), and the tables go unread."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, pos_q, seg_k, pos_k, key_ranges,
+                query_ranges, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
+        segs = Segments(seg_q, pos_q, seg_k, pos_k)
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, *segs)
+            return _segment_math(q, k, v, segs, causal, scale)
+        out, lse = seg_flash_fwd(q, k, v, segs, key_ranges, causal, scale)
+        ctx.save_for_backward(q, k, v, *segs, out, lse, key_ranges,
+                              query_ranges)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, scale = ctx.causal, ctx.scale
+        q, k, v, *rest = ctx.saved_tensors
+        segs = Segments(*rest[:4])
+        if dout.device.type == "cpu":
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            with torch.enable_grad():
+                out = _segment_math(q, k, v, segs, causal, scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        else:
+            out, lse, key_ranges, query_ranges = rest[4:]
+            dout = dout.contiguous()
+            delta = seg_flash_bwd_delta(out, dout)
+            dk, dv = seg_flash_bwd_dkdv(q, k, v, dout, lse, delta, segs,
+                                        query_ranges, causal, scale)
+            dq = seg_flash_bwd_dq(q, k, v, dout, lse, delta, segs,
+                                  key_ranges, causal, scale)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
+def _segment_attention(q, k, v, segs, causal, scale, ranges=None):
+    """K3 on the tensor's device: the plain version through autograd on the
+    CPU, ``SegmentFlashAttention`` (the kernels) on the card, over
+    ``ranges`` (key_ranges, query_ranges; built here when None)."""
+    if q.device.type == "cpu":
+        return _segment_math(q, k, v, segs, causal, scale)
+    if ranges is None:
+        ranges = _tile_ranges(segs, causal)
+    return SegmentFlashAttention.apply(q, k, v, *segs, *ranges, causal,
+                                       scale)
+
+
+class PackedSegments(NamedTuple):
+    """Packed rows prepared once (``pack_segments``) for the causal
+    attention of every layer of a forward: K3's ``Segments``, its
+    tile-range tables and the rows' rope positions, so that no layer
+    rebuilds them (some 60 small launches each)."""
+
+    segs: Segments
+    key_ranges: torch.Tensor
+    query_ranges: torch.Tensor
+    position_ids: torch.Tensor
+
+
+def pack_segments(segment_ids):
+    """[B, S] segment ids -> ``PackedSegments`` (returned as it is when it
+    already is one)."""
+    if isinstance(segment_ids, PackedSegments):
+        return segment_ids
+    segs = _packed_segments(segment_ids)
+    return PackedSegments(segs, *_tile_ranges(segs, True),
+                          packed_position_ids(segs.seg_q))
+
+
+def flash_attention_packed(q, k, v, segment_ids, causal=True, scale=None):
+    """Packed-sequence attention (reference :277): q [B, S, Hq, D], k/v [B,
+    S, Hkv, D], ``segment_ids`` [B, S] (int, on q's device) or their
+    ``PackedSegments``. A token sees only its own segment, causally: same
+    segment ∧ key index <= query index. A CPU tensor runs the plain
+    version; a CUDA tensor, K3's kernels."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if causal:
+        packed = pack_segments(segment_ids)
+        return _segment_attention(q, k, v, packed.segs, True, scale,
+                                  packed[1:3])
+    segs = (segment_ids.segs if isinstance(segment_ids, PackedSegments)
+            else _packed_segments(segment_ids))
+    return _segment_attention(q, k, v, segs, False, scale)
+
+
+def _varlen_math(q, k, v, cu_q, cu_k, causal, scale):
+    """Plain version of the varlen form: ``_segment_math`` on [total, H,
+    D] as a batch of one."""
+    segs = _varlen_segments(cu_q, cu_k, q.shape[0], k.shape[0], q.device)
+    return _segment_math(q[None], k[None], v[None], segs, causal, scale)[0]
+
+
+def flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, causal=True, scale=None,
+                               same_offsets=None):
+    """Varlen attention on the packed layout (reference :181): q [Tq, Hq,
+    D], k/v [Tk, Hkv, D], sequence b at ``cu_q[b]:cu_q[b + 1]`` of q and
+    ``cu_k[b]:cu_k[b + 1]`` of k; causal is top-left aligned within each
+    sequence; a query whose key sequence is empty comes out 0. A CPU tensor
+    runs the plain version; a CUDA tensor, K3's kernels, for self- and
+    cross-offset attention alike (the per-sequence positions cover both),
+    so ``same_offsets``, the reference's choice between its kernel and its
+    dense path, selects nothing."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        return _varlen_math(q, k, v, cu_q, cu_k, causal, scale)
+    segs = _varlen_segments(cu_q, cu_k, q.shape[0], k.shape[0], q.device)
+    return _segment_attention(q[None], k[None], v[None], segs, causal,
+                              scale)[0]

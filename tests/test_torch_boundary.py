@@ -11,8 +11,9 @@ the device or the kernel.
   version and without counting a launch. A stub stands in for the CUDA
   tensor, so no card is needed. That holds for the serving kernels (their
   int8-pool variants too) and for every flash-attention entry, forward and
-  backward, the flash dispatch itself, and the AdamW update; a K/V pool
-  pair of one int8 and one float pool is refused;
+  backward, the flash dispatch itself, K3's segment-masked entries and the
+  packed dispatch, and the AdamW update; a K/V pool pair of one int8 and
+  one float pool is refused;
 - the training entry points (``LlamaForCausalLM``, ``TrainStep``) default
   to the card too.
 """
@@ -143,6 +144,7 @@ def library_missing(monkeypatch):
     monkeypatch.setattr(trpa, "_ragged_math", plain_forbidden)
     monkeypatch.setattr(tpa, "_paged_math", plain_forbidden)
     monkeypatch.setattr(tfa, "_attention_math", plain_forbidden)
+    monkeypatch.setattr(tfa, "_segment_math", plain_forbidden)
     monkeypatch.setattr(tadamw, "_adamw_math", plain_forbidden)
 
 
@@ -233,6 +235,39 @@ def test_flash_dispatch_raises_without_its_kernel(library_missing):
     with pytest.raises(_build.KernelBuildError, match="flash_attention_fwd"):
         tfa.flash_attention_fwd(q, q, q, causal=True)
     assert [k.launches for k in tfa.KERNELS] == before
+
+
+SEG_CALLS = {
+    "seg_flash_fwd": lambda s: tfa.seg_flash_fwd(s, s, s, None, None, True,
+                                                 1.0),
+    "seg_flash_bwd_delta": lambda s: tfa.seg_flash_bwd_delta(s, s),
+    "seg_flash_bwd_dkdv": lambda s: tfa.seg_flash_bwd_dkdv(
+        s, s, s, s, s, s, None, None, True, 1.0),
+    "seg_flash_bwd_dq": lambda s: tfa.seg_flash_bwd_dq(
+        s, s, s, s, s, s, None, None, True, 1.0),
+}
+
+
+def _all_flash_launches():
+    return [k.launches for k in tfa.KERNELS + tfa.SEG_KERNELS]
+
+
+@pytest.mark.parametrize("entry", sorted(SEG_CALLS))
+def test_segment_flash_wrappers_raise_without_their_kernels(library_missing,
+                                                            entry):
+    before = _all_flash_launches()
+    with pytest.raises(_build.KernelBuildError, match="flash_attention"):
+        SEG_CALLS[entry](_CudaStub(2, 64, 4, 64))
+    assert _all_flash_launches() == before
+
+
+def test_packed_dispatch_raises_without_its_kernel(library_missing):
+    before = _all_flash_launches()
+    q = _CudaStub(2, 64, 4, 64)
+    seg = torch.zeros((2, 64), dtype=torch.int32)
+    with pytest.raises(_build.KernelBuildError, match="flash_attention_fwd"):
+        tfa.flash_attention_packed(q, q, q, seg)
+    assert _all_flash_launches() == before
 
 
 def test_adamw_wrapper_raises_without_its_kernel(library_missing):
