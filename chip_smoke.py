@@ -26,7 +26,16 @@ Phases, one JSON line each (any failed phase exits non-zero):
             multiple of 64) causal and full, cross-offset, and with an
             empty key sequence; bounds from the visible pairs alone, and
             F.sdpa with the boolean segment mask as the library time;
-6. adamw  — the AdamW update kernel against its plain version;
+6. k6     — ring attention (K6) over a sep-4 ring on the one card (B 1,
+            S 4 x 2048 = 8192, D 128, bf16): causal MHA 32/32 and GQA
+            64/8, timed, full MHA, and an f32 case at S 4 x 256.
+            RingFlashAttention's output and gradients (K6 per kept visit,
+            K1's backward entries) against the plain ring row by row, one
+            K6 launch against its plain version, the public ring_attention
+            equal to the kernel path; CUDA-event times of the ring forward
+            and forward + backward beside K1 over the whole 8192 and F.sdpa
+            over it;
+6a. adamw — the AdamW update kernel against its plain version;
 7. codec  — the int8 KV codec on the card against the CPU: codes, scales
             and dequantized values bit-identical (zero, +-absmax and .5-tie
             rows included);
@@ -60,6 +69,16 @@ Phases, one JSON line each (any failed phase exits non-zero):
 16. train_packed_equal — the same on packed rows (S 256 cut into 3-5
             segments, through K3), then each segment's logits from the
             packed row against its standalone forward (K1) on the card;
+16a. train_equal_s1024 — `train_equal` on K1's path at B 1 x S 1024:
+            the witness that rule (a) of the parameter check, set at S
+            256, leaves outliers here on K1 too; the amplified rule
+            (``_param_report``) explains them, and planted faults stay
+            unexplained;
+16b. train_cp_equal — `train_equal` under context parallelism: B 1 x S
+            1024, sep 4 (S_local 256), DistributedTrainSteps on the card
+            and the CPU, the ring and then Ulysses, with the amplified
+            rule as in 16a; on the card the first step's loss equals the
+            no-mesh loss within 1e-5 relative;
 17. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
             "full", fused linear cross-entropy, AdamW; B 2, S 2048, 2
             warm-up and 8 timed steps; tokens/s, MFU, peak memory, losses
@@ -69,13 +88,21 @@ Phases, one JSON line each (any failed phase exits non-zero):
             2048 of k3's packed rows, 2 warm-up and 8 timed steps, K3's
             exact launch counts and none of K1's, MFU from the visible
             pairs, `train`'s step time beside; two steps profiled;
+19a. train_cp — context-parallel training on `train`'s model and AdamW:
+            B 2 x S 4096 through DistributedTrainStep under a sep-4 mesh
+            over cuda:0, 2 warm-up and 5 timed steps, the ring's exact
+            launch counts and no K1 forward; then the same model with no
+            mesh (K1 over the whole 4096), step ms, tokens/s, MFU and peak
+            memory of both;
 20. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
             B 1, S 2048: 1 warm-up and 3 timed steps.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and the contract's last line. ``--only k1,k2`` runs the named phases alone
 (with the build), to iterate on a kernel (``--only k3,train_packed_equal,
-train_packed`` for the packed path): it ends in a ``partial_run`` line
+train_packed`` for the packed path, ``--only k6,train_equal_s1024,
+train_cp_equal,train_cp`` for context parallelism): it ends in a
+``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
 a run of every phase (no arguments) reads as a passing smoke. Imports no
 JAX and nothing of the JAX package.
@@ -94,10 +121,11 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense tensor-core bf16
 TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
              "torch.float32": (1e-4, 1e-4)}   # summation order only
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
-PHASES = ("k1", "k2", "k3", "adamw", "codec", "k4", "k5", "k4_int8",
+PHASES = ("k1", "k2", "k3", "k6", "adamw", "codec", "k4", "k5", "k4_int8",
           "k5_int8", "serve_equal", "slice", "profile", "slice_int8",
           "slice_sampled_prefix", "train_equal", "train_packed_equal",
-          "train", "train_profile", "train_packed", "train_gqa")
+          "train_equal_s1024", "train_cp_equal", "train", "train_profile",
+          "train_packed", "train_cp", "train_gqa")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 PAGES_PER_SEQ = MAX_LEN // BS
@@ -773,10 +801,13 @@ def _family(name):
     for kernel in ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv",
                    "flash_bwd_dq"):
         if kernel + "_kernel" in name:
-            # K3 is the kernels' segment-mask instantiation (<..., true>;
-            # its delta pass is K1's kernel)
-            seg = "seg_" if "true>" in name else ""
-            return "flash_attention_" + seg + kernel.removeprefix("flash_")
+            # the template flags after <T, D: SEG, K3's segment mask (its
+            # delta pass is K1's kernel), and the forward's RING, K6's merge
+            args = name.partition(kernel + "_kernel<")[2].partition(">")[0]
+            flags = [a.strip() == "true" for a in args.split(",")[2:]]
+            kind = ("ring_" if flags[1:2] == [True] else
+                    "seg_" if flags[:1] == [True] else "")
+            return "flash_attention_" + kind + kernel.removeprefix("flash_")
     if "adamw_kernel" in name:
         return "adamw_update"
     if any(s in name.lower()
@@ -1147,6 +1178,174 @@ def phase_flash(phase, hq, hkv, seed):
     return rows
 
 
+def _ring_shards(x, n):
+    """[B, S, H, D] -> the sep ranks' sequence shards stacked [n, B, S / n,
+    H, D] (contiguous), the layout ``RingFlashAttention`` takes."""
+    B, S = x.shape[:2]
+    return x.reshape(B, n, S // n, *x.shape[2:]).transpose(0, 1).contiguous()
+
+
+def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4):
+    """One K6 case on the card: a sep-``n`` ring over cuda:0 on q [B, n
+    s_loc, Hq, D] and k, v [B, n s_loc, Hkv, D]. ``RingFlashAttention``'s
+    output and gradients (K6 per kept visit, K1's backward entries) against
+    the plain ring (``_ring_block_impl`` through autograd) on the same
+    inputs, row by row (dQ rows of the first FEW_KEYS global positions
+    counted apart, as in k1: there autograd's delta and the kernels' differ
+    by the rounding of the stored O); one ``ring_flash_fwd`` launch merging
+    into a state already holding a full visit, against its plain version
+    (``_visit_math`` + ``_ring_merge_math``); the public ``ring_attention``
+    equal to the kernel path bit for bit. With ``timed``: CUDA-event
+    medians of the ring's forward and forward + backward, the plain ring's,
+    K1 over the whole sequence (``flash_fwd``, ``FlashAttention``) and
+    F.scaled_dot_product_attention over it (the library time), and the
+    bounds of the whole function over the n s_loc positions."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.distributed import build_mesh, mesh_guard
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    S = n * s_loc
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rand((B, S, hq, D)), rand((B, S, hq, D))
+    k, v = rand((B, S, hkv, D)), rand((B, S, hkv, D))
+    scale = D ** -0.5
+    qs, ks, vs, dos = (_ring_shards(t, n) for t in (q, k, v, do))
+
+    def kernel_ring(a, b, c):
+        return ra.RingFlashAttention.apply(a, b, c, causal, scale)
+
+    def plain_ring(a, b, c):
+        out = ra._ring_block_impl(*(t.transpose(2, 3) for t in (a, b, c)),
+                                  causal, scale, None)
+        return out.transpose(2, 3)
+
+    def fwd_bwd(fn, inputs=(qs, ks, vs), dout=dos):
+        xs = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*xs)
+        out.backward(dout)
+        return (out.detach(), *(x.grad for x in xs))
+
+    with mesh_guard(build_mesh(sep=n, devices=["cuda:0"] * n)):
+        n0 = fa.ring_flash_fwd.launches
+        got = fwd_bwd(kernel_ring)
+        torch.cuda.synchronize()
+        launches = fa.ring_flash_fwd.launches - n0
+        want = fwd_bwd(plain_ring)
+        public = ra.ring_attention(*(t.transpose(2, 3) for t in (qs, ks, vs)),
+                                   causal=causal, scale=scale)
+        public_equal = (ra.LAST_IMPL == "ring-kernel"
+                        and torch.equal(public.transpose(2, 3), got[0]))
+    few = _few_keys(B, S, S, hq, causal).reshape(B, n, s_loc, hq).transpose(
+        0, 1).reshape(-1)
+    f32 = dtype == torch.float32
+    checks = {"o": row_check(got[0], want[0], True)}
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        checks[name] = row_check(g, w, f32, few if name == "dq" else None)
+    del want
+    # one launch on its own inputs: rank 1's diagonal (or second) visit
+    # merged into a state holding its visit of rank 0's shard
+    o_acc, lse_acc = fa._visit_math(qs[1], ks[0], vs[0], False, scale)
+    o_acc, lse_acc = o_acc.contiguous(), lse_acc.contiguous()
+    want_o, want_lse = fa._ring_merge_math(
+        o_acc, lse_acc, *fa._visit_math(qs[1], ks[1], vs[1], causal, scale))
+    fa.ring_flash_fwd(qs[1], ks[1], vs[1], o_acc, lse_acc, causal, scale)
+    entry = {"o": row_check(o_acc.to(dtype), want_o.to(dtype), True),
+             "lse_max_abs_err": float((lse_acc - want_lse).abs().max())}
+    pairs = _visible_pairs(S, S, causal) * B * hq
+    row = {"B": B, "sep": n, "s_local": s_loc, "S": S, "hq": hq, "hkv": hkv,
+           "d": D, "causal": causal, "dtype": str(dtype),
+           "visible_pairs": pairs, "launches_per_call": launches,
+           "launches_expected": n * (n + 1) // 2 if causal else n * n,
+           "max_abs_err": {**{k: c["max_abs_err"] for k, c in checks.items()},
+                           "entry_o": entry["o"]["max_abs_err"]},
+           "checks": checks, "entry": entry,
+           "public_entry_equal": public_equal}
+    bad = [f"{name}: {c}" for name, c in (*checks.items(), ("entry o",
+                                                             entry["o"]))
+           if c["bad_rows"] or c["bad_elements"] or not c["finite"]]
+    if entry["lse_max_abs_err"] > 1e-3:
+        bad.append(f"entry lse off by {entry['lse_max_abs_err']}")
+    if not public_equal:
+        bad.append("the public ring_attention differs from the kernel path")
+    if launches != row["launches_expected"]:
+        bad.append(f"{launches} K6 launches, expected "
+                   f"{row['launches_expected']}")
+    if bad:
+        emit(row)
+        raise AssertionError(f"ring {hq}/{hkv} causal={causal} {dtype}: "
+                             + "; ".join(bad))
+    if not timed:
+        return row
+    kern = {"fwd": cuda_ms(lambda: ra._ring_kernel_fwd_impl(
+                qs, ks, vs, causal, scale)),
+            "fwd_bwd": cuda_ms(lambda: fwd_bwd(kernel_ring))}
+    with torch.no_grad():
+        plain_fwd = cuda_ms(lambda: plain_ring(qs, ks, vs), reps=3, warmup=1)
+    plain_ms = {"fwd": plain_fwd,
+                "fwd_bwd": cuda_ms(lambda: fwd_bwd(plain_ring), reps=3,
+                                   warmup=1)}
+
+    def k1(a, b, c):
+        return fa.FlashAttention.apply(a, b, c, causal, scale)
+
+    k1_whole = {"fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+                "fwd_bwd": cuda_ms(lambda: fwd_bwd(k1, (q, k, v), do))}
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
+                                              scale=scale,
+                                              enable_gqa=hq != hkv)
+
+    library = {"fwd": cuda_ms(lambda: sdpa(qt, kt, vt)),
+               "fwd_bwd": cuda_ms(lambda: fwd_bwd(sdpa, (qt, kt, vt), dot))}
+    parts = _flash_bounds(pairs, B, S, S, hq, hkv, q.element_size())
+    bounds = {}
+    for name, (nbytes, ops) in (("fwd", parts["fwd"]),
+                                ("fwd_bwd", (parts["fwd"][0]
+                                             + parts["bwd"][0],
+                                             parts["fwd"][1]
+                                             + parts["bwd"][1]))):
+        b_ms, b_by = bound(nbytes, ops, str(dtype))
+        bounds[name] = {"bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+                        "bound_by": b_by}
+    row.update(kernel_ms=kern, plain_ms=plain_ms, k1_whole_ms=k1_whole,
+               library_ms=library, bounds=bounds)
+    return row
+
+
+def phase_k6(seed=12):
+    """K6 on a sep-4 ring over cuda:0 at D 128, B 1, S 4 x 2048 = 8192:
+    causal bf16 MHA 32/32 (LLaMA-2-7B attention) and GQA 64/8 (K2's
+    widths), timed; full (non-causal) MHA, and an f32 case at S 4 x 256."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [dict(s_loc=2048, hq=HQ, hkv=HQ, causal=True,
+                  dtype=torch.bfloat16, timed=True),
+             dict(s_loc=2048, hq=64, hkv=8, causal=True,
+                  dtype=torch.bfloat16, timed=True),
+             dict(s_loc=2048, hq=HQ, hkv=HQ, causal=False,
+                  dtype=torch.bfloat16, timed=False),
+             dict(s_loc=256, hq=HQ, hkv=HQ, causal=True, dtype=torch.float32,
+                  timed=False)]
+    rows = []
+    for c in cases:
+        row = ring_case(gen, 1, c["s_loc"], c["hq"], c["hkv"], c["causal"],
+                        c["dtype"], c["timed"], n=CP_SEP)
+        row["phase"] = "k6"
+        emit(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
 SFT_LENGTHS = (64, 1024)   # conversation lengths of the packed rows
 
 
@@ -1363,14 +1562,15 @@ def phase_adamw(seed=8):
 
 def _flash_wrappers():
     """{kernel line name: wrapper} of the training path's attention
-    kernels: K1/K2's four flash entries (flash_attention_fwd, ...) and
-    K3's (flash_attention_seg_fwd, ...)."""
+    kernels: K1/K2's four flash entries (flash_attention_fwd, ...), K3's
+    (flash_attention_seg_fwd, ...) and K6's (flash_attention_ring_fwd)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     out = {"flash_attention_" + k.__name__.removeprefix("flash_"): k
            for k in fa.KERNELS}
     out.update({"flash_attention_seg_" + k.__name__.removeprefix(
         "seg_flash_"): k for k in fa.SEG_KERNELS})
+    out["flash_attention_ring_fwd"] = fa.ring_flash_fwd
     return out
 
 
@@ -1392,17 +1592,31 @@ def _reset_flash_counts():
     adamw_update.launches = 0
 
 
-def _expected_counts(layers, steps, n_params, packed):
+def _expected_counts(layers, steps, n_params, path="k1", sep=1):
     """Exact launches of ``steps`` training steps under recompute "full"
     or "dots": per layer and step two forwards (the forward and its
-    recompute) and one of each backward entry, of K3 for packed rows and
-    of K1/K2 otherwise, none of the other; one AdamW update per
-    parameter."""
-    want = {}
-    for name in _flash_wrappers():
-        ours = name.startswith("flash_attention_seg_") == packed
-        per_step = 2 if name.endswith("_fwd") else 1
-        want[name] = per_step * layers * steps if ours else 0
+    recompute) and one backward, through ``path``:
+    - "k1": one launch of each K1/K2 entry per forward and backward;
+    - "k3" (packed rows): the same on K3's entries;
+    - "ring" (context parallel over ``sep`` ranks): per forward, one K6
+      launch per kept visit of the causal ring, sep (sep + 1) / 2; per
+      backward, K1's delta once per rank and its dK/dV and dQ once per
+      kept visit; no K1 forward;
+    - "ulysses": each K1 entry once per rank (a rank's heads);
+    none of the others; one AdamW update per parameter."""
+    visits = sep * (sep + 1) // 2
+    k1 = {"flash_attention_fwd": 2, "flash_attention_bwd_delta": 1,
+          "flash_attention_bwd_dkdv": 1, "flash_attention_bwd_dq": 1}
+    per = {"k1": k1,
+           "k3": {n.replace("attention_", "attention_seg_"): c
+                  for n, c in k1.items()},
+           "ring": {"flash_attention_ring_fwd": 2 * visits,
+                    "flash_attention_bwd_delta": sep,
+                    "flash_attention_bwd_dkdv": visits,
+                    "flash_attention_bwd_dq": visits},
+           "ulysses": {n: c * sep for n, c in k1.items()}}[path]
+    want = {name: per.get(name, 0) * layers * steps
+            for name in _flash_wrappers()}
     want["adamw_update"] = n_params * steps
     return want
 
@@ -1424,9 +1638,11 @@ def _packed(model):
     return Packed()
 
 
-def _trainer(cfg, seed, device="cuda", model=None, packed=False):
+def _trainer(cfg, seed, device="cuda", model=None, packed=False, mesh=None):
     """(model, TrainStep) with AdamW lr 1e-4, decay 0.01; ``packed``: the
-    step drives ``_packed(model)`` on (ids, segment ids, labels)."""
+    step drives ``_packed(model)`` on (ids, segment ids, labels);
+    ``mesh``: a ``DistributedTrainStep`` under it instead."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep
     from paddle_tpu_torch.jit_api import TrainStep
     from paddle_tpu_torch.models.llama import (
         LlamaForCausalLM, LlamaPretrainingCriterion,
@@ -1437,6 +1653,9 @@ def _trainer(cfg, seed, device="cuda", model=None, packed=False):
         model = LlamaForCausalLM(cfg, device=device, seed=seed)
     opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
                 weight_decay=0.01)
+    if mesh is not None:
+        return model, DistributedTrainStep(
+            model, LlamaPretrainingCriterion(cfg), opt, mesh=mesh)
     return model, TrainStep(_packed(model) if packed else model,
                             LlamaPretrainingCriterion(cfg), opt,
                             device=device)
@@ -1486,8 +1705,50 @@ def _row_noise(g, c):
         [g2.shape[-1]])
 
 
-def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, beta1,
-                  top=8):
+# the amplified rule's limit: the largest of the ~2e9 draws of a standard
+# normal that 667 M elements over 3 steps make lies near 6
+AMPLIFIED_MULT = 6
+PLANTED_UPDATE_LR = 0.5   # the planted update fault: half a step of lr
+PLANTED_GRAD_MULT = 9     # the planted gradient fault, in row noise
+
+
+def _adam_travel(grads, beta1, beta2, eps):
+    """How far AdamW's steps m_hat / (sqrt(v_hat) + eps) move elements,
+    in units of lr, over the gradients ``grads`` (one tensor per step),
+    in f64; the decoupled decay (1e-6 of a weight a step at lr 1e-4 and
+    decay 0.01) is left out."""
+    m = v = total = 0.0
+    for t, g in enumerate(grads, 1):
+        g = g.double()
+        m = beta1 * m + (1 - beta1) * g
+        v = beta2 * v + (1 - beta2) * g * g
+        total = total + (m / (1 - beta1 ** t)) / (
+            (v / (1 - beta2 ** t)).sqrt() + eps)
+    return total
+
+
+def _travel_noise(grads, noise, beta1, beta2, eps):
+    """Per element, the standard deviation (lr units) of ``_adam_travel``
+    at the gradients ``grads`` when each step's gradient carries its row's
+    noise ``noise`` (one tensor per step), propagated to first order:
+    sqrt(sum_s (noise_s dT/dg_s)^2), each derivative a central difference
+    of 1e-3 of that step's noise."""
+    import torch
+
+    var = torch.zeros(grads[0].shape, dtype=torch.float64)
+    for s, nz in enumerate(noise):
+        h = nz.double() * 1e-3
+        moved = [[g.double() + (sign * h if t == s else 0)
+                  for t, g in enumerate(grads)] for sign in (1, -1)]
+        slope = (_adam_travel(moved[0], beta1, beta2, eps)
+                 - _adam_travel(moved[1], beta1, beta2, eps)) / (
+                     2 * h).clamp_min(1e-300)
+        var += torch.where(nz > 0, nz.double() * slope, 0.0).square()
+    return var.sqrt()
+
+
+def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, opt, top=8,
+                  amplified=False):
     """Per parameter, |card - CPU| after the steps in units of lr: the
     median, the largest, the elements past 0.1 lr ("outliers") and how many
     of them are explained: at some step both sides' gradient, or both
@@ -1501,10 +1762,21 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, beta1,
     by more than its row's noise stays unexplained. For the ``top`` largest
     differences overall, and up to 2 x ``top`` unexplained ones, the
     element's values and both sides' gradients and moments at every step
-    beside their noise."""
+    beside their noise.
+
+    ``amplified`` (the S 1024 phases only): an outlier rule (a) leaves is
+    also explained ("explained_amplified") when its gap is at most
+    AMPLIFIED_MULT times the gap's noise (``_travel_noise``): its row's
+    gradient noise carried through AdamW's update at the CPU's gradients.
+    Adam divides by sqrt(v_hat) + eps, so an element whose gradient lies a
+    few eps from 0, or whose moment half cancels, turns a few times its
+    row's noise into a tenth of lr. The card's gradients enter only
+    through the row noise. Returns, beside the report, each such
+    element's CPU gradients, noise and gap (``_planted_faults``)."""
     import torch
 
-    per, cand, noise = {}, [], {}
+    beta1, beta2, eps = opt._beta1, opt._beta2, opt._epsilon
+    per, cand, noise, amp = {}, [], {}, []
     cpu_params = dict(cpu_model.named_parameters())
     for name, p in gpu_model.named_parameters():
         d = (p.detach().cpu() - cpu_params[name].detach()).abs().flatten()
@@ -1517,11 +1789,13 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, beta1,
             return (torch.maximum(a.abs(), b.abs()) <= NOISE_MULT * nz) & (
                 (a != 0) | (b != 0))
 
+        nzs = []
         for g, c in zip(rec_gpu, rec_cpu):
             rows, (width,) = _row_noise(g[name], c[name])
             noise[name].append((rows, width))
             go, co = g[name].flatten()[out], c[name].flatten()[out]
             nz = rows[out // width]
+            nzs.append(nz)
             mg = beta1 * mg + (1 - beta1) * go
             mc = beta1 * mc + (1 - beta1) * co
             var_m = beta1 ** 2 * var_m + (1 - beta1) ** 2 * nz.square()
@@ -1530,6 +1804,21 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, beta1,
                      "max_lr": float(d.max()) / lr,
                      "outliers": int(out.numel()),
                      "explained": int(near.sum())}
+        if amplified:
+            left = (~near).nonzero().flatten()
+            cpu_g = [c[name].flatten()[out[left]] for c in rec_cpu]
+            nz_left = [nz[left] for nz in nzs]
+            sd = _travel_noise(cpu_g, nz_left, beta1, beta2, eps)
+            gap = d[out[left]].double() / lr
+            ok = gap <= AMPLIFIED_MULT * sd
+            near[left[ok]] = True
+            per[name]["explained"] = int(near.sum())
+            per[name]["explained_amplified"] = int(ok.sum())
+            amp += [{"param": name, "index": int(out[left[j]]),
+                     "gap_lr": float(gap[j]), "noise_lr": float(sd[j]),
+                     "grads_cpu": [float(g[j]) for g in cpu_g],
+                     "row_noise": [float(nz[j]) for nz in nz_left]}
+                    for j in ok.nonzero().flatten().tolist()]
         vals, idx = d.topk(min(top, d.numel()))
         cand += [(float(v), name, int(i), "largest")
                  for v, i in zip(vals, idx)]
@@ -1557,11 +1846,45 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, beta1,
     worst = [detail(*c) for c in sorted(
         (c for c in cand if c[3] == "largest"), reverse=True)[:top]]
     worst += [detail(*c) for c in cand if c[3] == "unexplained"][:2 * top]
-    return per, worst
+    return per, worst, amp
+
+
+def _planted_faults(amp, opt):
+    """The witness that the amplified rule has a bound: for each element
+    it explained (``_param_report``'s third value), two planted faults it
+    must leave unexplained. An update fault: the same gradients and noise,
+    the gap PLANTED_UPDATE_LR lr wider (a gap AdamW did not make). A
+    gradient fault: the card's gradient PLANTED_GRAD_MULT times the row's
+    noise off the CPU's at every step, within the 10x a "no lone outlier"
+    bound would excuse, the gap AdamW makes of it (f64), in the direction
+    that moves the parameter further (away from 0, Adam's update saturates
+    at one lr a step and the gap stays as small as noise makes it; the
+    gradient check is that fault's witness). Returns one row per
+    element."""
+    import torch
+
+    beta1, beta2, eps = opt._beta1, opt._beta2, opt._epsilon
+    rows = []
+    for e in amp:
+        cpu_g = [torch.tensor([g], dtype=torch.float64)
+                 for g in e["grads_cpu"]]
+        nz = [torch.tensor([n], dtype=torch.float64) for n in e["row_noise"]]
+        base = float(_adam_travel(cpu_g, beta1, beta2, eps))
+        grad_gap = max(abs(float(_adam_travel(
+            [g + sign * PLANTED_GRAD_MULT * n for g, n in zip(cpu_g, nz)],
+            beta1, beta2, eps)) - base) for sign in (1, -1))
+        limit = AMPLIFIED_MULT * e["noise_lr"]
+        update_gap = e["gap_lr"] + PLANTED_UPDATE_LR
+        rows.append({"param": e["param"], "index": e["index"],
+                     "limit_lr": limit, "update_fault_gap_lr": update_gap,
+                     "gradient_fault_gap_lr": grad_gap,
+                     "caught": update_gap > limit and grad_gap > limit})
+    return rows
 
 
 def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
-                 grad_tol=1e-4, outlier_share=1e-5):
+                 grad_tol=1e-4, outlier_share=1e-5, context_parallel=False,
+                 sep=1, oracle_tol=1e-5, amplified=False):
     """f32, LLaMA-2-7B widths, 2 layers, fused CE, recompute "full": one
     TrainStep per batch on the card (kernels) and on the CPU (plain
     versions) from the same weights, every gradient handed to the optimizer
@@ -1573,17 +1896,37 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     units of lr: at most ``outlier_share`` of the elements more than 0.1 lr
     apart, each explained by a gradient or a first moment within noise of
     zero (``_param_report``); and the exact kernel launches on the card.
-    Returns the row and the card's model."""
+    ``context_parallel`` (True or "ulysses"): both steps are
+    ``DistributedTrainStep``s under a sep-``sep`` mesh over one device (the
+    CPU's, the card's), and the reference's oracle
+    (tests/test_context_parallel.py:34-57) holds on the card: the first
+    step's loss equals the same model's loss with no mesh (K1) within
+    ``oracle_tol`` relative. ``amplified``: ``_param_report``'s
+    amplified rule explains outliers too, the count rule (a) alone leaves
+    is reported beside, and every planted fault (``_planted_faults``) must
+    stay unexplained. Returns the row and the card's model."""
     import torch
 
+    from paddle_tpu_torch.distributed import build_mesh
     from paddle_tpu_torch.models.llama import llama2_7b
 
     cfg = llama2_7b(use_recompute=True, recompute_policy="full",
-                    fuse_linear_cross_entropy=True)
+                    fuse_linear_cross_entropy=True,
+                    context_parallel=context_parallel)
     cfg.num_hidden_layers = 2
-    cpu_model, cpu_step = _trainer(cfg, seed, device="cpu", packed=packed)
+    meshes = {d: build_mesh(sep=sep, devices=[d] * sep)
+              if context_parallel else None for d in ("cpu", "cuda:0")}
+    cpu_model, cpu_step = _trainer(cfg, seed, device="cpu", packed=packed,
+                                   mesh=meshes["cpu"])
     gpu_model, gpu_step = _trainer(cfg, seed, packed=packed,
-                                   model=copy.deepcopy(cpu_model).to("cuda"))
+                                   model=copy.deepcopy(cpu_model).to("cuda"),
+                                   mesh=meshes["cuda:0"])
+    oracle = {}
+    if context_parallel:
+        ids, labels = (torch.from_numpy(b).to("cuda") for b in batches[0])
+        with torch.no_grad():
+            oracle["no_mesh_loss"] = float(gpu_model.eval()(
+                ids, labels=labels))
     rec_gpu, rec_cpu = _record_gradients(gpu_step), _record_gradients(cpu_step)
     _reset_flash_counts()
     t0 = time.perf_counter()
@@ -1592,8 +1935,15 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     t_gpu = time.perf_counter() - t0
     cpu = [float(cpu_step(*b)) for b in batches]
     t_cpu = time.perf_counter() - t0 - t_gpu
+    path = ("k3" if packed else "ulysses" if context_parallel == "ulysses"
+            else "ring" if context_parallel else "k1")
     want = _expected_counts(2, len(batches), len(list(
-        cpu_model.parameters())), packed)
+        cpu_model.parameters())), path, sep)
+    if context_parallel:
+        oracle["cp_loss"] = gpu[0]
+        oracle["rel"] = (abs(gpu[0] - oracle["no_mesh_loss"])
+                         / abs(oracle["no_mesh_loss"]))
+        oracle["tol"] = oracle_tol
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu, cpu)]
     grad_rel = _grad_report(rec_gpu, rec_cpu)
     worst_grad = max(((r, k, n) for k, step in enumerate(grad_rel, 1)
@@ -1603,13 +1953,17 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
                for step in grad_rel]
     lr = gpu_step.optimizer.get_lr()
     with torch.no_grad():
-        per, worst = _param_report(gpu_step.model, cpu_step.model, rec_gpu,
-                                   rec_cpu, lr, gpu_step.optimizer._beta1)
+        per, worst, amp = _param_report(
+            gpu_step.model, cpu_step.model, rec_gpu, rec_cpu, lr,
+            gpu_step.optimizer, amplified=amplified)
+    planted = _planted_faults(amp, gpu_step.optimizer)
     n_el = sum(p.numel() for p in cpu_model.parameters())
     outliers = sum(r["outliers"] for r in per.values())
     unexplained = outliers - sum(r["explained"] for r in per.values())
     row = {"phase": phase, "layers": 2, "dtype": "float32",
            "B": batches[0][0].shape[0], "S": batches[0][0].shape[1],
+           "context_parallel": context_parallel, "sep": sep,
+           "oracle": oracle or None,
            "losses_gpu": gpu, "losses_cpu": cpu, "rel_err": rel,
            "rel_tol": rel_tol,
            "grad_rel_worst": {"rel": worst_grad[0], "step": worst_grad[1],
@@ -1617,6 +1971,9 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
            "grad_rel_by_step": by_step,
            "grad_tol": grad_tol, "lr": lr, "elements": n_el,
            "param_outliers": outliers, "param_unexplained": unexplained,
+           "amplified_rule": amplified,
+           "param_unexplained_by_rule_a": unexplained + len(amp),
+           "param_explained_amplified": amp, "planted_faults": planted,
            "outlier_share_limit": outlier_share,
            "param_median_diff_lr_max": max(r["median_lr"]
                                            for r in per.values()),
@@ -1632,8 +1989,14 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
             f"card and CPU parameters differ: {outliers} elements past "
             f"0.1 lr ({unexplained} with no gradient or moment within "
             "noise of 0)")
+    if not all(f["caught"] for f in planted):
+        raise AssertionError(f"{phase}: the amplified rule explains a "
+                             f"planted fault: {planted}")
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
+    if oracle and oracle["rel"] > oracle_tol:
+        raise AssertionError(f"{phase}: the context-parallel loss differs "
+                             f"from the no-mesh loss: {oracle}")
     del gpu_step, rec_gpu, rec_cpu, cpu_model, cpu_step
     return row, gpu_model
 
@@ -1722,7 +2085,7 @@ def _tokens(seed, vocab, shape):
         0, vocab, shape).astype(np.int32)
 
 
-def _timed_steps(phase, cfg, model, step, batches, warmup, packed=False,
+def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
                  pairs=None, extra=None, check_trend=True):
     """``warmup`` steps, then one timed step per remaining batch with the
     kernels' counts taken over the timed steps alone (``_expected_counts``
@@ -1751,7 +2114,8 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, packed=False,
     tok_s = B * S * steps / wall
     L = cfg.num_hidden_layers
     flops = LlamaForCausalLM.flops_per_token(cfg, seq_len=S)
-    want = _expected_counts(L, steps, len(list(model.parameters())), packed)
+    want = _expected_counts(L, steps, len(list(model.parameters())), path,
+                            sep)
     row = {"phase": phase, "layers": L, "hidden": cfg.hidden_size,
            "heads": cfg.num_attention_heads,
            "kv_heads": cfg.num_key_value_heads,
@@ -1797,8 +2161,8 @@ def _token_batches(seed, vocab, n, B, S):
 def phase_train(seed=0):
     """The slice: LLaMA-2-7B at full width and depth, bf16, as bench.py
     configures it (recompute "full", fused linear CE, AdamW lr 1e-4 and
-    weight decay 0.01); B 2, S 2048, 2 warm-up and 8 timed steps. Returns
-    the row, the model, its step and its batches."""
+    weight decay 0.01); B 2, S 2048, 2 warm-up and 8 timed steps.
+    Returns the row, the model, its step and its batches."""
     from paddle_tpu_torch.models.llama import llama2_7b
 
     cfg = llama2_7b(dtype="bfloat16", use_recompute=True,
@@ -1807,6 +2171,100 @@ def phase_train(seed=0):
     batches = _token_batches(seed, cfg.vocab_size, 10, 2, 2048)
     row = _timed_steps("train", cfg, model, step, batches, warmup=2)
     return row, model, step, batches
+
+
+CP_SEP = 4          # the context-parallel phases' sep ring (one card)
+CP_SEQ = 4096       # train_cp's sequence: LLaMA-2's context
+
+
+def _cp_equal_batches(seed, steps, S):
+    """train_cp_equal's batches: B 1 x S of seeded uniform tokens."""
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    ids = _tokens(seed, llama2_7b().vocab_size, (steps, 1, S + 1))
+    return [(i[:, :-1], i[:, 1:]) for i in ids]
+
+
+def phase_train_equal_s1024(seed=13, steps=3, S=1024):
+    """The witness of the amplified rule: ``_train_equal`` on K1's path
+    (no mesh) at train_cp_equal's size, seed and tokens, B 1 x S 1024.
+    Rule (a) alone, set at S 256, leaves outliers unexplained here on K1's
+    unchanged path too; the row reports them beside what the amplified
+    rule explains and the planted faults it must catch."""
+    import torch
+
+    _, model = _train_equal("train_equal_s1024", seed,
+                            _cp_equal_batches(seed, steps, S),
+                            amplified=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_cp_equal(seed=13, steps=3, S=1024):
+    """``_train_equal`` under context parallelism: B 1 x S 1024 of seeded
+    uniform tokens, sep 4 (S_local 256), the ring and then Ulysses, each
+    with the no-mesh oracle on the card and the amplified rule, as
+    `train_equal_s1024` holds K1 at this size."""
+    import torch
+
+    batches = _cp_equal_batches(seed, steps, S)
+    for cp in (True, "ulysses"):
+        _, model = _train_equal("train_cp_equal", seed, batches,
+                                context_parallel=cp, sep=CP_SEP,
+                                amplified=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_train_cp(model, step, train_row, seed=14, warmup=2, timed=5):
+    """Context-parallel training on `train`'s model and AdamW, continued
+    (LLaMA-2-7B bf16, 32 layers, recompute "full", fused linear CE; the
+    config's ``context_parallel`` set for this phase and cleared before
+    the no-mesh run): B 2 x S 4096 of seeded uniform
+    tokens through ``DistributedTrainStep`` under ``build_mesh(sep=4,
+    devices=["cuda:0"] * 4)``, 2 warm-up and 5 timed steps, the ring's
+    exact launch counts (K6 per kept visit, K1's backward entries, no K1
+    forward). Then the same model with no mesh through ``TrainStep`` (K1
+    over the whole sequence), the same shapes and step counts. Step ms,
+    tokens/s, MFU (``flops_per_token(cfg, 4096)``) and peak memory of both;
+    two more ring steps under torch.profiler between them. Returns the row
+    (the no-mesh run's under "no_mesh")."""
+    from paddle_tpu_torch.distributed import DistributedTrainStep, build_mesh
+    from paddle_tpu_torch.jit_api import TrainStep
+
+    cfg = model.config
+    cfg.context_parallel = True
+    n = warmup + timed
+    mesh = build_mesh(sep=CP_SEP, devices=["cuda:0"] * CP_SEP)
+    cstep = DistributedTrainStep(model, step.loss_fn, step.optimizer,
+                                 mesh=mesh)
+    batches = _token_batches(seed, cfg.vocab_size, n, 2, CP_SEQ)
+    row = _timed_steps(
+        "train_cp", cfg, model, cstep, batches, warmup=warmup, path="ring",
+        sep=CP_SEP,
+        extra={"context_parallel": cfg.context_parallel, "sep": CP_SEP,
+               "s_local": CP_SEQ // CP_SEP,
+               "train_step_ms_s2048": train_row["step_ms"]})
+
+    def two_steps():
+        for b in batches[:2]:
+            cstep(*b)
+
+    row["profile"] = _device_profile("train_cp_profile", two_steps)
+    cfg.context_parallel = False
+    nstep = TrainStep(model, step.loss_fn, step.optimizer, device="cuda")
+    plain = _timed_steps(
+        "train_cp_no_mesh", cfg, model, nstep,
+        _token_batches(seed + 1, cfg.vocab_size, n, 2, CP_SEQ),
+        warmup=warmup, extra={"train_cp_step_ms": row["step_ms"]})
+    row["no_mesh"] = {k: plain[k] for k in ("step_ms", "tokens_per_s", "mfu",
+                                            "peak_mem_gb")}
+    if max(row["peak_mem_gb"], plain["peak_mem_gb"]) >= 80:
+        raise AssertionError(f"train_cp: peak memory {row['peak_mem_gb']} "
+                             f"/ {plain['peak_mem_gb']} GB")
+    return row
 
 
 PACKING_SEED = 9   # k3's and train_packed's packed rows
@@ -1839,7 +2297,7 @@ def phase_train_packed(model, step, train_row, seed=11):
                "visible_pairs_per_head": pairs,
                "visible_share_of_causal": pairs / (2 * 2048 * 2049 // 2)}
     row = _timed_steps("train_packed", model.config, model, pstep, batches,
-                       warmup=2, packed=True, pairs=pairs,
+                       warmup=2, path="k3", pairs=pairs,
                        extra={"packing": packing,
                               "train_step_ms": train_row["step_ms"]})
 
@@ -1924,7 +2382,8 @@ def phase_train_profile(step, batches):
 def kernel_table(rows):
     """The contract's kernel line, from the phases that ran: every entry's
     launches over the main path (serving's `slice`, `slice_int8` for the
-    int8 variants, training's `train`, `train_packed` for K3)."""
+    int8 variants, training's `train`, `train_packed` for K3, `train_cp`
+    for K6)."""
     table = []
     for name, phase, src, ref, main_phase in (
             ("ragged_paged_attention", "k4",
@@ -1983,6 +2442,9 @@ def kernel_table(rows):
             row["gqa_ms"] = rows["k2"][0]["kernel_ms"][entry]
             row["gqa_launches"] = rows.get("train_gqa", {}).get(
                 "kernels", {}).get(name)
+        if entry != "fwd" and "train_cp" in rows:
+            # the ring's backward runs these entries once per visit
+            row["ring_launches"] = rows["train_cp"]["kernels"][name]
         table.append(row)
     # K3: the timed cases are packed MHA (the main path's shape), packed
     # GQA 64/8 and varlen
@@ -2016,6 +2478,29 @@ def kernel_table(rows):
         if entry == "fwd":
             row["k1_causal_fwd_ms"] = main_row["k1_causal_ms"]["fwd"]
         table.append(row)
+    if "k6" in rows:
+        # MHA 32/32, B 1, S 4 x 2048, causal, bf16: the whole sep-4 ring
+        # forward (10 launches) against the bound of the function
+        main_row = rows["k6"][0]
+        table.append({
+            "name": "flash_attention_ring_fwd", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            "replaces": "paddle_tpu/ops/ring_attention.py:125",
+            "launches": rows.get("train_cp", {}).get("kernels", {}).get(
+                "flash_attention_ring_fwd"),
+            "max_abs_err": max(max(r["max_abs_err"]["o"],
+                                   r["max_abs_err"]["entry_o"])
+                               for r in rows["k6"]),
+            "ms": main_row["kernel_ms"]["fwd"],
+            "plain_ms": main_row["plain_ms"]["fwd"],
+            "bound_ms": main_row["bounds"]["fwd"]["bound_ms"],
+            "bound_by": main_row["bounds"]["fwd"]["bound_by"],
+            "library_ms": main_row["library_ms"]["fwd"],
+            "ms_of": "the sep-4 ring's forward over S 8192 "
+                     f"({main_row['launches_per_call']} launches)",
+            "k1_whole_sequence_ms": main_row["k1_whole_ms"]["fwd"],
+            "fwd_bwd_ms": main_row["kernel_ms"]["fwd_bwd"],
+            "gqa_ms": rows["k6"][1]["kernel_ms"]["fwd"]})
     if "adamw" in rows:
         main_row = rows["adamw"][0]    # bf16, as the 7B step runs it
         table.append({
@@ -2082,6 +2567,8 @@ def main(argv=None):
         rows["k2"] = phase_flash("k2", 64, 8, seed=7)
     if runs("k3"):
         rows["k3"] = phase_k3(seed=PACKING_SEED)
+    if runs("k6"):
+        rows["k6"] = phase_k6()
     if runs("adamw"):
         rows["adamw"] = phase_adamw()
     if runs("codec"):
@@ -2129,13 +2616,19 @@ def main(argv=None):
         phase_train_equal()
     if runs("train_packed_equal"):
         phase_train_packed_equal()
-    if runs("train") or runs("train_packed"):
+    if runs("train_equal_s1024"):
+        phase_train_equal_s1024()
+    if runs("train_cp_equal"):
+        phase_train_cp_equal()
+    if runs("train") or runs("train_packed") or runs("train_cp"):
         rows["train"], model, step, batches = phase_train()
         if runs("train_profile"):
             phase_train_profile(step, batches)
         if runs("train_packed"):
             rows["train_packed"] = phase_train_packed(model, step,
                                                       rows["train"])
+        if runs("train_cp"):
+            rows["train_cp"] = phase_train_cp(model, step, rows["train"])
         del model, step, batches
         gc.collect()
         torch.cuda.empty_cache()

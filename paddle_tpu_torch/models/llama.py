@@ -10,42 +10,58 @@ Two paths:
   for SFT-packed rows given ``segment_ids``, through
   ``flash_attention_packed`` (K3 on the card: attention stays within each
   segment, and rope restarts at each segment's start), optional per-layer
-  recompute, and the fused linear cross-entropy.
-The fixed-shape or growing caches, MoE, context and sequence parallelism
-raise NotImplementedError until a later slice of the port (see
-ROADMAP.md). Parameter names match the reference's
-``named_parameters()``, so ``models.convert.load_paddle_tpu_state`` maps a
-reference checkpoint one to one.
+  recompute, and the fused linear cross-entropy. With
+  ``context_parallel`` set and a mesh whose sep axis exceeds 1 (under
+  ``distributed.mesh_guard``, as ``DistributedTrainStep`` runs its step),
+  attention runs over the sep ranks' sequence shards: the ring (K6 per
+  visit on the card, K1's backward entries) or Ulysses' head regrouping
+  around K1/K2.
+The fixed-shape or growing caches, MoE and sequence parallelism raise
+NotImplementedError until a later slice of the port (see ROADMAP.md).
+Parameter names match the reference's ``named_parameters()``, so
+``models.convert.load_paddle_tpu_state`` maps a reference checkpoint one
+to one.
 """
 import torch
 from torch import nn
 
 from ..device import resolve
 from ..distributed.fleet.recompute import recompute
+from ..distributed.mesh import get_mesh, has_mesh
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional import (
     fused_rotary_position_embedding, rope_tables, scaled_dot_product_attention,
     swiglu,
 )
 from ..nn.norm import RMSNorm
-from ..ops.flash_attention import flash_attention_packed, pack_segments
+from ..ops.flash_attention import (
+    flash_attention_fwd, flash_attention_packed, pack_segments,
+)
 from ..ops.paged_attention import (
     PagedLayerCache, paged_decode_attention, write_token_kv,
 )
 from ..ops.ragged_paged_attention import (
     RaggedLayerCache, ragged_paged_attention, write_ragged_kv,
 )
+from ..ops.ring_attention import ring_flash_attention, ulysses_attention
 
 _LATER = "comes in a later slice of the port (see ROADMAP.md)"
 _PACKED_CACHE = ("packed segment_ids do not compose with a decode cache — "
                  "packing is a training path")
+_PACKED_CP = ("packed segment_ids do not compose with context_parallel: "
+              "a packed row's segments do not follow the sep shards")
+_CP_MASK = ("context_parallel attention is causal-only: padding masks are "
+            "not supported on the ring path (pack sequences instead)")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class LlamaConfig:
     """The reference's config, field for field. ``dtype`` ("float32" or
-    "bfloat16") is the parameter dtype of the port's model. MoE, context-
-    and sequence-parallel fields are accepted but raise when set."""
+    "bfloat16") is the parameter dtype of the port's model.
+    ``context_parallel``: False, True or "ring" (ring attention over the
+    mesh's sep axis), or "ulysses" (the all-to-all pair); inert without a
+    mesh whose sep axis exceeds 1. MoE and sequence-parallel fields are
+    accepted but raise when set."""
 
     def __init__(
         self,
@@ -74,12 +90,15 @@ class LlamaConfig:
     ):
         later = {
             "num_experts > 1 (MoE)": num_experts > 1,
-            "context_parallel": bool(context_parallel),
             "sequence_parallel": sequence_parallel,
         }
         for field, is_set in later.items():
             if is_set:
                 raise NotImplementedError(f"LlamaConfig: {field} {_LATER}")
+        if context_parallel not in (False, True, "ring", "ulysses"):
+            raise ValueError(
+                f"context_parallel must be False/True/'ring'/'ulysses', "
+                f"got {context_parallel!r}")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                              f"got {dtype!r}")
@@ -156,17 +175,23 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(self.num_heads * self.head_dim, h, **kw)
 
     def forward(self, hidden_states, position_ids=None, past_key_value=None,
-                rope=None, segment_ids=None):
+                rope=None, segment_ids=None, attention_mask=None):
         """past_key_value:
         - None (training): causal self-attention over the S positions,
           rope at ``position_ids`` (default 0..S-1) with ``rope_theta``,
           then ``scaled_dot_product_attention(is_causal=True)``: the flash
-          kernels (K1, K2 for GQA) on the card. With ``segment_ids`` [B, S]
-          (SFT packing, ids contiguous and ascending along a row; or the
+          kernels (K1, K2 for GQA) on the card. With ``segment_ids`` [B,
+          S] (SFT packing, ids contiguous and ascending along a row; or
+          the
           ``PackedSegments`` that ``LlamaModel`` prepares once), rope at
           ``position_ids`` (default: each token's position in its segment)
           and causal attention within each segment through
-          ``flash_attention_packed`` (K3 on the card). Returns (out, None);
+          ``flash_attention_packed`` (K3 on the card). Context parallel
+          (``_use_context_parallel``): rope over the global positions,
+          then ``_ring_attention`` over the sep shards; packed segment
+          ids raise. A padding ``attention_mask`` raises: under context
+          parallel with the reference's words, elsewhere as a later slice
+          of the port. Returns (out, None);
         - PagedLayerCache: decode-only (S == 1); the new token's K/V land in
           the pool, then paged decode attention (K5);
         - RaggedLayerCache: S is a packed mixed prefill+decode stream
@@ -193,7 +218,15 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(hidden_states).view(B, S, self.num_kv_heads,
                                             self.head_dim)
         if past_key_value is None:
+            cp = self._use_context_parallel(past_key_value)
+            if attention_mask is not None:
+                if cp:
+                    raise ValueError(_CP_MASK)
+                raise NotImplementedError(
+                    f"LlamaAttention: a padding attention_mask {_LATER}")
             if segment_ids is not None:
+                if cp:
+                    raise ValueError(_PACKED_CP)
                 segment_ids = pack_segments(segment_ids)
                 if position_ids is None:
                     position_ids = segment_ids.position_ids
@@ -203,6 +236,8 @@ class LlamaAttention(nn.Module):
             if segment_ids is not None:
                 out = flash_attention_packed(q, k, v, segment_ids,
                                              causal=True)
+            elif cp:
+                out = self._ring_attention(q, k, v)
             else:
                 out = scaled_dot_product_attention(q, k, v, is_causal=True,
                                                    training=self.training)
@@ -235,6 +270,58 @@ class LlamaAttention(nn.Module):
         out = out.reshape(B, S, self.num_heads * self.head_dim)
         return self.o_proj(out), c
 
+    def _use_context_parallel(self, past_key_value):
+        """Context parallel applies: the config asks for it, no cache is
+        given, and the current mesh has a sep axis above 1 (reference
+        :323-343)."""
+        if not self.config.context_parallel or past_key_value is not None:
+            return False
+        if not has_mesh():
+            return False
+        mesh = get_mesh()
+        return "sep" in mesh.axis_names and mesh.shape["sep"] > 1
+
+    def _ring_attention(self, q, k, v):
+        """The context-parallel island (reference :345-425): q [B, S, Hq,
+        D], k/v [B, S, Hkv, D] after rope are cut into the sep ranks'
+        sequence shards, stacked [n, B, S / n, H, D] (rank r: positions r
+        S/n ...; no copy at B = 1), and run through the ring
+        (``ring_flash_attention``: K6 per visit, K1's backward entries;
+        causal by global position) or, for "ulysses", through
+        ``ulysses_attention`` with ``flash_attention_fwd`` (K1/K2) on each
+        rank's heads. Returns [B, S, Hq * D]."""
+        sep = get_mesh().shape["sep"]
+        B, S, hq, D = q.shape
+        if S % sep:
+            raise ValueError(
+                f"context_parallel: sequence length {S} is not divisible "
+                f"by the sep axis size {sep} — pad the sequence or change "
+                "the mesh")
+
+        def shards(x):
+            return x.reshape(B, sep, S // sep, *x.shape[2:]).transpose(0, 1)
+
+        if self.config.context_parallel == "ulysses":
+            if hq % sep:
+                raise ValueError(
+                    f"context_parallel='ulysses' needs per-mp-rank head "
+                    f"count divisible by sep={sep} (got {hq}) — use 'ring' "
+                    "instead (which keeps kv heads unexpanded)")
+            # GQA: kv heads ride the all-to-all unexpanded when they split
+            # over sep, else they are expanded first (reference :387-388)
+            group = hq // k.shape[2]
+            if group > 1 and k.shape[2] % sep:
+                k = k.repeat_interleave(group, dim=2)
+                v = v.repeat_interleave(group, dim=2)
+            out = ulysses_attention(
+                shards(q), shards(k), shards(v), "sep", causal=True,
+                attn_impl=lambda qq, kk, vv: flash_attention_fwd(
+                    qq, kk, vv, causal=True))
+        else:
+            out = ring_flash_attention(shards(q), shards(k), shards(v),
+                                       causal=True)
+        return out.transpose(0, 1).reshape(B, S, hq * D)
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config, **kw):
@@ -259,10 +346,10 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
 
     def forward(self, hidden_states, position_ids=None, past_key_value=None,
-                rope=None, segment_ids=None):
+                rope=None, segment_ids=None, attention_mask=None):
         h, present = self.self_attn(self.input_layernorm(hidden_states),
                                     position_ids, past_key_value, rope,
-                                    segment_ids)
+                                    segment_ids, attention_mask)
         h = hidden_states + h
         return h + self.mlp(self.post_attention_layernorm(h)), present
 
@@ -281,7 +368,7 @@ class LlamaModel(nn.Module):
                             **kw)
 
     def forward(self, input_ids, position_ids=None, past_key_values=None,
-                segment_ids=None):
+                segment_ids=None, attention_mask=None):
         """With one paged or ragged cache per layer in ``past_key_values``:
         returns (normed hidden states, presents). Without: the training
         forward, returning the normed hidden states; each layer runs under
@@ -291,7 +378,8 @@ class LlamaModel(nn.Module):
         layer attends within segments, and rope restarts at each segment's
         start unless ``position_ids`` are given (reference :497-504). The
         ids' positions and K3's tile tables are prepared here once
-        (``pack_segments``) for every layer."""
+        (``pack_segments``) for every layer. ``attention_mask``: refused
+        (``LlamaAttention``)."""
         if segment_ids is not None:
             if past_key_values is not None:
                 raise ValueError(_PACKED_CACHE)
@@ -306,9 +394,11 @@ class LlamaModel(nn.Module):
                 if remat:
                     h = recompute(layer, h, position_ids,
                                   segment_ids=segment_ids,
+                                  attention_mask=attention_mask,
                                   policy=self.config.recompute_policy)[0]
                 else:
-                    h = layer(h, position_ids, segment_ids=segment_ids)[0]
+                    h = layer(h, position_ids, segment_ids=segment_ids,
+                              attention_mask=attention_mask)[0]
             return self.norm(h)
         c0 = past_key_values[0]
         rope = rope_tables(c0.page_indices.shape[1] * c0.page_size,
@@ -384,7 +474,7 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.embed_tokens.weight.t()
 
     def forward(self, input_ids, position_ids=None, past_key_values=None,
-                labels=None, segment_ids=None):
+                labels=None, segment_ids=None, attention_mask=None):
         """Serving (caches given): returns (logits, presents) over the paged
         or ragged caches. Training (no cache), as the reference's :758-783:
         with ``fuse_linear_cross_entropy`` and labels, the fused loss from
@@ -392,13 +482,17 @@ class LlamaForCausalLM(nn.Module):
         fused and training without labels, (hidden, lm weight) for a loss
         function; otherwise the logits, or their loss given labels.
         ``segment_ids`` [B, S]: SFT-packed rows (``LlamaModel``); refused
-        with caches."""
+        with caches. ``attention_mask``: refused (``LlamaAttention``)."""
         if past_key_values is not None:
             if segment_ids is not None:
                 raise ValueError(_PACKED_CACHE)
+            if attention_mask is not None:
+                raise NotImplementedError(
+                    f"LlamaForCausalLM: a padding attention_mask {_LATER}")
             h, presents = self.llama(input_ids, position_ids, past_key_values)
             return self.head(h), presents
-        h = self.llama(input_ids, position_ids, segment_ids=segment_ids)
+        h = self.llama(input_ids, position_ids, segment_ids=segment_ids,
+                       attention_mask=attention_mask)
         if self.config.fuse_linear_cross_entropy and (labels is not None
                                                       or self.training):
             w = self.lm_weight()

@@ -1,10 +1,13 @@
-// K1/K2/K3 forward: flash attention, hand-written for Hopper (sm_90a).
+// K1/K2/K3/K6 forward: flash attention, hand-written for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/flash_attention.py::_get_pallas_impl (jax's Pallas
 // TPU flash attention, MHA), ::_splash_impl / _splash_kernel (the splash
 // kernel, GQA with kv heads left unexpanded) and, with segment ids,
 // ::_splash_varlen and ::flash_attention_packed (K3: the splash kernel with
-// SegmentIds), forward half.
+// SegmentIds), forward half; and paddle_tpu/ops/ring_attention.py::
+// _ring_kernel_fwd_impl (K6: one ring visit, the flash forward of the
+// resident query shard over the visiting key shard with its residuals,
+// merged into the running state by _online_merge).
 //
 // Computes, for q [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D] (paddle layout,
 // contiguous), out[b, i, h] = softmax_j(scale * q[b,i,h] . k[b,j,h/group])
@@ -39,6 +42,20 @@
 // per k-step), 8 warps and synchronous tile loads (all of a K/V pair's
 // loads in flight at once); wgmma, TMA and double-buffered tiles are later
 // work.
+//
+// K6 (RING): the same tile loop for one ring visit (causal = the diagonal
+// visit, bottom-right aligned with Sq == Sk; a full visit passes causal 0).
+// Only the epilogue differs: instead of writing a fresh O and lse, the
+// block merges its rows into the running state of the ring, an f32 output
+// o_acc [B, Sq, Hq, D] (normalized) and lse_acc [B, Hq, Sq]:
+//   lse' = logaddexp(lse_acc, lse_v)
+//   o'   = o_acc * exp(lse_acc - lse') + o_v * exp(lse_v - lse'),
+// the visit's o_v never leaving registers (its factor exp(m - lse') / l
+// folds into the final row scale). Each block owns its rows, as in K1, so
+// the merge needs no atomics and costs one f32 read and write of O per
+// visit, where the reference's _online_merge is a separate XLA pass. The
+// first visit reads no state (no -inf - -inf); the last writes o' in the
+// input type to `out` instead of o_acc, so no cast pass follows the ring.
 
 #include "flash_common.cuh"
 
@@ -46,6 +63,12 @@ namespace {
 
 using namespace ptt;
 using namespace ptt::flash;
+
+// K6's running state (RING kernels only).
+struct Ring {
+  float* o_acc;  // [B, Sq, Hq, D] f32; null when this visit is first and last
+  int first;     // the state holds nothing yet: read none of it
+};
 
 template <typename T, int D>
 struct FwdSmem {
@@ -65,12 +88,14 @@ struct FwdSmem {
   static constexpr size_t kBytes = kQ + 2 * kKV + kS + kBcast + 2 * kRow;
 };
 
-template <typename T, int D, bool SEG>
+// RING: `lse` is the ring's lse_acc (read unless first, always written) and
+// `out` is null except on the ring's last visit.
+template <typename T, int D, bool SEG, bool RING>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int sq, int sk, int group,
-                     bool causal, float scale, Segments segs) {
+                     bool causal, float scale, Segments segs, Ring ring) {
   using L = FwdSmem<T, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* p = smem_raw;
@@ -171,65 +196,109 @@ __global__ void __launch_bounds__(kThreads, 2)
     o.template mma<false, false, kBc>(Ps, L::kPP, Vs, L::kPD);
   }
   __syncthreads();  // the last tile's P, V and factors are consumed
-  for (int r = threadIdx.x; r < kBr; r += kThreads) {
-    const float l = l_s[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    for (int c = 0; c < kBcastLd; ++c) Cs[r * kBcastLd + c] = inv;
-    if (i0 + r < sq)
-      lse[((size_t)b * hq + h) * sq + i0 + r] =
-          l > 0.f ? m_s[r] + logf(l) : -INFINITY;
+  if constexpr (RING) {
+    // merge factors per row: the visit's unnormalized O by exp(m - lse')
+    // (= exp(lse_v - lse') / l) into Cs, the state's by exp(lse_acc -
+    // lse') into l_s; rows past Sq keep 0 and are never written
+    for (int r = threadIdx.x; r < kBr; r += kThreads) {
+      const float l = l_s[r];
+      float keep = 0.f;
+      float add = 0.f;
+      if (i0 + r < sq) {
+        float* lp = lse + ((size_t)b * hq + h) * sq + i0 + r;
+        const float lv = l > 0.f ? m_s[r] + logf(l) : -INFINITY;
+        const float la = ring.first ? -INFINITY : *lp;
+        const float mx = fmaxf(la, lv);
+        float merged = -INFINITY;
+        if (mx != -INFINITY) {
+          merged = mx + logf(expf(la - mx) + expf(lv - mx));
+          keep = la == -INFINITY ? 0.f : expf(la - merged);
+          add = l > 0.f ? expf(m_s[r] - merged) : 0.f;
+        }
+        *lp = merged;
+      }
+      for (int c = 0; c < kBcastLd; ++c) Cs[r * kBcastLd + c] = add;
+      l_s[r] = keep;
+    }
+  } else {
+    for (int r = threadIdx.x; r < kBr; r += kThreads) {
+      const float l = l_s[r];
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      for (int c = 0; c < kBcastLd; ++c) Cs[r * kBcastLd + c] = inv;
+      if (i0 + r < sq)
+        lse[((size_t)b * hq + h) * sq + i0 + r] =
+            l > 0.f ? m_s[r] + logf(l) : -INFINITY;
+    }
   }
   __syncthreads();
   o.scale_rows(Cs);
   float* stage = reinterpret_cast<float*>(Ks);  // K and V tiles, adjacent
   o.store(stage, L::kPD);
   __syncthreads();
-  store_tile<T, D, kBr>(out + ((size_t)b * sq * hq + h) * D, stage, i0, sq,
-                        q_stride);
+  const size_t base = ((size_t)b * sq * hq + h) * D;
+  if constexpr (RING) {
+    for (int idx = threadIdx.x; idx < kBr * D; idx += kThreads) {
+      const int r = idx / D;
+      const int d = idx % D;
+      if (i0 + r >= sq) continue;
+      const size_t off = base + (size_t)(i0 + r) * q_stride + d;
+      float x = stage[r * L::kPD + d];
+      if (!ring.first) x = fmaf(l_s[r], ring.o_acc[off], x);
+      if (out != nullptr)
+        out[off] = from_float<T>(x);
+      else
+        ring.o_acc[off] = x;
+    }
+  } else {
+    store_tile<T, D, kBr>(out + base, stage, i0, sq, q_stride);
+  }
 }
 
-template <typename T, int D, bool SEG>
+template <typename T, int D, bool SEG, bool RING>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int sq, int sk, int hq, int group,
-                   int causal, float scale, Segments segs,
+                   int causal, float scale, Segments segs, Ring ring,
                    cudaStream_t stream) {
   const size_t smem =
       FwdSmem<T, D>::kBytes + (SEG ? aligned(sizeof(SegTile)) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, SEG>,
+      flash_fwd_kernel<T, D, SEG, RING>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kBr - 1) / kBr, hq, batch);
-  flash_fwd_kernel<T, D, SEG><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, SEG, RING><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), sq, sk, group, causal != 0, scale, segs);
+      static_cast<float*>(lse), sq, sk, group, causal != 0, scale, segs,
+      ring);
   return cudaGetLastError();
 }
 
-template <bool SEG>
+template <bool SEG, bool RING = false>
 cudaError_t launch_typed(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, void* out, void* lse,
                          int batch, int sq, int sk, int hq, int hkv,
                          int causal, float scale, Segments segs,
-                         void* stream) {
+                         void* stream, Ring ring = Ring{nullptr, 1}) {
   if (hkv < 1 || hq % hkv != 0 || batch < 1 || sq < 1 || sk < 1)
     return cudaErrorInvalidValue;
   const int group = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && head_dim == 64)
-    return launch<float, 64, SEG>(q, k, v, out, lse, batch, sq, sk, hq,
-                                  group, causal, scale, segs, s);
+    return launch<float, 64, SEG, RING>(q, k, v, out, lse, batch, sq, sk, hq,
+                                        group, causal, scale, segs, ring, s);
   if (dtype == kFloat32 && head_dim == 128)
-    return launch<float, 128, SEG>(q, k, v, out, lse, batch, sq, sk, hq,
-                                   group, causal, scale, segs, s);
+    return launch<float, 128, SEG, RING>(q, k, v, out, lse, batch, sq, sk,
+                                         hq, group, causal, scale, segs, ring,
+                                         s);
   if (dtype == kBFloat16 && head_dim == 64)
-    return launch<__nv_bfloat16, 64, SEG>(q, k, v, out, lse, batch, sq, sk,
-                                          hq, group, causal, scale, segs, s);
+    return launch<__nv_bfloat16, 64, SEG, RING>(q, k, v, out, lse, batch, sq,
+                                                sk, hq, group, causal, scale,
+                                                segs, ring, s);
   if (dtype == kBFloat16 && head_dim == 128)
-    return launch<__nv_bfloat16, 128, SEG>(q, k, v, out, lse, batch, sq, sk,
-                                           hq, group, causal, scale, segs,
-                                           s);
+    return launch<__nv_bfloat16, 128, SEG, RING>(q, k, v, out, lse, batch,
+                                                 sq, sk, hq, group, causal,
+                                                 scale, segs, ring, s);
   return cudaErrorInvalidValue;
 }
 
@@ -272,4 +341,28 @@ extern "C" int flash_attention_seg_fwd_launch(
   return launch_typed<true>(dtype, head_dim, q, k, v, out, lse, batch, seq_q,
                             seq_k, num_q_heads, num_kv_heads, causal, scale,
                             segs, stream);
+}
+
+// K6, one ring visit: q [batch, seq_q, num_q_heads, head_dim] against the
+// visiting k, v [batch, seq_k, num_kv_heads, head_dim] (causal: the
+// diagonal visit, seq_q == seq_k), merged into the running state o_acc
+// (f32, q's shape) and lse_acc (f32 [batch, num_q_heads, seq_q]). `first`:
+// the state is empty (neither is read). `out` (q's shape and dtype, may be
+// null): the ring's last visit, which writes the merged output there and
+// leaves o_acc unwritten; otherwise the merged output goes to o_acc. o_acc
+// may be null only for a visit that is both first and last.
+extern "C" int flash_attention_ring_fwd_launch(
+    const void* q, const void* k, const void* v, void* o_acc, void* lse_acc,
+    void* out, int first, int batch, int seq_q, int seq_k, int num_q_heads,
+    int num_kv_heads, int head_dim, int causal, float scale, int dtype,
+    void* stream) {
+  if (causal && seq_q != seq_k) return cudaErrorInvalidValue;
+  if (lse_acc == nullptr || (o_acc == nullptr && !(first && out != nullptr)))
+    return cudaErrorInvalidValue;
+  const ptt::flash::Segments none{};
+  const Ring ring{static_cast<float*>(o_acc), first != 0};
+  return launch_typed<false, true>(dtype, head_dim, q, k, v, out, lse_acc,
+                                   batch, seq_q, seq_k, num_q_heads,
+                                   num_kv_heads, causal, scale, none, stream,
+                                   ring);
 }

@@ -1,8 +1,11 @@
 """Flash attention, forward and backward (counterpart of
 ``paddle_tpu/ops/flash_attention.py``: K1, the MHA Pallas kernel reached
 through ``_get_pallas_impl``; K2, the GQA splash kernel of
-``_splash_impl``; and K3, the splash kernel with segment ids of
-``flash_attention_packed`` and ``_splash_varlen``).
+``_splash_impl``; K3, the splash kernel with segment ids of
+``flash_attention_packed`` and ``_splash_varlen``; and K6, one visit of
+``ops/ring_attention.py::_ring_kernel_fwd_impl``: ``ring_flash_fwd``, the
+forward kernel with an epilogue that merges into the ring's running
+output, whose ring and backward live in ``ring_attention.py``).
 
 Layout: q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D] (the paddle layout), with
 Hq a multiple of Hkv; the output is [B, Sq, Hq, D]. K1/K2: a causal mask is
@@ -258,6 +261,102 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale):
 KERNELS = (flash_fwd, flash_bwd_delta, flash_bwd_dkdv, flash_bwd_dq)
 for _k in KERNELS:
     _k.launches = 0
+
+
+# -- K6: one ring visit, merged into the ring's running state ----------------
+
+def _visit_math(q, k, v, causal, scale):
+    """Plain version of one ring visit's attention: (o, lse), o [B, Sq, Hq,
+    D] f32 normalized and unrounded (the kernel keeps the visit's output in
+    f32 registers), lse [B, Hq, Sq] f32 (-inf where a row sees no key),
+    probabilities rounded to q's dtype before the product with V as in
+    ``_masked_attention``."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    hq, hk = qt.shape[1], kt.shape[1]
+    if hq != hk:
+        kt = kt.repeat_interleave(hq // hk, dim=1)
+        vt = vt.repeat_interleave(hq // hk, dim=1)
+    logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    mask = _causal_mask(q, k, causal)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse.masked_fill(lse == float("-inf"), 0)[
+        ..., None])
+    out = torch.matmul(probs.to(q.dtype).float(), vt.float())
+    return out.transpose(1, 2), lse
+
+
+def _ring_merge_math(o_acc, lse_acc, o_visit, lse_visit):
+    """Plain version of K6's epilogue, the counterpart of the reference's
+    ``_online_merge`` (ring_attention.py:50) on normalized outputs and
+    log-sum-exps: lse' = logaddexp(lse_acc, lse_v), o' = o_acc
+    exp(lse_acc - lse') + o_v exp(lse_v - lse'); o [B, S, H, D], lse [B, H,
+    S], f32. A side at -inf weighs 0, and a row at -inf on both stays 0."""
+    merged = torch.logaddexp(lse_acc, lse_visit)
+    empty = merged == float("-inf")
+
+    def weight(lse):
+        w = torch.exp(lse - merged.masked_fill(empty, 0))
+        return w.masked_fill(empty, 0).transpose(1, 2)[..., None]
+
+    return o_acc * weight(lse_acc) + o_visit * weight(lse_visit), merged
+
+
+_RING_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def ring_flash_fwd(q, k, v, o_acc, lse_acc, causal, scale, first=False,
+                   out=None):
+    """K6, one ring visit: attention of q [B, Sq, Hq, D] over the visiting
+    k, v [B, Sk, Hkv, D] (``causal``: the diagonal visit, Sq == Sk), merged
+    IN PLACE into the ring's running state, ``o_acc`` (f32, q's shape) and
+    ``lse_acc`` (f32 [B, Hq, Sq]). ``first``: the state is empty and is not
+    read. ``out`` (q's shape and dtype): the ring's last visit writes the
+    merged output there instead of into ``o_acc`` (which may then be None
+    on a visit that is also first). Returns (merged output, lse_acc). A CPU
+    tensor runs the plain version (``_visit_math``, ``_ring_merge_math``);
+    a CUDA tensor launches ``flash_attention_ring_fwd_launch``, counted in
+    ``ring_flash_fwd.launches``."""
+    target = out if out is not None else o_acc
+    if q.device.type == "cpu":
+        o_v, lse_v = _visit_math(q, k, v, causal, scale)
+        if not first:
+            o_v, lse_v = _ring_merge_math(o_acc, lse_acc, o_v, lse_v)
+        lse_acc.copy_(lse_v)
+        target.copy_(o_v)
+        return target, lse_acc
+    name = "flash_attention_ring_fwd"
+    fn = _build.entry("flash_attention_fwd", "flash_attention_ring_fwd_launch",
+                      _RING_FWD_ARGTYPES)
+    chk = _build.check
+    state = [t for t in (o_acc, lse_acc, out) if t is not None]
+    B, sq, sk, hq, hkv, D = _check_paddle_layout(name, q, k, v, False,
+                                                 extra=state)
+    chk(not causal or sq == sk, name,
+        "a causal (diagonal) visit needs Sq == Sk")
+    chk(target is not None, name, "o_acc or out is needed")
+    chk(o_acc is not None or first, name,
+        "a visit after the first needs o_acc")
+    chk(o_acc is None or (o_acc.dtype == torch.float32
+                          and o_acc.shape == q.shape), name,
+        "o_acc must be f32 [B, Sq, Hq, D]")
+    chk(lse_acc.dtype == torch.float32 and lse_acc.shape == (B, hq, sq), name,
+        "lse_acc must be f32 [B, Hq, Sq]")
+    chk(out is None or (out.dtype == q.dtype and out.shape == q.shape), name,
+        "out must match q")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            0 if o_acc is None else o_acc.data_ptr(), lse_acc.data_ptr(),
+            0 if out is None else out.data_ptr(), int(first), B, sq, sk, hq,
+            hkv, D, int(causal), float(scale),
+            _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+    _build.check_status(rc, name)
+    ring_flash_fwd.launches += 1
+    return target, lse_acc
+
+
+ring_flash_fwd.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -12,10 +12,11 @@ the device or the kernel.
   tensor, so no card is needed. That holds for the serving kernels (their
   int8-pool variants too) and for every flash-attention entry, forward and
   backward, the flash dispatch itself, K3's segment-masked entries and the
-  packed dispatch, and the AdamW update; a K/V pool pair of one int8 and
-  one float pool is refused;
-- the training entry points (``LlamaForCausalLM``, ``TrainStep``) default
-  to the card too.
+  packed dispatch, K6's ring visit and the ring's backward dispatch, and
+  the AdamW update; a K/V pool pair of one int8 and one float pool is
+  refused;
+- the training entry points (``LlamaForCausalLM``, ``TrainStep``,
+  ``DistributedTrainStep`` and its default mesh) default to the card too.
 """
 import ast
 import json
@@ -40,6 +41,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
+from paddle_tpu_torch.ops import ring_attention as tra
 from paddle_tpu_torch.ops.quantization import QuantizedTensor
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -145,6 +147,9 @@ def library_missing(monkeypatch):
     monkeypatch.setattr(tpa, "_paged_math", plain_forbidden)
     monkeypatch.setattr(tfa, "_attention_math", plain_forbidden)
     monkeypatch.setattr(tfa, "_segment_math", plain_forbidden)
+    monkeypatch.setattr(tfa, "_visit_math", plain_forbidden)
+    monkeypatch.setattr(tfa, "_ring_merge_math", plain_forbidden)
+    monkeypatch.setattr(tra, "_visit_bwd_math", plain_forbidden)
     monkeypatch.setattr(tadamw, "_adamw_math", plain_forbidden)
 
 
@@ -286,3 +291,38 @@ def test_build_raises_when_nvcc_is_missing(monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build(["paged_attention"])
     assert not any(tmp_path.glob("*.so"))
+
+
+RING_CALLS = {
+    "ring_flash_fwd": lambda s: tfa.ring_flash_fwd(s, s, s, s, s, True, 1.0),
+    "ring_flash_fwd_last": lambda s: tfa.ring_flash_fwd(
+        s, s, s, None, s, False, 1.0, first=True, out=s),
+    "ring_visit_bwd": lambda s: tra._visit_bwd(s, s, s, s, s, s, True, 1.0),
+    "ring_delta": lambda s: tra._delta(s, s),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(RING_CALLS))
+def test_ring_wrappers_raise_without_their_kernels(library_missing, entry):
+    before = _all_flash_launches() + [tfa.ring_flash_fwd.launches]
+    with pytest.raises(_build.KernelBuildError, match="flash_attention"):
+        RING_CALLS[entry](_CudaStub(2, 64, 4, 64))
+    assert _all_flash_launches() + [tfa.ring_flash_fwd.launches] == before
+
+
+def test_distributed_entry_points_default_to_the_card(no_cuda):
+    from paddle_tpu_torch.distributed import (
+        DistributedTrainStep, build_mesh, get_mesh, has_mesh,
+    )
+
+    assert not has_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_mesh(sep=4, devices=["cuda:0"] * 4)
+    cfg = llama_tiny(num_hidden_layers=1, context_parallel=True)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DistributedTrainStep(model, LlamaPretrainingCriterion(cfg),
+                             AdamW(parameters=model.parameters()))
+    assert not has_mesh()
