@@ -13,8 +13,12 @@ Phases, one JSON line each (any failed phase exits non-zero):
             version's autograd at LLaMA-2-7B attention shapes (B 2, S 2048,
             32 heads of 128, bf16, causal), plus a full (non-causal) and an
             Sq != Sk causal case and an f32 case, O and every gradient
-            held row by row (``row_check``); CUDA-event timings of every
-            kernel entry, the plain version and F.sdpa;
+            held row by row (``row_check``) and the saved lse within
+            1e-3; CUDA-event timings of every kernel entry, the plain
+            version and F.sdpa; then the bf16 forward's edges (Sq, Sk no
+            multiple of 128, causal Sq < Sk, head dim 64, B x H < 132)
+            and, for k1, 24 mixed-shape forwards on four streams at once,
+            each equal bit for bit to the call alone;
 4. k2     — the same for GQA (K2): Hq 64 / Hkv 8 (llama2_70b attention),
             also held to the plain version with the splash kernel's
             rounding of q;
@@ -25,7 +29,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             an f32 case; the varlen form ([total, 32, 128], total no
             multiple of 64) causal and full, cross-offset, and with an
             empty key sequence; bounds from the visible pairs alone, and
-            F.sdpa with the boolean segment mask as the library time;
+            F.sdpa with the boolean segment mask as the library time; the
+            forward's edges as k1's;
 6. k6     — ring attention (K6) over a sep-4 ring on the one card (B 1,
             S 4 x 2048 = 8192, D 128, bf16): causal MHA 32/32 and GQA
             64/8, timed, full MHA, and an f32 case at S 4 x 256.
@@ -34,7 +39,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             K6 launch against its plain version, the public ring_attention
             equal to the kernel path; CUDA-event times of the ring forward
             and forward + backward beside K1 over the whole 8192 and F.sdpa
-            over it;
+            over it; the forward's edges (shards of 1000, head dim 64,
+            Hq 4);
 6a. adamw — the AdamW update kernel against its plain version;
 7. codec  — the int8 KV codec on the card against the CPU: codes, scales
             and dequantized values bit-identical (zero, +-absmax and .5-tie
@@ -93,7 +99,7 @@ Phases, one JSON line each (any failed phase exits non-zero):
             over cuda:0, 2 warm-up and 5 timed steps, the ring's exact
             launch counts and no K1 forward; then the same model with no
             mesh (K1 over the whole 4096), step ms, tokens/s, MFU and peak
-            memory of both;
+            memory of both, and two steps of each profiled;
 20. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
             B 1, S 2048: 1 warm-up and 3 timed steps.
 
@@ -798,16 +804,20 @@ def _family(name):
         return "ragged_paged_attention"
     if "paged_decode_kernel" in name:
         return "paged_decode_attention"
-    for kernel in ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv",
-                   "flash_bwd_dq"):
-        if kernel + "_kernel" in name:
-            # the template flags after <T, D: SEG, K3's segment mask (its
-            # delta pass is K1's kernel), and the forward's RING, K6's merge
-            args = name.partition(kernel + "_kernel<")[2].partition(">")[0]
-            flags = [a.strip() == "true" for a in args.split(",")[2:]]
+    # the forward's kernels (bf16 flash_fwd_hopper, f32 flash_fwd_f32) are
+    # templated <D, SEG, RING>, the backward's <T, D, SEG>: SEG is K3's
+    # segment mask (its delta pass is K1's kernel), RING K6's merge
+    for kernel, entry, n_lead in (("flash_fwd_hopper<", "fwd", 1),
+                                  ("flash_fwd_f32<", "fwd", 1),
+                                  ("flash_bwd_delta_kernel<", "bwd_delta", 2),
+                                  ("flash_bwd_dkdv_kernel<", "bwd_dkdv", 2),
+                                  ("flash_bwd_dq_kernel<", "bwd_dq", 2)):
+        if kernel in name:
+            args = name.partition(kernel)[2].partition(">")[0]
+            flags = [a.strip() == "true" for a in args.split(",")[n_lead:]]
             kind = ("ring_" if flags[1:2] == [True] else
                     "seg_" if flags[:1] == [True] else "")
-            return "flash_attention_" + kind + kernel.removeprefix("flash_")
+            return "flash_attention_" + kind + entry
     if "adamw_kernel" in name:
         return "adamw_update"
     if any(s in name.lower()
@@ -903,16 +913,16 @@ def _visible_pairs(sq, sk, causal):
     return sum(min(sk, max(0, i + off + 1)) for i in range(sq))
 
 
-def _flash_bounds(pairs, B, sq, sk, hq, hkv, elt, id_bytes=0):
+def _flash_bounds(pairs, B, sq, sk, hq, hkv, elt, id_bytes=0, d=D):
     """{entry: (bytes, ops)}: each input read once, each output written
     once (``id_bytes``: K3's segment ids, positions and range table); ops
     of the products the ``pairs`` visible (query, key, head) triples need
     (2 flops per multiply-add): forward Q K^T and P V; dK/dV also
     recomputes S and dP; dQ needs S, dP and dS K. `bwd` is the whole
     backward at 2.5x the forward's products."""
-    nq, nk = B * sq * hq * D, B * sk * hkv * D
+    nq, nk = B * sq * hq * d, B * sk * hkv * d
     rows = B * hq * sq * 4
-    fwd_ops = 4 * pairs * D
+    fwd_ops = 4 * pairs * d
     return {
         "fwd": ((2 * nq + 2 * nk) * elt + rows + id_bytes, fwd_ops),
         "bwd_delta": (2 * nq * elt + rows, 2 * nq),
@@ -925,11 +935,41 @@ def _flash_bounds(pairs, B, sq, sk, hq, hkv, elt, id_bytes=0):
     }
 
 
+def _plain_lse(q, k, mask, scale):
+    """The rows' log-sum-exp [B, Hq, Sq] of the scaled f32 scores under
+    ``mask`` (None or broadcast to [B, Hq, Sq, Sk]; True = visible), -inf
+    where a row sees no key: what the forward kernel saves."""
+    import torch
+
+    qt, kt = q.transpose(1, 2).float(), k.transpose(1, 2).float()
+    kt = kt.repeat_interleave(qt.shape[1] // kt.shape[1], dim=1)
+    logits = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(logits, dim=-1)
+
+
+def lse_error(got, want):
+    """Largest |got - want| over the rows, inf where the two disagree on
+    which rows see no key (-inf)."""
+    import torch
+
+    empty = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), empty):
+        return float("inf")
+    return float((got - want)[~empty].abs().max()) if bool(
+        (~empty).any()) else 0.0
+
+
+LSE_TOL = 1e-3     # the forward's saved lse against the plain version's
+
+
 def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
-               public=None, beside_k1=False):
+               public=None, beside_k1=False, d=D):
     """One flash-attention case on the card: K1/K2 (``segs`` None, the
-    bottom-right causal mask) or K3 (``segs``, a ``Segments`` on the card).
-    Each kernel entry against its plain version on the same inputs, and
+    bottom-right causal mask) or K3 (``segs``, a ``Segments`` on the card),
+    at head dim ``d``. Each kernel entry against its plain version on the
+    same inputs (the forward's O and its saved lse, within LSE_TOL), and
     forward and backward end to end against the plain version's autograd;
     ``public(q, k, v)``, the entry point a user calls, must give the
     kernel's output bit for bit. With ``timed``, CUDA-event medians of
@@ -945,9 +985,9 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
     def rand(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, do = rand((B, sq, hq, D)), rand((B, sq, hq, D))
-    k, v = rand((B, sk, hkv, D)), rand((B, sk, hkv, D))
-    scale = D ** -0.5
+    q, do = rand((B, sq, hq, d)), rand((B, sq, hq, d))
+    k, v = rand((B, sk, hkv, d)), rand((B, sk, hkv, d))
+    scale = d ** -0.5
     if segs is None:
         def attn(a, b, c):
             return fa.FlashAttention.apply(a, b, c, causal, scale)
@@ -968,6 +1008,7 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
         few = _few_keys(B, sq, sk, hq, causal)
         pairs = _visible_pairs(sq, sk, causal) * B * hq
         id_bytes, lib_mask, extra = 0, None, {}
+        lse_mask = fa._causal_mask(q, k, causal)
     else:
         # the tables built once, outside the timed calls, as LlamaModel
         # prepares them once for every layer
@@ -1002,12 +1043,16 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
         n_kt, n_qt = -(-sk // 64), -(-sq // 64)
         k1_tiles = (sum(min(n_kt, i + 1) for i in range(n_qt)) if causal
                     else n_qt * n_kt)
+        fwd_ranges = fa._fwd_key_ranges(key_ranges)
         extra = {"segments_per_row": [len(torch.unique(r))
                                       for r in segs.seg_q],
                  "rows_seeing_no_key": int((seen == 0).sum()),
                  "tile_pairs_visited": int(
                      (key_ranges[..., 1] - key_ranges[..., 0]).sum()),
-                 "tile_pairs_k1_causal": B * k1_tiles}
+                 "tile_pairs_k1_causal": B * k1_tiles,
+                 "fwd_tile_pairs_visited_128": int(
+                     (fwd_ranges[..., 1] - fwd_ranges[..., 0]).sum())}
+        lse_mask = lib_mask
 
     def fwd_bwd(fn):
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1063,12 +1108,14 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
             spare)
     del want
     out, lse = entry["fwd"]()
+    lse_err = lse_error(lse, _plain_lse(q, k, lse_mask, scale))
     delta = entry["bwd_delta"](out)
     want_delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
     err = {name: c["max_abs_err"] for name, c in checks.items()}
+    err["lse"] = lse_err
     err["delta"] = compare(f"flash delta {hq}/{hkv}", delta,
                            want_delta.contiguous(), B)
-    row = {"B": B, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": D,
+    row = {"B": B, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": d,
            "causal": causal, "dtype": str(dtype), "visible_pairs": pairs,
            **extra, "max_abs_err": err, "checks": checks,
            "end_to_end": end_to_end}
@@ -1084,6 +1131,8 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
            if c["bad_rows"] or c["bad_elements"] or not c["finite"]]
     if row.get("public_entry_equal") is False:
         bad.append("the public entry point differs from the kernel path")
+    if not lse_err <= LSE_TOL:
+        bad.append(f"lse off by {lse_err}")
     if bad:
         emit(row)
         raise AssertionError(f"flash {hq}/{hkv} causal={causal} {dtype}"
@@ -1134,8 +1183,8 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
                "fwd_bwd": cuda_ms(sdpa_fwd_bwd)}
     bounds = {}
     for name, (nbytes, ops) in _flash_bounds(pairs, B, sq, sk, hq, hkv,
-                                              q.element_size(),
-                                              id_bytes).items():
+                                              q.element_size(), id_bytes,
+                                              d).items():
         b_ms, b_by = bound(nbytes, ops, str(dtype))
         bounds[name] = {"bytes": nbytes, "ops": ops, "bound_ms": b_ms,
                         "bound_by": b_by}
@@ -1154,7 +1203,9 @@ def phase_flash(phase, hq, hkv, seed):
     """``phase`` k1 (MHA) or k2 (GQA): the main case at the training
     path's shape (B 2, S 2048, causal, bf16), timed; for k1 also a full
     case, an Sq != Sk causal case with tails past every tile, and an f32
-    case."""
+    case. Then the bf16 forward's edges (``edge_cases``): Sq and Sk no
+    multiple of its 128-row and 128-key tiles, causal Sq < Sk, head dim
+    64, and a grid of fewer (batch, head) pairs than the card's 132 SMs."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1167,15 +1218,78 @@ def phase_flash(phase, hq, hkv, seed):
                        dtype=torch.bfloat16, timed=False)]
     cases += [dict(B=1, sq=300, sk=300, causal=True, dtype=torch.float32,
                    timed=False)]
+    bf16 = dict(dtype=torch.bfloat16, timed=False)
+    small = (4, 4) if hq == hkv else (8, 1)    # B 1: 16 x Hq tiles < 132
+    cases += [dict(edge="tails", B=2, sq=1000, sk=1900, causal=False, **bf16),
+              dict(edge="tails_causal", B=2, sq=1000, sk=1900, causal=True,
+                   **bf16),
+              dict(edge="d64", B=2, sq=2048, sk=2048, causal=True, d=64,
+                   **bf16),
+              dict(edge="few_blocks", B=1, sq=2048, sk=2048, causal=True,
+                   hq=small[0], hkv=small[1], **bf16)]
     rows = []
     for c in cases:
-        row = flash_case(gen, c["B"], c["sq"], c["sk"], hq, hkv, c["causal"],
-                         c["dtype"], c["timed"])
+        row = flash_case(gen, c["B"], c["sq"], c["sk"], c.get("hq", hq),
+                         c.get("hkv", hkv), c["causal"], c["dtype"],
+                         c["timed"], d=c.get("d", D))
+        if "edge" in c:
+            row["edge"] = c["edge"]
         row["phase"] = phase
         emit(row)
         rows.append(row)
         torch.cuda.empty_cache()
+    if phase == "k1":
+        emit(concurrent_forwards(gen))
     return rows
+
+
+def concurrent_forwards(gen, n_cases=24, n_streams=4, reps=3):
+    """The bf16 forward's launches share nothing: seeded cases of mixed
+    shapes (K1 and K2, causal and full, D 64 and 128, Sq and Sk no multiple
+    of 128, B x H below and above the SM count), launched on ``n_streams``
+    streams at once, ``reps`` times, each equal bit for bit to the same
+    call made alone. The persistent kernel's blocks walk a fixed stride of
+    work tiles and keep no state in device memory; state shared by two
+    launches in flight would drop or repeat tiles. Returns the phase row;
+    raises on a mismatch."""
+    import random
+
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = random.Random(15)
+    cases = []
+    for _ in range(n_cases):
+        B, hkv, d = rng.choice([1, 2]), rng.choice([1, 4, 8]), rng.choice(
+            [64, 128])
+        hq, sq = hkv * rng.choice([1, 4]), rng.choice([100, 513, 1024, 2048])
+        sk = rng.choice([sq, sq + 37])
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for shape in ((B, sq, hq, d), (B, sk, hkv, d),
+                                          (B, sk, hkv, d)))
+        cases.append((q, k, v, rng.random() < 0.6, d ** -0.5))
+    want = [fa.flash_fwd(*c) for c in cases]
+    streams = [torch.cuda.Stream() for _ in range(n_streams)]
+    mismatches = 0
+    for _ in range(reps):
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        got = []
+        for i, c in enumerate(cases):
+            with torch.cuda.stream(streams[i % n_streams]):
+                got.append(fa.flash_fwd(*c))
+        torch.cuda.synchronize()
+        mismatches += sum(not (torch.equal(g[0], w[0])
+                               and torch.equal(g[1], w[1]))
+                          for g, w in zip(got, want))
+    row = {"phase": "k1", "check": "concurrent_forwards", "cases": n_cases,
+           "streams": n_streams, "reps": reps, "mismatches": mismatches}
+    if mismatches:
+        emit(row)
+        raise AssertionError(f"concurrent forwards: {mismatches} of "
+                             f"{n_cases * reps} differ from the call alone")
+    return row
 
 
 def _ring_shards(x, n):
@@ -1185,7 +1299,7 @@ def _ring_shards(x, n):
     return x.reshape(B, n, S // n, *x.shape[2:]).transpose(0, 1).contiguous()
 
 
-def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4):
+def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4, d=D):
     """One K6 case on the card: a sep-``n`` ring over cuda:0 on q [B, n
     s_loc, Hq, D] and k, v [B, n s_loc, Hkv, D]. ``RingFlashAttention``'s
     output and gradients (K6 per kept visit, K1's backward entries) against
@@ -1212,9 +1326,9 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4):
     def rand(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, do = rand((B, S, hq, D)), rand((B, S, hq, D))
-    k, v = rand((B, S, hkv, D)), rand((B, S, hkv, D))
-    scale = D ** -0.5
+    q, do = rand((B, S, hq, d)), rand((B, S, hq, d))
+    k, v = rand((B, S, hkv, d)), rand((B, S, hkv, d))
+    scale = d ** -0.5
     qs, ks, vs, dos = (_ring_shards(t, n) for t in (q, k, v, do))
 
     def kernel_ring(a, b, c):
@@ -1259,7 +1373,7 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4):
              "lse_max_abs_err": float((lse_acc - want_lse).abs().max())}
     pairs = _visible_pairs(S, S, causal) * B * hq
     row = {"B": B, "sep": n, "s_local": s_loc, "S": S, "hq": hq, "hkv": hkv,
-           "d": D, "causal": causal, "dtype": str(dtype),
+           "d": d, "causal": causal, "dtype": str(dtype),
            "visible_pairs": pairs, "launches_per_call": launches,
            "launches_expected": n * (n + 1) // 2 if causal else n * n,
            "max_abs_err": {**{k: c["max_abs_err"] for k, c in checks.items()},
@@ -1305,7 +1419,7 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4):
 
     library = {"fwd": cuda_ms(lambda: sdpa(qt, kt, vt)),
                "fwd_bwd": cuda_ms(lambda: fwd_bwd(sdpa, (qt, kt, vt), dot))}
-    parts = _flash_bounds(pairs, B, S, S, hq, hkv, q.element_size())
+    parts = _flash_bounds(pairs, B, S, S, hq, hkv, q.element_size(), d=d)
     bounds = {}
     for name, (nbytes, ops) in (("fwd", parts["fwd"]),
                                 ("fwd_bwd", (parts["fwd"][0]
@@ -1323,7 +1437,10 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4):
 def phase_k6(seed=12):
     """K6 on a sep-4 ring over cuda:0 at D 128, B 1, S 4 x 2048 = 8192:
     causal bf16 MHA 32/32 (LLaMA-2-7B attention) and GQA 64/8 (K2's
-    widths), timed; full (non-causal) MHA, and an f32 case at S 4 x 256."""
+    widths), timed; full (non-causal) MHA, and an f32 case at S 4 x 256.
+    Then the bf16 forward's edges, causal: shards of 1000 (no multiple of
+    its 128-row tiles), head dim 64, and Hq 4 (fewer blocks than SMs); a
+    ring visit has Sq == Sk, so causal Sq < Sk is k1's and k3's edge."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1335,10 +1452,16 @@ def phase_k6(seed=12):
                   dtype=torch.bfloat16, timed=False),
              dict(s_loc=256, hq=HQ, hkv=HQ, causal=True, dtype=torch.float32,
                   timed=False)]
+    bf16 = dict(causal=True, dtype=torch.bfloat16, timed=False)
+    cases += [dict(edge="tails", s_loc=1000, hq=HQ, hkv=HQ, **bf16),
+              dict(edge="d64", s_loc=2048, hq=HQ, hkv=HQ, d=64, **bf16),
+              dict(edge="few_blocks", s_loc=2048, hq=4, hkv=4, **bf16)]
     rows = []
     for c in cases:
         row = ring_case(gen, 1, c["s_loc"], c["hq"], c["hkv"], c["causal"],
-                        c["dtype"], c["timed"], n=CP_SEP)
+                        c["dtype"], c["timed"], n=CP_SEP, d=c.get("d", D))
+        if "edge" in c:
+            row["edge"] = c["edge"]
         row["phase"] = "k6"
         emit(row)
         rows.append(row)
@@ -1409,7 +1532,10 @@ def phase_k3(seed=9):
     multiple of 64, 5 padding tokens past the last sequence):
     self-attention causal (timed, through ``flash_attn_unpadded`` too) and
     full, a cross-offset case (each sequence's q and k lengths differ) and
-    one with an empty key sequence."""
+    one with an empty key sequence. Then the bf16 forward's edges: packed
+    rows of S 1000 (no multiple of its 128-row tiles), varlen keys twice
+    each sequence's queries (causal Sq < Sk), head dim 64, and one packed
+    row at Hq 4 (fewer blocks than SMs)."""
     import importlib
 
     import numpy as np
@@ -1430,6 +1556,9 @@ def phase_k3(seed=9):
     cu_e = cu_q.copy()
     cu_e[2:] -= cu_e[2] - cu_e[1]          # sequence 1 has no key
     te = int(cu_e[-1]) + 5
+    cu_l = 2 * cu_q                        # each sequence's keys: 2x its q
+    tl = int(cu_l[-1]) + 5
+    seg_tails = torch.from_numpy(sft_rows(seed + 3, 2, 1000)[0]).cuda()
 
     def packed_entry(rows):
         return lambda a, b, c: fa.flash_attention_packed(a, b, c, rows)
@@ -1465,6 +1594,18 @@ def phase_k3(seed=9):
         ("varlen_empty_key", dict(B=1, sq=tq, sk=te, hq=HQ, hkv=HQ,
                                   causal=True, dtype=bf16, timed=False,
                                   segs=varlen(cu_e, te))),
+        ("packed_tails", dict(B=2, sq=1000, sk=1000, hq=HQ, hkv=HQ,
+                              causal=True, dtype=bf16, timed=False,
+                              segs=fa._packed_segments(seg_tails))),
+        ("varlen_longer_keys", dict(B=1, sq=tq, sk=tl, hq=HQ, hkv=HQ,
+                                    causal=True, dtype=bf16, timed=False,
+                                    segs=varlen(cu_l, tl))),
+        ("packed_d64", dict(B=2, sq=2048, sk=2048, hq=HQ, hkv=HQ,
+                            causal=True, dtype=bf16, timed=False,
+                            segs=fa._packed_segments(seg), d=64)),
+        ("packed_few_blocks", dict(B=1, sq=2048, sk=2048, hq=4, hkv=4,
+                                   causal=True, dtype=bf16, timed=False,
+                                   segs=fa._packed_segments(seg[:1]))),
     ]
     rows = []
     for form, c in cases:
@@ -1473,7 +1614,8 @@ def phase_k3(seed=9):
         if form.startswith("varlen"):
             row["cu_q"] = cu_q.tolist()
             row["cu_k"] = {"varlen": cu_q, "varlen_cross_offset": cu_x,
-                           "varlen_empty_key": cu_e}[form].tolist()
+                           "varlen_empty_key": cu_e,
+                           "varlen_longer_keys": cu_l}[form].tolist()
         emit(row)
         rows.append(row)
         torch.cuda.empty_cache()
@@ -2229,8 +2371,8 @@ def phase_train_cp(model, step, train_row, seed=14, warmup=2, timed=5):
     forward). Then the same model with no mesh through ``TrainStep`` (K1
     over the whole sequence), the same shapes and step counts. Step ms,
     tokens/s, MFU (``flops_per_token(cfg, 4096)``) and peak memory of both;
-    two more ring steps under torch.profiler between them. Returns the row
-    (the no-mesh run's under "no_mesh")."""
+    two more steps of each under torch.profiler. Returns the row (the
+    no-mesh run's under "no_mesh")."""
     from paddle_tpu_torch.distributed import DistributedTrainStep, build_mesh
     from paddle_tpu_torch.jit_api import TrainStep
 
@@ -2255,10 +2397,19 @@ def phase_train_cp(model, step, train_row, seed=14, warmup=2, timed=5):
     row["profile"] = _device_profile("train_cp_profile", two_steps)
     cfg.context_parallel = False
     nstep = TrainStep(model, step.loss_fn, step.optimizer, device="cuda")
+    plain_batches = _token_batches(seed + 1, cfg.vocab_size, n, 2, CP_SEQ)
     plain = _timed_steps(
-        "train_cp_no_mesh", cfg, model, nstep,
-        _token_batches(seed + 1, cfg.vocab_size, n, 2, CP_SEQ),
+        "train_cp_no_mesh", cfg, model, nstep, plain_batches,
         warmup=warmup, extra={"train_cp_step_ms": row["step_ms"]})
+
+    def two_plain_steps():
+        for b in plain_batches[:2]:
+            nstep(*b)
+
+    # the same two-step window with no mesh: K1 over the whole sequence,
+    # against which the ring profile's K6, f32 sums and shard copies read
+    row["no_mesh_profile"] = _device_profile("train_cp_no_mesh_profile",
+                                             two_plain_steps)
     row["no_mesh"] = {k: plain[k] for k in ("step_ms", "tokens_per_s", "mfu",
                                             "peak_mem_gb")}
     if max(row["peak_mem_gb"], plain["peak_mem_gb"]) >= 80:

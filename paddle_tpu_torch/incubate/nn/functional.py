@@ -1,11 +1,65 @@
 """Fused functionals of the training path (counterpart of
 ``paddle_tpu/incubate/nn/functional.py``).
 
-``fused_linear_cross_entropy`` computes the LM loss straight from hidden
-states. The reference computes it in XLA, outside any Pallas kernel, so the
-port's products are ``torch.mm`` (cuBLAS on the card).
+``rope_rotate``, ``fused_rotary_position_embedding`` and ``swiglu`` keep
+the reference's signatures; ``paddle_tpu_torch.nn.functional`` re-exports
+them. ``fused_linear_cross_entropy`` computes the LM loss straight from
+hidden states. The reference computes all of them in XLA, outside any
+Pallas kernel, so the port's are plain PyTorch (its products ``torch.mm``,
+cuBLAS on the card), with the reference's arithmetic: f32 inside, cast
+back to the input dtype.
 """
 import torch
+import torch.nn.functional as F
+
+
+def rope_tables(n_positions, head_dim, base=10000.0, device=None):
+    """(cos, sin) tables [n_positions, head_dim] in f32, rotate-half form."""
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=device) / head_dim))
+    freqs = torch.outer(torch.arange(n_positions, dtype=torch.float32,
+                                     device=device), inv)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def rope_rotate(x, cos, sin):
+    """Rotate-half rope on [B, S, H, D]."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return x * cos + torch.cat([-x2, x1], dim=-1) * sin
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True,
+                                    rotary_emb_base=10000.0):
+    """Rope on [batch, seq, heads, head_dim] tensors. cos/sin tables,
+    [S_tab, D] or [1, S_tab, 1, D], are built from ``rotary_emb_base`` when
+    not given; ``position_ids`` [B, S] gathers their rows. Math in f32,
+    results in each input's dtype. ``use_neox_rotary_style`` is accepted
+    and, as in the reference, selects nothing: the rotation is always
+    rotate-half."""
+    B, S, H, D = q.shape
+    if sin is None or cos is None:
+        cos, sin = rope_tables(S, D, rotary_emb_base, device=q.device)
+    if cos.dim() == 4:   # [1, S_tab, 1, D] -> [S_tab, D]
+        cos, sin = cos[0, :, 0, :], sin[0, :, 0, :]
+    if position_ids is not None:
+        pid = position_ids.long()
+        cos_a, sin_a = cos[pid][:, :, None, :], sin[pid][:, :, None, :]
+    else:
+        cos_a, sin_a = cos[None, :, None, :], sin[None, :, None, :]
+    return tuple(None if t is None
+                 else rope_rotate(t.float(), cos_a, sin_a).to(t.dtype)
+                 for t in (q, k, v))
+
+
+def swiglu(x, y=None, name=None):
+    """LLaMA MLP gate: silu(x) * y; with y None, x is split in halves.
+    ``name`` is accepted, as in the reference, and unused."""
+    if y is None:
+        x, y = x.chunk(2, dim=-1)
+    return F.silu(x) * y
 
 
 def _mm_f32(a, b):

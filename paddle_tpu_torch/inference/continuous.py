@@ -73,6 +73,24 @@ def canonical_sampling(do_sample, temperature=1.0, top_k=0, top_p=1.0):
             (True, float(temperature), int(top_k), float(top_p)))
 
 
+def _per_request(value, n, name):
+    """A scalar, a per-rid list or a complete {rid: v} dict -> a per-rid
+    list of ints (the reference's ``_per_request``): ValueError for a list
+    of another length or a dict missing rids."""
+    if isinstance(value, dict):
+        missing = [i for i in range(n) if i not in value]
+        if missing:
+            raise ValueError(
+                f"per-request {name} dict missing rids {missing}")
+        return [int(value[i]) for i in range(n)]
+    if isinstance(value, (list, tuple, np.ndarray)):
+        if len(value) != n:
+            raise ValueError(f"per-request {name} has {len(value)} "
+                             f"entries for {n} requests")
+        return [int(v) for v in value]
+    return [int(value)] * n
+
+
 class EngineRequest:
     """One request's lifecycle state. Once ``finished``, exactly one of
     ``result`` (np.int32: prompt + generated tokens) or ``error`` is set;
@@ -831,8 +849,8 @@ class ContinuousBatchingEngine:
         """Serve a list of int32 prompt arrays; returns a list of
         [len(prompt) + n_generated] arrays (stops at eos or max_new_tokens;
         None for a request that failed alone, its error in
-        ``request_errors``). ``max_new_tokens`` is a scalar or a
-        per-request list. Requests beyond the slot or page capacity queue
+        ``request_errors``). ``max_new_tokens`` is a scalar, a
+        per-request list or a complete {rid: n} dict (``_per_request``). Requests beyond the slot or page capacity queue
         and join as earlier ones retire.
 
         ``do_sample`` with ``temperature``, ``top_k`` and ``top_p`` samples
@@ -848,12 +866,7 @@ class ContinuousBatchingEngine:
             raise RuntimeError("serve() on an engine with active requests — "
                                "drain() first")
         sampling = canonical_sampling(do_sample, temperature, top_k, top_p)
-        per_new = (list(max_new_tokens)
-                   if isinstance(max_new_tokens, (list, tuple, np.ndarray))
-                   else [max_new_tokens] * len(prompts))
-        if len(per_new) != len(prompts):
-            raise ValueError(f"per-request max_new_tokens has {len(per_new)} "
-                             f"entries for {len(prompts)} requests")
+        per_new = _per_request(max_new_tokens, len(prompts), "max_new_tokens")
         reqs = [EngineRequest(rid, p, per_new[rid], eos_token_id=eos_token_id,
                               sampling=sampling, seed=seed,
                               timeout_s=request_timeout_s, on_token=on_token)

@@ -20,7 +20,9 @@ cumulative offsets.
 CPU tensor runs the plain version (``_attention_math``, ``_segment_math``)
 through autograd; a CUDA tensor goes through ``FlashAttention`` (or
 ``SegmentFlashAttention``), whose forward launches the forward kernel
-(``csrc/flash_attention_fwd.cu``, which also saves the row log-sum-exp) and
+(``csrc/flash_attention_fwd.cu``, which also saves the row log-sum-exp:
+for bf16 a persistent Hopper kernel of TMA loads and wgmma products, for
+f32 a CUDA-core tile loop) and
 whose backward launches the three backward kernels
 (``csrc/flash_attention_bwd.cu``). GQA needs no second kernel: query head h
 reads kv head h // group inside the kernels. K3's kernels are K1's with the
@@ -138,6 +140,8 @@ def _check_paddle_layout(name, q, k, v, causal, extra=()):
         chk(t.device == q.device, name, "operands must share q's device")
     for t in (q, k, v, *extra):
         chk(t.is_contiguous(), name, "operands must be contiguous")
+        # (the bf16 forward's TMA tensor maps need 16-byte aligned bases,
+        # which a ring shard of a stacked tensor may not have)
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
     chk(str(q.dtype) in _build.DTYPE_CODES, name,
         f"dtype {q.dtype} not in {sorted(_build.DTYPE_CODES)}")
@@ -545,6 +549,29 @@ def _tile_ranges(segs, causal, tile=64):
             torch.where(ascending, query_ranges, every_q))
 
 
+def _fwd_key_ranges(key_ranges):
+    """The key-tile table the bf16 forward kernel walks, from K3's 64-unit
+    ``key_ranges`` [B, ceil(Sq / 64), 2]: per 128-row query tile, the
+    union of its two 64-row tiles' non-empty ranges, in 128-key tiles
+    (``lo // 2``, ``ceil(hi / 2)``); (0, 0) where neither sees a key.
+    [B, ceil(Sq / 128), 2] int32. The kernel does this arithmetic itself
+    (``seg_key_tiles`` in csrc/flash_attention_fwd.cu), so the backward
+    kernels and it share one table; this is its statement for the tests
+    and ``chip_smoke.py``."""
+    B, n, _ = key_ranges.shape
+    r = key_ranges.long()
+    if n % 2:
+        r = torch.cat([r, r.new_zeros(B, 1, 2)], 1)
+    lo, hi = r[..., 0].view(B, -1, 2), r[..., 1].view(B, -1, 2)
+    some = lo < hi
+    lo = lo.masked_fill(~some, torch.iinfo(torch.int64).max).amin(-1)
+    hi = hi.masked_fill(~some, 0).amax(-1)
+    seen = lo < hi
+    return torch.stack([torch.where(seen, lo // 2, 0),
+                        torch.where(seen, (hi + 1) // 2, 0)],
+                       -1).to(torch.int32)
+
+
 _SEG_FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SEG_DKDV_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
@@ -569,6 +596,8 @@ def _segment_pointers(name, q, k, segs, ranges, tiles):
     for t in (*segs, ranges):
         chk(t.device == q.device, name, "operands must share q's device")
         chk(t.is_contiguous(), name, "operands must be contiguous")
+        # (the bf16 forward reads the key ids through TMA tensor maps)
+        chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
     return [t.data_ptr() for t in (*segs, ranges)]
 
 

@@ -1,11 +1,13 @@
-"""Port parity: the attention ops of paddle_tpu_torch against the JAX
-reference on the CPU.
+"""Port parity: the attention ops and the fused functionals of
+paddle_tpu_torch against the JAX reference on the CPU.
 
 The torch tier of each op (the plain version a CPU tensor runs) is held
 against the JAX math tier it replaces, on inputs drawn with numpy from a
 seed. Float outputs agree within atol = rtol = 2e-5 (f32, summation order
 only); page writes are bit-identical on every page except scratch page 0,
-where pad tokens' duplicate writes collide by design.
+where pad tokens' duplicate writes collide by design. The rope and SwiGLU
+functionals of ``paddle_tpu_torch.incubate.nn.functional`` agree with
+``paddle_tpu.incubate.nn.functional`` within 1e-6 (f32 elementwise math).
 """
 import numpy as np
 import pytest
@@ -13,8 +15,11 @@ import torch
 
 import jax.numpy as jnp
 
+from paddle_tpu.incubate.nn import functional as jinc
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu.ops import ragged_paged_attention as jrpa
+from paddle_tpu_torch.nn import functional as tnnf
+from paddle_tpu_torch.incubate.nn import functional as tinc
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
 
@@ -125,3 +130,62 @@ def test_write_token_kv_bit_identical_outside_scratch():
     got = tpa.write_token_kv(torch.from_numpy(pages.copy()), *_t(*args))
     np.testing.assert_array_equal(got.numpy()[:, 1:], want[:, 1:])
     assert not np.array_equal(want[:, 1:], pages[:, 1:])
+
+
+# ---- fused functionals ------------------------------------------------------
+def _np(x):
+    return np.asarray(x._data if hasattr(x, "_data") else x)
+
+
+@pytest.mark.parametrize("table", ["none", "2d", "4d"])
+@pytest.mark.parametrize("with_pids", [False, True])
+def test_fused_rotary_position_embedding_matches_reference(table, with_pids):
+    """Rope through the re-exported functional, with no tables (built from
+    the base), [S, D] and [1, S, 1, D] tables, with and without
+    position_ids, neox style named; q, k and v each rotated."""
+    rng = np.random.RandomState(3)
+    B, S, H, D = 2, 7, 3, 8
+    q, k, v = (rng.randn(B, S, H, D).astype(np.float32) for _ in range(3))
+    kw = dict(use_neox_rotary_style=True, rotary_emb_base=500.0)
+    if table != "none":
+        ang = rng.rand(S + 3, D).astype(np.float32) * 3
+        cos, sin = np.cos(ang), np.sin(ang)
+        if table == "4d":
+            cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+            if not with_pids:
+                cos, sin = cos[:, :S], sin[:, :S]
+        elif not with_pids:
+            cos, sin = cos[:S], sin[:S]
+        kw.update(cos=cos, sin=sin)
+    if with_pids:
+        kw["position_ids"] = rng.randint(0, S, (B, S)).astype(np.int64)
+    want = jinc.fused_rotary_position_embedding(
+        *_j(q, k, v), **{n: jnp.asarray(a) if isinstance(a, np.ndarray)
+                         else a for n, a in kw.items()})
+    got = tinc.fused_rotary_position_embedding(
+        *_t(q, k, v), **{n: torch.from_numpy(a) if isinstance(a, np.ndarray)
+                         else a for n, a in kw.items()})
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), _np(w), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("halves", [True, False])
+def test_swiglu_matches_reference(halves):
+    """SwiGLU with one argument (split in halves) and with two; ``name``
+    accepted as the reference accepts it."""
+    rng = np.random.RandomState(4)
+    x, y = (rng.randn(3, 5, 16).astype(np.float32) for _ in range(2))
+    if halves:
+        want = jinc.swiglu(jnp.asarray(x), name="g")
+        got = tinc.swiglu(torch.from_numpy(x), name="g")
+    else:
+        want = jinc.swiglu(jnp.asarray(x), jnp.asarray(y))
+        got = tinc.swiglu(torch.from_numpy(x), torch.from_numpy(y))
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6)
+
+
+def test_nn_functional_delegates_to_incubate():
+    """One implementation: ``nn.functional``'s names are the incubate
+    module's functions."""
+    for name in ("rope_rotate", "fused_rotary_position_embedding", "swiglu"):
+        assert getattr(tnnf, name) is getattr(tinc, name)

@@ -320,6 +320,23 @@ def test_tile_ranges_cover_every_visible_pair(layout, causal):
             assert {(i, j) for j, i in by_k} == need[b]
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_forward_key_ranges_cover_every_visible_pair(layout, causal):
+    """The bf16 forward's table (128-row query tiles over 128-key tiles),
+    converted from the 64-unit table the backward kernels read, covers
+    every (query tile, key tile) holding a visible pair, and equals the
+    table built directly at tile 128."""
+    segs = LAYOUTS[layout]()
+    key_ranges, _ = tfa._tile_ranges(segs, causal)
+    fwd = tfa._fwd_key_ranges(key_ranges)
+    direct, _ = tfa._tile_ranges(segs, causal, tile=128)
+    assert fwd.dtype == torch.int32
+    assert torch.equal(fwd, direct)
+    for b, visited in enumerate(_visited(fwd)):
+        assert _tile_pairs(segs, causal, tile=128)[b] <= visited
+
+
 # -- the model ---------------------------------------------------------------
 
 def _jax_model(seed=23, **kw):

@@ -227,3 +227,24 @@ def test_unported_serve_options_raise(sampled):
         eng.serve(prompts, 4, sampling_overrides=[{}] * len(prompts))
     with pytest.raises(NotImplementedError, match="later slice"):
         eng.serve(prompts, 4, adapters=[None] * len(prompts))
+
+
+# ---- per-request max_new_tokens --------------------------------------------
+def test_max_new_tokens_dict_tokens_identical(models):
+    """A complete {rid: n} dict gives the reference engine's tokens, each
+    request stopping at its own count; a dict missing a rid raises
+    ValueError in both engines."""
+    jm, tm = models
+    prompts = _prompts(23, (5, 33, 12, 20))
+    per = {0: 3, 1: 9, 2: 1, 3: 6}
+    kw = dict(max_seqs=4, page_size=16, max_len=256)
+    want = JaxEngine(jm, **kw).serve(prompts, max_new_tokens=per)
+    eng = ContinuousBatchingEngine(tm, device="cpu", **kw)
+    got = eng.serve(prompts, max_new_tokens=per)
+    _assert_same(want, got)
+    assert [len(g) - len(p) for g, p in zip(got, prompts)] == [3, 9, 1, 6]
+    short = {0: 3, 1: 9, 3: 6}
+    with pytest.raises(ValueError, match="missing rids"):
+        JaxEngine(jm, **kw).serve(prompts, max_new_tokens=short)
+    with pytest.raises(ValueError, match="missing rids"):
+        eng.serve(prompts, max_new_tokens=short)
