@@ -14,8 +14,10 @@ Phases, one JSON line each (any failed phase exits non-zero):
             32 heads of 128, bf16, causal), plus a full (non-causal) and an
             Sq != Sk causal case and an f32 case, O and every gradient
             held row by row (``row_check``) and the saved lse within
-            1e-3; CUDA-event timings of every kernel entry, the plain
-            version and F.sdpa; then the bf16 forward's edges (Sq, Sk no
+            1e-3; two launches of the dK/dV and dQ kernels bit for bit;
+            CUDA-event timings of every kernel entry, the whole backward,
+            the plain version and F.sdpa (its backward alone too); then
+            the bf16 kernels' edges, forward and backward (Sq, Sk no
             multiple of 128, causal Sq < Sk, head dim 64, B x H < 132)
             and, for k1, 24 mixed-shape forwards on four streams at once,
             each equal bit for bit to the call alone;
@@ -30,7 +32,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             multiple of 64) causal and full, cross-offset, and with an
             empty key sequence; bounds from the visible pairs alone, and
             F.sdpa with the boolean segment mask as the library time; the
-            forward's edges as k1's;
+            edges as k1's, rows of 1-3 token segments, and dQ exactly 0
+            on rows that see no key (dK, dV on keys no query sees);
 6. k6     — ring attention (K6) over a sep-4 ring on the one card (B 1,
             S 4 x 2048 = 8192, D 128, bf16): causal MHA 32/32 and GQA
             64/8, timed, full MHA, and an f32 case at S 4 x 256.
@@ -39,8 +42,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             K6 launch against its plain version, the public ring_attention
             equal to the kernel path; CUDA-event times of the ring forward
             and forward + backward beside K1 over the whole 8192 and F.sdpa
-            over it; the forward's edges (shards of 1000, head dim 64,
-            Hq 4);
+            over it; the edges (shards of 1000, head dim 64, Hq 4); two
+            runs of the ring's backward bit for bit;
 6a. adamw — the AdamW update kernel against its plain version;
 7. codec  — the int8 KV codec on the card against the CPU: codes, scales
             and dequantized values bit-identical (zero, +-absmax and .5-tie
@@ -92,8 +95,10 @@ Phases, one JSON line each (any failed phase exits non-zero):
 18. train_profile — two steps of `train` under torch.profiler;
 19. train_packed — SFT packing on `train`'s model and optimizer: B 2 x S
             2048 of k3's packed rows, 2 warm-up and 8 timed steps, K3's
-            exact launch counts and none of K1's, MFU from the visible
-            pairs, `train`'s step time beside; two steps profiled;
+            exact launch counts and none of K1's, tokens/s and MFU over
+            the conversations' tokens and visible pairs (the padding tail
+            is no work; the figures counting it beside), `train`'s step
+            time beside; two steps profiled;
 19a. train_cp — context-parallel training on `train`'s model and AdamW:
             B 2 x S 4096 through DistributedTrainStep under a sep-4 mesh
             over cuda:0, 2 warm-up and 5 timed steps, the ring's exact
@@ -805,10 +810,13 @@ def _family(name):
     if "paged_decode_kernel" in name:
         return "paged_decode_attention"
     # the forward's kernels (bf16 flash_fwd_hopper, f32 flash_fwd_f32) are
-    # templated <D, SEG, RING>, the backward's <T, D, SEG>: SEG is K3's
-    # segment mask (its delta pass is K1's kernel), RING K6's merge
+    # templated <D, SEG, RING>, the bf16 gradients' <D, SEG, ACC>, the f32
+    # backward's <T, D, SEG>: SEG is K3's segment mask (its delta pass is
+    # K1's kernel), RING K6's merge, ACC the ring visits' f32 sums
     for kernel, entry, n_lead in (("flash_fwd_hopper<", "fwd", 1),
                                   ("flash_fwd_f32<", "fwd", 1),
+                                  ("flash_dkdv_hopper<", "bwd_dkdv", 1),
+                                  ("flash_dq_hopper<", "bwd_dq", 1),
                                   ("flash_bwd_delta_kernel<", "bwd_delta", 2),
                                   ("flash_bwd_dkdv_kernel<", "bwd_dkdv", 2),
                                   ("flash_bwd_dq_kernel<", "bwd_dq", 2)):
@@ -972,11 +980,14 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
     same inputs (the forward's O and its saved lse, within LSE_TOL), and
     forward and backward end to end against the plain version's autograd;
     ``public(q, k, v)``, the entry point a user calls, must give the
-    kernel's output bit for bit. With ``timed``, CUDA-event medians of
-    every entry, the plain version and F.scaled_dot_product_attention (the
-    library time; K3: with the boolean segment mask, built outside the
-    timed region); ``beside_k1`` also times K1's causal forward and forward
-    + backward on the same tensors."""
+    kernel's output bit for bit; two launches of the dK/dV and dQ kernels
+    must give the same bits; K3's dQ rows that see no key and dK/dV rows of
+    keys no query sees must be exactly 0. With ``timed``, CUDA-event medians
+    of every entry, the whole backward (delta, dK/dV, dQ), the plain version
+    and F.scaled_dot_product_attention (the library time, its backward alone
+    as autograd of its retained output; K3: with the boolean segment mask,
+    built outside the timed region); ``beside_k1`` also times K1's causal
+    forward and forward + backward on the same tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -1044,6 +1055,7 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
         k1_tiles = (sum(min(n_kt, i + 1) for i in range(n_qt)) if causal
                     else n_qt * n_kt)
         fwd_ranges = fa._fwd_key_ranges(key_ranges)
+        dkdv_ranges = fa._dkdv_query_ranges(query_ranges)
         extra = {"segments_per_row": [len(torch.unique(r))
                                       for r in segs.seg_q],
                  "rows_seeing_no_key": int((seen == 0).sum()),
@@ -1051,7 +1063,9 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
                      (key_ranges[..., 1] - key_ranges[..., 0]).sum()),
                  "tile_pairs_k1_causal": B * k1_tiles,
                  "fwd_tile_pairs_visited_128": int(
-                     (fwd_ranges[..., 1] - fwd_ranges[..., 0]).sum())}
+                     (fwd_ranges[..., 1] - fwd_ranges[..., 0]).sum()),
+                 "dkdv_stages_visited_128x64": int(
+                     (dkdv_ranges[..., 1] - dkdv_ranges[..., 0]).sum())}
         lse_mask = lib_mask
 
     def fwd_bwd(fn):
@@ -1124,6 +1138,22 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
     if public is not None:
         row["public_entry_equal"] = bool(torch.equal(public(q, k, v),
                                                      got[0]))
+    # two launches of the gradient kernels give the same bits (no sum
+    # crosses blocks)
+    grads = [(*entry["bwd_dkdv"](lse, delta), entry["bwd_dq"](lse, delta))
+             for _ in range(2)]
+    row["deterministic"] = all(torch.equal(a, b) for a, b in zip(*grads))
+    del grads
+    if segs is not None:
+        # K3: a query row that sees no key has dQ exactly 0, and a key that
+        # no query sees has dK and dV exactly 0
+        unseen = segs.mask(causal).sum(1) == 0
+        row["exact_zeros"] = {
+            "dq_rows_seeing_no_key": int((seen == 0).sum()),
+            "dq_zero": bool((got[1][seen == 0] == 0).all()),
+            "keys_seen_by_none": int(unseen.sum()),
+            "dk_dv_zero": bool((got[2][unseen] == 0).all()
+                               and (got[3][unseen] == 0).all())}
     bad = [f"{against} {name}: {c}"
            for against, cs in (("entry", checks), ("end to end", end_to_end),
                                ("splash", splash or {}))
@@ -1131,6 +1161,11 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
            if c["bad_rows"] or c["bad_elements"] or not c["finite"]]
     if row.get("public_entry_equal") is False:
         bad.append("the public entry point differs from the kernel path")
+    if not row["deterministic"]:
+        bad.append("two launches of the gradient kernels differ")
+    zeros = row.get("exact_zeros", {})
+    if zeros and not (zeros["dq_zero"] and zeros["dk_dv_zero"]):
+        bad.append(f"gradients of unseen rows or keys are not 0: {zeros}")
     if not lse_err <= LSE_TOL:
         bad.append(f"lse off by {lse_err}")
     if bad:
@@ -1140,11 +1175,17 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
                              + "; ".join(bad))
     if not timed:
         return row
+    def bwd():
+        dl = entry["bwd_delta"](out)
+        entry["bwd_dkdv"](lse, dl)
+        entry["bwd_dq"](lse, dl)
+
     kern = {
         "fwd": cuda_ms(entry["fwd"]),
         "bwd_delta": cuda_ms(lambda: entry["bwd_delta"](out)),
         "bwd_dkdv": cuda_ms(lambda: entry["bwd_dkdv"](lse, delta)),
         "bwd_dq": cuda_ms(lambda: entry["bwd_dq"](lse, delta)),
+        "bwd": cuda_ms(bwd),
         "fwd_bwd": cuda_ms(lambda: fwd_bwd(attn)),
     }
     qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1162,6 +1203,7 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
                              .transpose(1, 2).contiguous(), reps=5, warmup=1),
         "bwd_dkdv": cuda_ms(plain_grad((kp, vp)), reps=5, warmup=1),
         "bwd_dq": cuda_ms(plain_grad((qp,)), reps=5, warmup=1),
+        "bwd": cuda_ms(lambda: plain_bwd(out), reps=5, warmup=1),
         "fwd_bwd": cuda_ms(lambda: fwd_bwd(plain), reps=5, warmup=1),
     }
     del plain_out
@@ -1179,8 +1221,14 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
         a, b, c = (t.detach().requires_grad_() for t in (qt, kt, vt))
         sdpa(a, b, c).backward(dot)
 
+    # the library's backward alone: autograd of the retained F.sdpa output
+    lib_in = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    lib_out = sdpa(*lib_in)
     library = {"fwd": cuda_ms(lambda: sdpa(qt, kt, vt)),
+               "bwd": cuda_ms(lambda: torch.autograd.grad(
+                   lib_out, lib_in, dot, retain_graph=True)),
                "fwd_bwd": cuda_ms(sdpa_fwd_bwd)}
+    del lib_out, lib_in
     bounds = {}
     for name, (nbytes, ops) in _flash_bounds(pairs, B, sq, sk, hq, hkv,
                                               q.element_size(), id_bytes,
@@ -1313,7 +1361,8 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4, d=D):
     medians of the ring's forward and forward + backward, the plain ring's,
     K1 over the whole sequence (``flash_fwd``, ``FlashAttention``) and
     F.scaled_dot_product_attention over it (the library time), and the
-    bounds of the whole function over the n s_loc positions."""
+    bounds of the whole function over the n s_loc positions. A second run of
+    the kernel path must give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -1350,6 +1399,9 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4, d=D):
         got = fwd_bwd(kernel_ring)
         torch.cuda.synchronize()
         launches = fa.ring_flash_fwd.launches - n0
+        # the ring's f32 sums, added by the kernels, repeat bit for bit
+        deterministic = all(torch.equal(a, b) for a, b in zip(
+            got, fwd_bwd(kernel_ring)))
         want = fwd_bwd(plain_ring)
         public = ra.ring_attention(*(t.transpose(2, 3) for t in (qs, ks, vs)),
                                    causal=causal, scale=scale)
@@ -1379,7 +1431,7 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4, d=D):
            "max_abs_err": {**{k: c["max_abs_err"] for k, c in checks.items()},
                            "entry_o": entry["o"]["max_abs_err"]},
            "checks": checks, "entry": entry,
-           "public_entry_equal": public_equal}
+           "public_entry_equal": public_equal, "deterministic": deterministic}
     bad = [f"{name}: {c}" for name, c in (*checks.items(), ("entry o",
                                                              entry["o"]))
            if c["bad_rows"] or c["bad_elements"] or not c["finite"]]
@@ -1387,6 +1439,8 @@ def ring_case(gen, B, s_loc, hq, hkv, causal, dtype, timed, n=4, d=D):
         bad.append(f"entry lse off by {entry['lse_max_abs_err']}")
     if not public_equal:
         bad.append("the public ring_attention differs from the kernel path")
+    if not deterministic:
+        bad.append("two runs of the ring's backward differ")
     if launches != row["launches_expected"]:
         bad.append(f"{launches} K6 launches, expected "
                    f"{row['launches_expected']}")
@@ -1534,8 +1588,10 @@ def phase_k3(seed=9):
     full, a cross-offset case (each sequence's q and k lengths differ) and
     one with an empty key sequence. Then the bf16 forward's edges: packed
     rows of S 1000 (no multiple of its 128-row tiles), varlen keys twice
-    each sequence's queries (causal Sq < Sk), head dim 64, and one packed
-    row at Hq 4 (fewer blocks than SMs)."""
+    each sequence's queries (causal Sq < Sk), head dim 64, one packed
+    row at Hq 4 (fewer blocks than SMs), and packed rows of 1-3 token
+    segments (one-token segments among them). Every case runs the backward
+    too (``flash_case``)."""
     import importlib
 
     import numpy as np
@@ -1559,6 +1615,7 @@ def phase_k3(seed=9):
     cu_l = 2 * cu_q                        # each sequence's keys: 2x its q
     tl = int(cu_l[-1]) + 5
     seg_tails = torch.from_numpy(sft_rows(seed + 3, 2, 1000)[0]).cuda()
+    seg_ones = torch.from_numpy(sft_rows(seed + 4, 2, 300, (1, 3))[0]).cuda()
 
     def packed_entry(rows):
         return lambda a, b, c: fa.flash_attention_packed(a, b, c, rows)
@@ -1606,6 +1663,9 @@ def phase_k3(seed=9):
         ("packed_few_blocks", dict(B=1, sq=2048, sk=2048, hq=4, hkv=4,
                                    causal=True, dtype=bf16, timed=False,
                                    segs=fa._packed_segments(seg[:1]))),
+        ("packed_short_segments", dict(B=2, sq=300, sk=300, hq=HQ, hkv=HQ,
+                                       causal=True, dtype=bf16, timed=False,
+                                       segs=fa._packed_segments(seg_ones))),
     ]
     rows = []
     for form, c in cases:
@@ -2228,14 +2288,17 @@ def _tokens(seed, vocab, shape):
 
 
 def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
-                 pairs=None, extra=None, check_trend=True):
+                 packing=None, extra=None, check_trend=True):
     """``warmup`` steps, then one timed step per remaining batch with the
     kernels' counts taken over the timed steps alone (``_expected_counts``
     exactly). MFU is ``flops_per_token(cfg, S)`` (the reference's, full
-    causal rows) x tokens/s / 989e12; with ``pairs`` (packed rows: the
-    visible (query, key) pairs of a batch, per head) the attention term
-    counts those pairs instead. ``check_trend``: the loss must not rise
-    over the steps."""
+    causal rows) x tokens/s / 989e12. ``packing`` (packed rows): the
+    conversations' ``tokens`` of a batch and their visible (query, key)
+    ``pairs`` per head are the work, so tokens/s and MFU count those alone
+    (the attention term from those pairs), not the padding tail; the same
+    over every token and every segment's pairs
+    (``pairs_with_padding``) is kept beside, named as counting padding.
+    ``check_trend``: the loss must not rise over the steps."""
     import numpy as np
     import torch
 
@@ -2272,14 +2335,24 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
            "loss_slope_per_step": float(np.polyfit(np.arange(len(losses)),
                                                    losses, 1)[0]),
            "kernels": counts, "expected_kernels": want, **(extra or {})}
-    if pairs is not None:
-        packed_flops = (LlamaForCausalLM.flops_per_token(cfg)
-                        + 12 * L * cfg.hidden_size * pairs / (B * S))
-        row.update(flops_per_token_packed=packed_flops,
+    if packing is not None:
+        def packed_flops(pairs, tokens):
+            return (LlamaForCausalLM.flops_per_token(cfg)
+                    + 12 * L * cfg.hidden_size * pairs / tokens)
+
+        work_tok_s = packing["tokens"] * steps / wall
+        work_flops = packed_flops(packing["pairs"], packing["tokens"])
+        pad_flops = packed_flops(packing["pairs_with_padding"], B * S)
+        row.update(work_tokens_per_batch=packing["tokens"],
+                   tokens_per_s=work_tok_s,
+                   flops_per_token_packed=work_flops,
                    flops_formula="6 N + 12 L hidden (visible pairs per "
-                                 "head / tokens)",
-                   mfu=packed_flops * tok_s / 989e12,
-                   mfu_if_full_causal_rows=flops * tok_s / 989e12)
+                                 "head / tokens), conversations only",
+                   mfu=work_flops * work_tok_s / 989e12,
+                   tokens_per_s_with_padding=tok_s,
+                   mfu_with_padding=pad_flops * tok_s / 989e12,
+                   mfu_if_full_causal_rows_with_padding=(
+                       flops * tok_s / 989e12))
     emit(row)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: non-finite loss {losses}")
@@ -2428,8 +2501,10 @@ def phase_train_packed(model, step, train_row, seed=11):
     conversations of 64-1024 tokens, a padding tail with its own id), new
     seeded tokens each step, labels -100 at each segment's last token and
     on the padding; 2 warm-up and 8 timed steps, K3's exact launch counts
-    and none of K1's; `train`'s step ms beside. Then two steps under
-    torch.profiler. Returns the row."""
+    and none of K1's; tokens/s and MFU over the conversations' tokens and
+    pairs (the padding tail is no work; the figures counting it beside);
+    `train`'s step ms beside. Then two steps under torch.profiler. Returns
+    the row."""
     import numpy as np
 
     from paddle_tpu_torch.jit_api import TrainStep
@@ -2439,6 +2514,10 @@ def phase_train_packed(model, step, train_row, seed=11):
     batches = [(i, seg, sft_labels(i, seg, convs)) for i in ids]
     lens = [np.unique(r, return_counts=True)[1] for r in seg]
     pairs = int(sum((n * (n + 1) // 2).sum() for n in lens))
+    # the work: the conversations' tokens and pairs, not the padding tail
+    work = {"tokens": sum(sum(c) for c in convs),
+            "pairs": sum(n * (n + 1) // 2 for c in convs for n in c),
+            "pairs_with_padding": pairs}
     # train's loss and AdamW (its moments carry on) over the packed model
     pstep = TrainStep(_packed(model), step.loss_fn, step.optimizer,
                       device="cuda")
@@ -2448,7 +2527,7 @@ def phase_train_packed(model, step, train_row, seed=11):
                "visible_pairs_per_head": pairs,
                "visible_share_of_causal": pairs / (2 * 2048 * 2049 // 2)}
     row = _timed_steps("train_packed", model.config, model, pstep, batches,
-                       warmup=2, path="k3", pairs=pairs,
+                       warmup=2, path="k3", packing=work,
                        extra={"packing": packing,
                               "train_step_ms": train_row["step_ms"]})
 
@@ -2593,6 +2672,11 @@ def kernel_table(rows):
             row["gqa_ms"] = rows["k2"][0]["kernel_ms"][entry]
             row["gqa_launches"] = rows.get("train_gqa", {}).get(
                 "kernels", {}).get(name)
+        if entry != "fwd":
+            # F.sdpa computes no entry of the backward alone: its whole
+            # backward beside the kernels' (delta, dK/dV, dQ)
+            row["bwd_ms"] = main_row["kernel_ms"]["bwd"]
+            row["library_bwd_ms"] = main_row["library_ms"]["bwd"]
         if entry != "fwd" and "train_cp" in rows:
             # the ring's backward runs these entries once per visit
             row["ring_launches"] = rows["train_cp"]["kernels"][name]
@@ -2628,6 +2712,9 @@ def kernel_table(rows):
                "varlen_ms": timed[("varlen", HQ)]["kernel_ms"][entry]}
         if entry == "fwd":
             row["k1_causal_fwd_ms"] = main_row["k1_causal_ms"]["fwd"]
+        else:
+            row["bwd_ms"] = main_row["kernel_ms"]["bwd"]
+            row["library_bwd_ms"] = main_row["library_ms"]["bwd"]
         table.append(row)
     if "k6" in rows:
         # MHA 32/32, B 1, S 4 x 2048, causal, bf16: the whole sep-4 ring

@@ -28,7 +28,7 @@
 // batch), walked by a persistent grid of one block of three warpgroups per
 // SM (161 KB of shared memory at D 128). Query head h reads kv head
 // h / group, which is all GQA needs: no expanded K/V.
-// - Warpgroup 2 produces: after setmaxnreg lowers it to 24 registers, one
+// - Warpgroup 2 produces: after setmaxnreg lowers it to 40 registers, one
 //   thread loads each work tile's Q and then its K/V tiles of 128 keys into
 //   a ring of two stages with TMA (tensor maps over the paddle layout,
 //   dims (D, H, S, B), boxes of 64 elements x 128 rows, 128-byte swizzle;
@@ -49,11 +49,11 @@
 //   the warpgroups synchronise only through the barriers, so one's softmax
 //   overlaps the other's products. A warpgroup runs its own tile's S,
 //   softmax and P.V in turn: issuing a tile's S beside the previous tile's
-//   P.V needs S, O and that P live at once (160 registers a thread), and
-//   ptxas allocated this kernel's consumers within the launch's 168
-//   registers a thread whatever setmaxnreg raised them to at run time
-//   (measured: 128-224 bytes of spills and twice the time), so that
-//   pipelining is later work.
+//   P.V needs S, O and that P live at once (160 registers a thread) beside
+//   the loop's state; a trial of it spilled 128-224 bytes and took twice
+//   the time, so that pipelining is later work. (ptxas does compile the
+//   consumers to setmaxnreg's budget: the backward's dK/dV kernel spills
+//   at 232 registers and not at 240.)
 // - Order: work tiles are numbered batch, head, query tile, so the tiles
 //   in flight share a few heads' K/V in L2. Block i walks tiles i, i +
 //   grid, i + 2 grid, ..., so blocks and launches share no state; under
@@ -67,7 +67,8 @@
 //   stage by TMA beside K, and visits only the key tiles its query tile's
 //   segments can see (the 64-unit range table of the backward kernels,
 //   converted per block: the union of its two 64-row entries, lo / 2 and
-//   ceil(hi / 2)).
+//   ceil(hi / 2)); a warpgroup whose own 64 rows see none of a visited
+//   key tile (its own 64-row entry) skips that tile's products.
 // - The epilogue is a policy: K1/K2/K3 write O (bf16) and lse from the
 //   registers; K6 merges into the ring's running state (below).
 //
@@ -311,12 +312,15 @@ struct Smem {
   static constexpr int kK = kTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kIds = kV + kStages * kTile;
-  static constexpr int kIdsStage = SEG ? 2 * kKeys * 4 : 0;  // seg_k, pos_k
+  // K3's seg_k, pos_k: boxes of kKeys + kRowSlack values (tma_load_row)
+  static constexpr int kIdBox = (kKeys + kRowSlack) * 4;
+  static constexpr int kIdArr = (kIdBox + 127) / 128 * 128;
+  static constexpr int kIdsStage = SEG ? 2 * kIdArr : 0;
   static constexpr int kBars = kIds + kStages * kIdsStage;
   // q_full, q_empty, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kNumBars = 2 + 3 * kStages;
   // 161 KB at D 128. At least 116 KB, so that no two blocks share an SM:
-  // the consumers' 240 registers take the whole register file.
+  // the consumers' 232 registers take the whole register file.
   static constexpr size_t kBytes =
       1024 + kBars + 8 * kNumBars > 116 * 1024 ? 1024 + kBars + 8 * kNumBars
                                                 : 116 * 1024;
@@ -330,67 +334,6 @@ struct Args {
   Segments segs;
   Ring ring;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// K3: the key tiles [lo, hi) of 128 keys that query tile `qt` (128 rows)
-// visits, from the 64-unit table the backward kernels also read: the union
-// of its two 64-row tiles' non-empty ranges, then lo / 2 and ceil(hi / 2)
-// (ops/flash_attention.py::_fwd_key_ranges is the same arithmetic).
-__device__ __forceinline__ int2 seg_key_tiles(const int* __restrict__ ranges,
-                                              int b, int qt, int sq, int sk) {
-  const int n_qt64 = (sq + 63) / 64;
-  const int n_kt64 = (sk + 63) / 64;
-  int lo = INT_MAX;
-  int hi = 0;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = 2 * qt + half;
-    if (t < n_qt64) {
-      const int* rg = ranges + ((size_t)b * n_qt64 + t) * 2;
-      const int l = max(rg[0], 0);
-      const int h = min(rg[1], n_kt64);
-      if (l < h) {
-        lo = min(lo, l);
-        hi = max(hi, h);
-      }
-    }
-  }
-  return lo < hi ? make_int2(lo / 2, (hi + 1) / 2) : make_int2(0, 0);
-}
-
-// A work tile is one (128-row query tile, query head, batch). Tiles are
-// numbered batch-major, then head, then query tile, so the tiles in flight
-// at once share a few heads' K/V in L2. Under K1/K2's causal mask a head's
-// query tiles run heavy half first, heaviest first, then the light half,
-// lightest first: positions t and t + n_qt / 2 hold the t-th heaviest and
-// the t-th lightest tile, about n_qt + 1 key tiles together. A block's
-// fixed stride (132 SMs: 4 modulo a power-of-two n_qt of 8 or more) meets
-// both tiles of its pairs, so the causal work per block evens out. K3's
-// work follows its segments, and its causal tiles run last first.
-struct Work {
-  int b, h, qt;
-};
-
-template <bool SEG>
-__device__ __forceinline__ Work work_tile(int w, int n_qt, int hq,
-                                          int causal) {
-  const int t = w % n_qt;
-  const int heavy = (n_qt + 1) / 2;
-  int qt = t;
-  if (causal)
-    qt = SEG || t < heavy ? n_qt - 1 - t : t - heavy;
-  return Work{w / (n_qt * hq), (w / n_qt) % hq, qt};
-}
 
 // The key tiles [lo, hi) a work tile visits: K1/K2 up to the causal limit
 // of its last row (tiles wholly past the diagonal are never loaded), K3
@@ -411,8 +354,9 @@ __device__ __forceinline__ int2 key_tiles(const Args& a, const Work& w) {
 // gridDim.x, ... Warpgroups 0 and 1 consume (64 query rows each),
 // warpgroup 2 produces (one thread issues the TMA loads, one work tile's Q
 // at a time beside the K/V ring). K3 also takes the key ids and positions
-// ([B, Sk] int32, flattened) as 1-D tensor maps with boxes of 128; other
-// kernels ignore those two maps.
+// ([B, Sk] int32, flattened) as 1-D tensor maps with boxes of 128 +
+// kRowSlack (tma_load_row, hopper.cuh); other kernels ignore those two
+// maps.
 template <int D, bool SEG, bool RING>
 __global__ void __launch_bounds__(kThreadsH, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap q_map,
@@ -421,9 +365,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
                      const __grid_constant__ CUtensorMap seg_k_map,
                      const __grid_constant__ CUtensorMap pos_k_map, Args a) {
   using L = Smem<D, SEG>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* base = aligned_smem();
   unsigned char* Qs = base;
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBars);
   uint64_t* q_full = bars;
@@ -451,7 +393,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
 
   if (threadIdx.x >= kConsumers) {
     // -- producer: TMA loads of each work tile's Q and of the K/V ring -----
-    reg_dealloc<24>();
+    reg_dealloc<40>();
     if (threadIdx.x == kConsumers) {
       int it = 0;  // K/V tiles loaded so far, over all work tiles
       for (int w = blockIdx.x, wi = 0; w < n_work; w += gridDim.x, ++wi) {
@@ -473,16 +415,17 @@ __global__ void __launch_bounds__(kThreadsH, 1)
           unsigned char* Vt = base + L::kV + st * L::kTile;
           // K3: the tile's key ids and positions ride on K's barrier (keys
           // past Sk read the next row's ids or zeros: the mask drops them)
-          mbar_arrive_expect_tx(&k_full[st], L::kTile + L::kIdsStage);
+          mbar_arrive_expect_tx(&k_full[st],
+                                L::kTile + (SEG ? 2 * L::kIdBox : 0));
 #pragma unroll
           for (int c = 0; c < D / 64; ++c)
             tma_load_4d(Kt + c * kBlockBytes, &k_map, &k_full[st], 64 * c,
                         hk, j0, t.b);
           if constexpr (SEG) {
             unsigned char* ids = base + L::kIds + st * L::kIdsStage;
-            tma_load_1d(ids, &seg_k_map, &k_full[st], t.b * sk + j0);
-            tma_load_1d(ids + kKeys * 4, &pos_k_map, &k_full[st],
-                        t.b * sk + j0);
+            tma_load_row(ids, &seg_k_map, &k_full[st], t.b * sk + j0);
+            tma_load_row(ids + L::kIdArr, &pos_k_map, &k_full[st],
+                         t.b * sk + j0);
           }
           mbar_arrive_expect_tx(&v_full[st], L::kTile);
 #pragma unroll
@@ -494,7 +437,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
     }
   } else {
     // -- consumers: S = Q K^T, softmax and O += P V in registers ------------
-    reg_alloc<240>();
+    reg_alloc<232>();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x & 127) >> 5;
     const int lane = threadIdx.x & 31;
@@ -528,6 +471,20 @@ __global__ void __launch_bounds__(kThreadsH, 1)
       float o[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      // K3: the 64-key tiles [own_lo, own_hi) this warpgroup's own 64 rows
+      // can see (its 64-row tile's key_ranges entry): a key tile outside
+      // them skips its products
+      int own_lo = 0;
+      int own_hi = INT_MAX;
+      if constexpr (SEG) {
+        const int u = 2 * t.qt + wg;
+        const int n_own = (sq + 63) / 64;
+        const int2 rg = u < n_own ? tile_range(a.segs.ranges, b, n_own, u,
+                                               (sk + 63) / 64)
+                                  : make_int2(0, 0);
+        own_lo = rg.x;
+        own_hi = rg.y;
+      }
       float m[2] = {-INFINITY, -INFINITY};  // row max of scores x scale_log2
       float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
@@ -538,6 +495,11 @@ __global__ void __launch_bounds__(kThreadsH, 1)
         const unsigned char* Kt = base + L::kK + st * L::kTile;
         const unsigned char* Vt = base + L::kV + st * L::kTile;
         mbar_wait(&k_full[st], ph);
+        if (SEG && (2 * jt + 2 <= own_lo || 2 * jt >= own_hi)) {
+          mbar_wait(&v_full[st], ph);
+          mbar_arrive(&empty[st]);
+          continue;
+        }
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
@@ -558,8 +520,12 @@ __global__ void __launch_bounds__(kThreadsH, 1)
           masked = j0 + kKeys > sk ||
                    (a.causal && j0 + kKeys - 1 > wg_row + off);
         if (masked) {
-          const int* ids = reinterpret_cast<const int*>(base + L::kIds +
-                                                        st * L::kIdsStage);
+          // K3's key ids from their box's unaligned start (tma_load_row)
+          const int* seg_s =
+              reinterpret_cast<const int*>(base + L::kIds +
+                                           st * L::kIdsStage) +
+              ((t.b * sk + j0) & 3);
+          const int* pos_s = seg_s + L::kIdArr / 4;
           const bool causal = a.causal;
 #pragma unroll
           for (int jj = 0; jj < kKeys / 8; ++jj) {
@@ -570,8 +536,8 @@ __global__ void __launch_bounds__(kThreadsH, 1)
               int key_seg = 0;
               int key_pos = 0;
               if constexpr (SEG) {
-                key_seg = ids[c];
-                key_pos = ids[kKeys + c];
+                key_seg = seg_s[c];
+                key_pos = pos_s[c];
               }
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
@@ -736,9 +702,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err == cudaSuccess)
     err = paddle_layout_map(&v_map, v, batch, sk, hkv, D, kKeys);
   if (SEG && err == cudaSuccess)
-    err = int32_map(&seg_k_map, segs.seg_k, (size_t)batch * sk, kKeys);
+    err = int32_map(&seg_k_map, segs.seg_k, (size_t)batch * sk,
+                    kKeys + kRowSlack);
   if (SEG && err == cudaSuccess)
-    err = int32_map(&pos_k_map, segs.pos_k, (size_t)batch * sk, kKeys);
+    err = int32_map(&pos_k_map, segs.pos_k, (size_t)batch * sk,
+                    kKeys + kRowSlack);
   if (err != cudaSuccess) return err;
   if (!SEG) seg_k_map = pos_k_map = k_map;  // unread
   const size_t smem = Smem<D, SEG>::kBytes;

@@ -1,22 +1,17 @@
-// Tiles, products and masks shared by the flash-attention forward (K1/K2)
-// and backward kernels.
+// Tiles, masks and work-tile walks shared by the flash-attention forward
+// (K1/K2/K3/K6) and backward kernels.
 //
-// Every kernel works on 64-row tiles of one (batch, head) slice of the
-// paddle layout [B, S, H, D], staged in shared memory with rows padded by 8
-// elements (so the tensor-core fragment loads of neighbouring rows fall on
-// other banks). A product C[M x N] (+)= A[M x K] * B[K x N] reads A and B
-// from shared memory, row- or column-major, and keeps C in an accumulator:
-// - bf16: tensor cores through nvcuda::wmma 16x16x16 fragments with f32
-//   accumulation; each of the 8 warps owns a row strip of 16x16 tiles of C;
-// - f32: CUDA cores; each thread owns a fixed set of elements of C.
-// Both accumulators expose the same zero / mma / store / scale / scale_rows
-// calls, so the kernels are written once for both types.
+// The f32 kernels (the correctness witness of the f32 phases) work on 64-row
+// tiles of one (batch, head) slice of the paddle layout [B, S, H, D], staged
+// in shared memory with rows padded by 8 elements, and compute C[M x N] (+)=
+// A[M x K] * B[K x N] on CUDA cores (Acc<float>): each thread owns a fixed
+// set of elements of C. The bf16 kernels are Hopper kernels (TMA, wgmma,
+// warp specialisation; hopper.cuh) that share the K3 range tables and the
+// persistent grid's work-tile walk below.
 #pragma once
 
+#include <climits>
 #include <math.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -195,6 +190,64 @@ __device__ __forceinline__ int2 tile_range(const int* __restrict__ ranges,
   return make_int2(max(rg[0], 0), min(rg[1], n_tiles));
 }
 
+// K3: the union of the non-empty ranges of the 64-unit tiles 2t and 2t + 1
+// of a range table [B, n_own, 2] (one 128-unit tile of the table's own
+// side), clamped to [0, n_other); (0, 0) when both are empty.
+__device__ __forceinline__ int2 tile_pair_range(const int* __restrict__ ranges,
+                                                int b, int n_own, int t,
+                                                int n_other) {
+  int lo = INT_MAX;
+  int hi = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int u = 2 * t + half;
+    if (u < n_own) {
+      const int2 rg = tile_range(ranges, b, n_own, u, n_other);
+      if (rg.x < rg.y) {
+        lo = min(lo, rg.x);
+        hi = max(hi, rg.y);
+      }
+    }
+  }
+  return lo < hi ? make_int2(lo, hi) : make_int2(0, 0);
+}
+
+// K3: the key tiles [lo, hi) of 128 keys that query tile `qt` (128 rows)
+// visits, from the 64-unit key_ranges table: the union of its two 64-row
+// tiles' ranges, then lo / 2 and ceil(hi / 2)
+// (ops/flash_attention.py::_fwd_key_ranges is the same arithmetic).
+__device__ __forceinline__ int2 seg_key_tiles(const int* __restrict__ ranges,
+                                              int b, int qt, int sq, int sk) {
+  const int2 r = tile_pair_range(ranges, b, (sq + 63) / 64, qt, (sk + 63) / 64);
+  return make_int2(r.x / 2, (r.y + 1) / 2);
+}
+
+// The Hopper kernels' persistent grid: one block per SM walks the work
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... A work tile of the forward
+// and of dQ is one (128-row query tile, query head, batch). Tiles are
+// numbered batch-major, then head, then query tile, so the tiles in flight
+// at once share a few heads' K/V in L2. Under K1/K2's causal mask a head's
+// query tiles run heavy half first, heaviest first, then the light half,
+// lightest first: positions t and t + n_qt / 2 hold the t-th heaviest and
+// the t-th lightest tile, about n_qt + 1 key tiles together. A block's
+// fixed stride (132 SMs: 4 modulo a power-of-two n_qt of 8 or more) meets
+// both tiles of its pairs, so the causal work per block evens out. K3's
+// work follows its segments, and its causal tiles run last first.
+struct Work {
+  int b, h, qt;
+};
+
+template <bool SEG>
+__device__ __forceinline__ Work work_tile(int w, int n_qt, int hq,
+                                          int causal) {
+  const int t = w % n_qt;
+  const int heavy = (n_qt + 1) / 2;
+  int qt = t;
+  if (causal)
+    qt = SEG || t < heavy ? n_qt - 1 - t : t - heavy;
+  return Work{w / (n_qt * hq), (w / n_qt) % hq, qt};
+}
+
 template <typename T, int M, int N>
 struct Acc;
 
@@ -249,88 +302,6 @@ struct Acc<float, M, N> {
 #pragma unroll
     for (int e = 0; e < kE; ++e)
       x[e] *= bcast[(e * kThreads + threadIdx.x) / N * kBcastLd];
-  }
-};
-
-// bf16: tensor cores. Each warp owns one row strip of C: kNT adjacent
-// 16x16 tiles in one 16-row block, so one A fragment per k-step serves all
-// of the warp's tiles.
-template <int M, int N>
-struct Acc<__nv_bfloat16, M, N> {
-  static constexpr int kTN = N / 16;
-  static constexpr int kNT = (M / 16) * kTN / kWarps;
-  static constexpr int kWarpsPerRow = kTN / kNT;
-  static_assert((M / 16) * kTN % kWarps == 0, "tiles must split over warps");
-  static_assert(kTN % kNT == 0, "a warp's tiles must lie in one row block");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      f[kNT];
-
-  __device__ __forceinline__ static int row_block() {
-    return (threadIdx.x >> 5) / kWarpsPerRow;
-  }
-  __device__ __forceinline__ static int col_block(int i) {
-    return ((threadIdx.x >> 5) % kWarpsPerRow) * kNT + i;
-  }
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kNT; ++i) nvcuda::wmma::fill_fragment(f[i], 0.f);
-  }
-
-  template <bool A_COL, bool B_COL, int K>
-  __device__ __forceinline__ void mma(const __nv_bfloat16* __restrict__ A,
-                                      int lda,
-                                      const __nv_bfloat16* __restrict__ B,
-                                      int ldb) {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<A_COL, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_COL, wmma::col_major,
-                                              wmma::row_major>::type;
-    const int tm = row_block();
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a;
-      wmma::load_matrix_sync(
-          a, A_COL ? A + k0 * lda + tm * 16 : A + tm * 16 * lda + k0, lda);
-#pragma unroll
-      for (int i = 0; i < kNT; ++i) {
-        const int tn = col_block(i);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b;
-        wmma::load_matrix_sync(
-            b, B_COL ? B + tn * 16 * ldb + k0 : B + k0 * ldb + tn * 16, ldb);
-        wmma::mma_sync(f[i], a, b, f[i]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* __restrict__ C, int ldc) const {
-#pragma unroll
-    for (int i = 0; i < kNT; ++i)
-      nvcuda::wmma::store_matrix_sync(
-          C + row_block() * 16 * ldc + col_block(i) * 16, f[i], ldc,
-          nvcuda::wmma::mem_row_major);
-  }
-
-  __device__ __forceinline__ void scale(float s) {
-#pragma unroll
-    for (int i = 0; i < kNT; ++i)
-#pragma unroll
-      for (int e = 0; e < f[i].num_elements; ++e) f[i].x[e] *= s;
-  }
-
-  // Multiply row r of C by bcast[r * kBcastLd] (every one of the kBcastLd
-  // columns of a row of bcast holds the row's factor). The factors come in
-  // through an accumulator fragment loaded from bcast, which has the same
-  // element layout as the warp's own fragments, so no layout is assumed.
-  __device__ __forceinline__ void scale_rows(const float* __restrict__ bcast) {
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> r;
-    nvcuda::wmma::load_matrix_sync(r, bcast + row_block() * 16 * kBcastLd,
-                                   kBcastLd, nvcuda::wmma::mem_row_major);
-#pragma unroll
-    for (int i = 0; i < kNT; ++i)
-#pragma unroll
-      for (int e = 0; e < r.num_elements; ++e) f[i].x[e] *= r.x[e];
   }
 };
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels,
 // as inline PTX: shared-memory mbarriers, TMA tile loads described by a
-// host-built tensor map, warpgroup register reallocation (setmaxnreg), and
-// warpgroup matrix products (wgmma) with their shared-memory descriptors.
+// host-built tensor map, warpgroup register reallocation (setmaxnreg),
+// warpgroup matrix products (wgmma) with their shared-memory descriptors, and
+// the base-2 exponential and bf16 packing of the flash kernels' softmax.
 //
 // Layout convention: a bf16 tile of R rows by 64 elements (128 bytes a
 // row) is stored as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B: rows
@@ -25,6 +26,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +35,13 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory from its first 1024-byte aligned byte, where
+// the 128-byte swizzle needs a tile to start.
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ unsigned char smem_raw[];
+  return smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
 }
 
 // -- mbarriers ---------------------------------------------------------------
@@ -55,22 +64,28 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Arrive and expect `bytes` more of TMA transactions in this phase.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+// Arrive and expect `bytes` more of TMA transactions in this phase. Here
+// and below, a barrier or shared-memory destination may also be given as
+// its 32-bit shared address (smem_addr), which spares a producer thread
+// registers.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                                                       uint32_t bytes) {
   asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
       "r"(bytes)
       : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  mbar_arrive_expect_tx(smem_addr(bar), bytes);
 }
 
 // Wait until the phase of parity `parity` has completed. A phase that
 // never completes is a fault of the kernel: after some 2^34 clock cycles
 // (seconds; a healthy wait lasts microseconds) the wait traps, and the
 // launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   const long long t0 = clock64();
   uint32_t done;
   do {
@@ -85,30 +100,66 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_addr(bar), parity);
+}
+
 // -- TMA ---------------------------------------------------------------------
 
 // Copy the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map into
 // shared memory at `dst`; completion is counted in bytes on `bar`.
 // Elements past the tensor's extent arrive as zeros.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  tma_load_4d(smem_addr(dst), map, smem_addr(bar), c0, c1, c2, c3);
+}
+
 // The same for a 1-D tensor map: `box` elements from coordinate c0.
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0) {
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
   asm volatile(
       "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  tma_load_1d(smem_addr(dst), map, smem_addr(bar), c0);
+}
+
+// A 1-D box must start 16-byte aligned in global memory, so a row of 4-byte
+// values from an arbitrary element c0 (a head's lse from row i0, a batch
+// row's ids from key j0) loads as the box from c0 rounded down to 4
+// elements, through a map whose box holds kRowSlack values more than the
+// row: c0's value lands at dst[c0 & 3], the offset returned.
+constexpr int kRowSlack = 4;
+
+__device__ __forceinline__ int tma_load_row(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  tma_load_1d(dst, map, bar, c0 & ~3);
+  return c0 & 3;
+}
+
+__device__ __forceinline__ int tma_load_row(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  return tma_load_row(smem_addr(dst), map, smem_addr(bar), c0);
 }
 
 // -- warpgroup registers -----------------------------------------------------
@@ -126,13 +177,35 @@ __device__ __forceinline__ void reg_alloc() {
 // -- wgmma -------------------------------------------------------------------
 
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1); the
-// tile must lie on a 1024-byte boundary, `p` may step inside it.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+// tile must lie on a 1024-byte boundary, `addr` (a 32-bit shared address)
+// or `p` may step inside it. The start address is the low 14 bits (addr /
+// 16), so a descriptor plus a byte offset / 16 describes the offset start.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
          (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return sw128_desc(smem_addr(p), lbo, sbo);
+}
+
+
+// A 4-byte load from a 32-bit shared address; volatile, so it stays after
+// the barrier wait that guards the value.
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ int lds_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -185,6 +258,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory
+// (128-byte swizzle); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -246,6 +341,23 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// -- softmax arithmetic ------------------------------------------------------
+
+// 2^x (approximate, flushing denormals; 2^-inf = 0): the flash kernels run
+// their exponentials in base 2, the scale's log2(e) folded into one FMA.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 values rounded to a bf16 pair: one 32-bit register of a wgmma A
+// fragment (lo the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // -- tensor maps (host) ------------------------------------------------------
 
 // cuTensorMapEncodeTiled is a driver-API entry; it is taken through the
@@ -299,10 +411,10 @@ inline cudaError_t paddle_layout_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// `n` int32 values (16-byte aligned) as a 1-D tensor map with a box of
-// `box` elements; elements past `n` read as zeros.
-inline cudaError_t int32_map(CUtensorMap* map, const void* base, size_t n,
-                             int box) {
+// `n` 4-byte values of `type` (int32 or f32; 16-byte aligned) as a 1-D
+// tensor map with a box of `box` elements; elements past `n` read as zeros.
+inline cudaError_t flat_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, size_t n, int box) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[1] = {(cuuint64_t)n};
@@ -310,11 +422,20 @@ inline cudaError_t int32_map(CUtensorMap* map, const void* base, size_t n,
   const cuuint32_t boxes[1] = {(cuuint32_t)box};
   const cuuint32_t unit[1] = {1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(base), dims,
-      strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 1, const_cast<void*>(base), dims, strides, boxes, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t int32_map(CUtensorMap* map, const void* base, size_t n,
+                             int box) {
+  return flat_map(map, CU_TENSOR_MAP_DATA_TYPE_INT32, base, n, box);
+}
+
+inline cudaError_t float32_map(CUtensorMap* map, const void* base, size_t n,
+                               int box) {
+  return flat_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, n, box);
 }
 
 }  // namespace hopper

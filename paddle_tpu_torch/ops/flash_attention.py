@@ -24,7 +24,10 @@ through autograd; a CUDA tensor goes through ``FlashAttention`` (or
 for bf16 a persistent Hopper kernel of TMA loads and wgmma products, for
 f32 a CUDA-core tile loop) and
 whose backward launches the three backward kernels
-(``csrc/flash_attention_bwd.cu``). GQA needs no second kernel: query head h
+(``csrc/flash_attention_bwd.cu``: delta, then for bf16 persistent Hopper
+kernels for dK/dV and dQ, for f32 CUDA-core tile loops; the bf16 ones can
+add into f32 sums instead of writing, for K6's ring). GQA needs no second
+kernel: query head h
 reads kv head h // group inside the kernels. K3's kernels are K1's with the
 segment mask and a tile-range table (``_tile_ranges``) that lets each block
 visit only the tiles its segments can see. There is no fallback between
@@ -127,9 +130,11 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
 _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 _DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p])
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p])
 
 
 def _check_paddle_layout(name, q, k, v, causal, extra=()):
@@ -215,17 +220,30 @@ def _delta(out, dout, name):
     return delta
 
 
-def _launch_grad(name, fn, q, k, v, dout, lse, delta, causal, scale, outs):
+def _launch_grad(name, fn, q, k, v, dout, lse, delta, causal, scale, outs,
+                 accumulate=False):
     """Validate the operands of a gradient kernel and launch it, writing
-    ``outs`` (the gradient tensors, allocated by the caller)."""
+    ``outs`` (the gradient tensors, allocated by the caller) or, with
+    ``accumulate``, adding into them (f32 sums of the gradients' shapes; the
+    bf16 kernels only)."""
     B, sq, sk, hq, hkv, D = _check_paddle_layout(
-        name, q, k, v, causal, extra=(dout, lse, delta))
+        name, q, k, v, causal, extra=(dout, lse, delta, *outs))
     _check_grad_inputs(name, q, dout, lse, delta)
+    if accumulate:
+        for t, like in zip(outs, (k, v) if len(outs) == 2 else (q,)):
+            _build.check(t.dtype == torch.float32 and t.shape == like.shape,
+                         name, "the sums must be f32 of the gradients' shapes")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             B, sq, sk, hq, hkv, D, int(causal), float(scale),
-            _build.DTYPE_CODES[str(q.dtype)], _stream(q))
+            _build.DTYPE_CODES[str(q.dtype)], int(accumulate), _stream(q))
     _build.check_status(rc, name)
+
+
+def _into(acc, grads):
+    """Add the gradients of an f32 launch into the caller's sums."""
+    for a, g in zip(acc, grads):
+        a += g
 
 
 def _check_grad_inputs(name, q, dout, lse, delta):
@@ -238,28 +256,40 @@ def _check_grad_inputs(name, q, dout, lse, delta):
                      name, "lse and delta must be f32 [B, Hq, Sq]")
 
 
-def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal, scale):
+def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal, scale, acc=None):
     """Launch the dK/dV kernel: returns (dk, dv) shaped and typed as k.
-    Counted in ``flash_bwd_dkdv.launches``."""
+    ``acc``: f32 sums (dk, dv) of k's shape that the gradients are added to
+    and that are returned instead (K6's ring visits): bf16 adds them in the
+    kernel's epilogue, so they never exist in bf16; f32 launches into a
+    fresh pair and adds it. Counted in ``flash_bwd_dkdv.launches``."""
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkdv_launch",
                       _DKDV_ARGTYPES)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    in_kernel = acc is not None and q.dtype == torch.bfloat16
+    outs = acc if in_kernel else (torch.empty_like(k), torch.empty_like(v))
     _launch_grad("flash_attention_bwd_dkdv", fn, q, k, v, dout, lse, delta,
-                 causal, scale, (dk, dv))
+                 causal, scale, tuple(outs), accumulate=in_kernel)
     flash_bwd_dkdv.launches += 1
-    return dk, dv
+    if acc is None or in_kernel:
+        return tuple(outs)
+    _into(acc, outs)
+    return tuple(acc)
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale):
-    """Launch the dQ kernel: returns dq shaped and typed as q. Counted in
-    ``flash_bwd_dq.launches``."""
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, acc=None):
+    """Launch the dQ kernel: returns dq shaped and typed as q. ``acc``: an
+    f32 sum of q's shape that dq is added to and that is returned instead,
+    as ``flash_bwd_dkdv``'s. Counted in ``flash_bwd_dq.launches``."""
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq_launch",
                       _DQ_ARGTYPES)
-    dq = torch.empty_like(q)
+    in_kernel = acc is not None and q.dtype == torch.bfloat16
+    dq = acc if in_kernel else torch.empty_like(q)
     _launch_grad("flash_attention_bwd_dq", fn, q, k, v, dout, lse, delta,
-                 causal, scale, (dq,))
+                 causal, scale, (dq,), accumulate=in_kernel)
     flash_bwd_dq.launches += 1
-    return dq
+    if acc is None or in_kernel:
+        return dq
+    _into((acc,), (dq,))
+    return acc
 
 
 KERNELS = (flash_fwd, flash_bwd_delta, flash_bwd_dkdv, flash_bwd_dq)
@@ -549,26 +579,46 @@ def _tile_ranges(segs, causal, tile=64):
             torch.where(ascending, query_ranges, every_q))
 
 
-def _fwd_key_ranges(key_ranges):
-    """The key-tile table the bf16 forward kernel walks, from K3's 64-unit
-    ``key_ranges`` [B, ceil(Sq / 64), 2]: per 128-row query tile, the
-    union of its two 64-row tiles' non-empty ranges, in 128-key tiles
-    (``lo // 2``, ``ceil(hi / 2)``); (0, 0) where neither sees a key.
-    [B, ceil(Sq / 128), 2] int32. The kernel does this arithmetic itself
-    (``seg_key_tiles`` in csrc/flash_attention_fwd.cu), so the backward
-    kernels and it share one table; this is its statement for the tests
-    and ``chip_smoke.py``."""
-    B, n, _ = key_ranges.shape
-    r = key_ranges.long()
+def _pair_union(ranges):
+    """Per pair of 64-unit tiles (2t, 2t + 1) of a K3 range table [B, n, 2],
+    the union of their non-empty ranges: (lo, hi, seen) [B, ceil(n / 2)]
+    int64, seen False where neither tile sees anything."""
+    B, n, _ = ranges.shape
+    r = ranges.long()
     if n % 2:
         r = torch.cat([r, r.new_zeros(B, 1, 2)], 1)
     lo, hi = r[..., 0].view(B, -1, 2), r[..., 1].view(B, -1, 2)
     some = lo < hi
     lo = lo.masked_fill(~some, torch.iinfo(torch.int64).max).amin(-1)
     hi = hi.masked_fill(~some, 0).amax(-1)
-    seen = lo < hi
+    return lo, hi, lo < hi
+
+
+def _fwd_key_ranges(key_ranges):
+    """The key-tile table the bf16 forward and dQ kernels walk, from K3's
+    64-unit ``key_ranges`` [B, ceil(Sq / 64), 2]: per 128-row query tile,
+    the union of its two 64-row tiles' non-empty ranges, in 128-key tiles
+    (``lo // 2``, ``ceil(hi / 2)``); (0, 0) where neither sees a key.
+    [B, ceil(Sq / 128), 2] int32. The kernels do this arithmetic themselves
+    (``seg_key_tiles`` in csrc/flash_common.cuh), so the backward kernels
+    and they share one table; this is its statement for the tests and
+    ``chip_smoke.py``."""
+    lo, hi, seen = _pair_union(key_ranges)
     return torch.stack([torch.where(seen, lo // 2, 0),
                         torch.where(seen, (hi + 1) // 2, 0)],
+                       -1).to(torch.int32)
+
+
+def _dkdv_query_ranges(query_ranges):
+    """The query-tile table the bf16 dK/dV kernel walks, from K3's 64-unit
+    ``query_ranges`` [B, ceil(Sk / 64), 2]: per 128-key tile, the union of
+    its two 64-key tiles' non-empty ranges, still in 64-row query tiles (its
+    stages are 64 rows); (0, 0) where no query sees either. [B, ceil(Sk /
+    128), 2] int32. The kernel does this itself (``tile_pair_range`` in
+    csrc/flash_common.cuh); this is its statement for the tests and
+    ``chip_smoke.py``."""
+    lo, hi, seen = _pair_union(query_ranges)
+    return torch.stack([torch.where(seen, lo, 0), torch.where(seen, hi, 0)],
                        -1).to(torch.int32)
 
 

@@ -23,8 +23,9 @@ Two tiers, as in the reference:
   query shard over the visiting KV shard, merged into the rank's running
   (o, lse) state in the kernel's epilogue). The backward runs K1's
   hand-written backward entries per visit, given the merged output's delta
-  and the merged lse, with dQ summed in f32 on the resident rank and dK/dV
-  in f32 beside their shard, travelling the ring with it back to its owner.
+  and the merged lse, which add their gradients in their epilogue into f32
+  sums: dQ on the resident rank, dK/dV beside their shard, travelling the
+  ring with it back to its owner.
   Layout [n, B, S_local, H, D], the kernels' own. On a CPU tensor every
   kernel entry runs its plain version, so the tier's control flow runs
   there too.
@@ -209,13 +210,17 @@ def _visit_bwd_math(q, k, v, dout, lse, delta, causal, scale):
     return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
 
 
-def _visit_bwd(q, k, v, dout, lse, delta, causal, scale):
-    """One visit's (dq, dk, dv): K1's dK/dV and dQ kernels on a CUDA tensor
-    (in the input dtype), their plain version on a CPU tensor (f32)."""
+def _visit_bwd(q, k, v, dout, lse, delta, causal, scale, dq, dk, dv):
+    """Add one visit's gradients into the ring's f32 sums ``dq``, ``dk``,
+    ``dv``: K1's dK/dV and dQ kernels on a CUDA tensor (the bf16 kernels add
+    in their epilogue), their plain version on a CPU tensor."""
     if q.device.type == "cpu":
-        return _visit_bwd_math(q, k, v, dout, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkdv(q, k, v, dout, lse, delta, causal, scale)
-    return flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale), dk, dv
+        for acc, g in zip((dq, dk, dv), _visit_bwd_math(
+                q, k, v, dout, lse, delta, causal, scale)):
+            acc += g
+        return
+    flash_bwd_dkdv(q, k, v, dout, lse, delta, causal, scale, acc=(dk, dv))
+    flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, acc=dq)
 
 
 def _delta(out, dout):
@@ -229,9 +234,9 @@ def _delta(out, dout):
 def _ring_kernel_bwd_impl(q, k, v, out, lse, dout, causal, scale):
     """The kernel tier's backward: per rank, delta from the merged output;
     per kept visit, the visit's gradients from the merged lse (the global
-    softmax), dQ summed on the resident rank and dK/dV beside the visiting
-    shard, which carries them round the ring back to its owner. Sums in
-    f32, cast once at the end."""
+    softmax), added into f32 sums by the kernels themselves: dQ on the
+    resident rank, dK/dV beside the visiting shard, which carries them round
+    the ring back to its owner. Cast once at the end."""
     n = q.shape[0]
     delta = [_delta(out[my], dout[my]) for my in range(n)]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -241,11 +246,8 @@ def _ring_kernel_bwd_impl(q, k, v, out, lse, dout, causal, scale):
     for step in _visits(n, causal):
         for my, _, diag in step:
             k_cur, v_cur, dk_cur, dv_cur = kv[my]
-            g_q, g_k, g_v = _visit_bwd(q[my], k_cur, v_cur, dout[my], lse[my],
-                                       delta[my], diag, scale)
-            dq[my] += g_q
-            dk_cur += g_k
-            dv_cur += g_v
+            _visit_bwd(q[my], k_cur, v_cur, dout[my], lse[my], delta[my],
+                       diag, scale, dq[my], dk_cur, dv_cur)
         kv = _ring_shift(kv)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

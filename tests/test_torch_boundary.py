@@ -297,7 +297,8 @@ RING_CALLS = {
     "ring_flash_fwd": lambda s: tfa.ring_flash_fwd(s, s, s, s, s, True, 1.0),
     "ring_flash_fwd_last": lambda s: tfa.ring_flash_fwd(
         s, s, s, None, s, False, 1.0, first=True, out=s),
-    "ring_visit_bwd": lambda s: tra._visit_bwd(s, s, s, s, s, s, True, 1.0),
+    "ring_visit_bwd": lambda s: tra._visit_bwd(s, s, s, s, s, s, True, 1.0,
+                                               s, s, s),
     "ring_delta": lambda s: tra._delta(s, s),
 }
 

@@ -267,14 +267,16 @@ def test_default_scale_is_inverse_sqrt_head_dim():
 
 # -- K3's tile-range tables --------------------------------------------------
 
-def _tile_pairs(segs, causal, tile=64):
+def _tile_pairs(segs, causal, tile=64, key_tile=None):
     """Per batch row, the set of (query tile, key tile) holding a visible
-    pair, by brute force."""
+    pair, by brute force (key tiles of ``key_tile`` tokens, default
+    ``tile``)."""
     m = segs.mask(causal)
-    nq, nk = -(-m.shape[1] // tile), -(-m.shape[2] // tile)
+    kt = key_tile or tile
+    nq, nk = -(-m.shape[1] // tile), -(-m.shape[2] // kt)
     return [{(i, j) for i in range(nq) for j in range(nk)
              if bool(m[b, i * tile:(i + 1) * tile,
-                       j * tile:(j + 1) * tile].any())}
+                       j * kt:(j + 1) * kt].any())}
             for b in range(m.shape[0])]
 
 
@@ -335,6 +337,45 @@ def test_forward_key_ranges_cover_every_visible_pair(layout, causal):
     assert torch.equal(fwd, direct)
     for b, visited in enumerate(_visited(fwd)):
         assert _tile_pairs(segs, causal, tile=128)[b] <= visited
+
+
+def _random_packing(seed, S=700):
+    """Rows of a seeded packing: segment lengths from 1 to 200 (one-token
+    segments among them), the tail a segment of its own."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for _ in range(2):
+        lens = []
+        while sum(lens) < S:
+            n = 1 if rng.rand() < 0.3 else int(rng.randint(2, 201))
+            lens.append(min(n, S - sum(lens)))
+        rows.append(_seg_ids(lens))
+    return tfa._packed_segments(torch.from_numpy(np.stack(rows)))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_range_conversions_equal_brute_force(seed, causal):
+    """On random packings, the two tables the bf16 kernels convert from
+    the 64-unit ones equal a brute-force table from the mask: the forward's
+    and dQ's (128-row query tiles over 128-key tiles) and dK/dV's (128-key
+    tiles over 64-row query tiles); each row's [lo, hi) is the first and
+    last tile holding a visible pair."""
+    segs = _random_packing(100 + seed)
+    key_ranges, query_ranges = tfa._tile_ranges(segs, causal)
+    for got, pairs in ((tfa._fwd_key_ranges(key_ranges),
+                        _tile_pairs(segs, causal, tile=128)),
+                       (tfa._dkdv_query_ranges(query_ranges),
+                        [{(j, i) for i, j in p} for p in _tile_pairs(
+                            segs, causal, tile=64, key_tile=128)])):
+        assert got.dtype == torch.int32
+        for b, need in enumerate(pairs):
+            want = np.zeros(tuple(got.shape[1:]), np.int64)
+            for own in range(got.shape[1]):
+                other = [o for t, o in need if t == own]
+                if other:
+                    want[own] = (min(other), max(other) + 1)
+            np.testing.assert_array_equal(got[b].numpy(), want)
 
 
 # -- the model ---------------------------------------------------------------

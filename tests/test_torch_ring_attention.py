@@ -98,11 +98,13 @@ def test_ring_attention_gqa_matches_reference(causal, impl):
 
 
 @pytest.mark.parametrize("case", ["block-causal", "kernel-causal",
-                                  "kernel-full", "kernel-gqa-causal"])
+                                  "kernel-full", "kernel-gqa-causal",
+                                  "kernel-gqa-full"])
 def test_ring_attention_gradients_match_jax_vjp(case):
     """The kernel tier's backward (K1's backward entries per visit, given
-    the merged lse and delta; their plain versions here) and autograd of
-    the math tier, against ``jax.vjp`` of the reference's ring."""
+    the merged lse and delta, adding into the ring's f32 sums; their plain
+    versions here) and autograd of the math tier, against ``jax.vjp`` of
+    the reference's ring."""
     impl, *rest = case.split("-")
     causal = rest[-1] == "causal"
     q, k, v = _inputs(1, hkv=2 if "gqa" in rest else 4)
@@ -161,6 +163,28 @@ def test_ring_merge_matches_reference_online_merge():
                                     torch.ones(1, 2, 1, 4),
                                     torch.full((1, 1, 2), float("-inf")))
     assert not o0.any() and bool((lse0 == float("-inf")).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_visit_backward_adds_into_the_ring_sums(causal):
+    """One visit's backward adds its gradients into the ring's f32 sums (on
+    the card in the kernels' epilogue; here through the plain version):
+    sums already holding another visit's gradients come out holding both,
+    the inputs unchanged, and no launch is counted."""
+    rng = np.random.RandomState(8)
+    q, do, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   for shape in [(2, 8, 6, 8)] * 2 + [(2, 8, 2, 8)] * 2)
+    lse = torch.from_numpy(rng.randn(2, 6, 8).astype(np.float32)) + 3
+    delta = torch.from_numpy(rng.randn(2, 6, 8).astype(np.float32))
+    before = [torch.from_numpy(rng.randn(*t.shape).astype(np.float32))
+              for t in (q, k, v)]
+    sums = [t.clone() for t in before]
+    counts = [f.launches for f in tfa.KERNELS]
+    tra._visit_bwd(q, k, v, do, lse, delta, causal, 0.3, *sums)
+    grads = tra._visit_bwd_math(q, k, v, do, lse, delta, causal, 0.3)
+    for got, b, g in zip(sums, before, grads):
+        torch.testing.assert_close(got, b + g, rtol=0, atol=0)
+    assert [f.launches for f in tfa.KERNELS] == counts
 
 
 def test_ring_flash_fwd_plain_version_merges_in_place():
