@@ -51,8 +51,19 @@ Phases, one JSON line each (any failed phase exits non-zero):
 8. k4, k5 — ragged paged attention (K4) and paged decode attention (K5)
             against their plain versions at LLaMA-2-7B attention shapes
             (MHA, then GQA), with CUDA-event timings;
-9. k4_int8, k5_int8 — their int8-pool variants likewise, q in bf16 and
-            f32;
+9. k4_int8, k5_int8 — their int8-pool kernels likewise, q in bf16 and
+            f32, each launched twice for the same bits; then their edges
+            in both q types (``k4_int8_edges``, ``k5_int8_edges``): groups
+            1, 2, 4 and 8 and head dim 64; for K5 lengths 1, bs, bs + 1,
+            a split's span and one past it, the full 2048, and B 1; for K4
+            an empty row, pad tokens (zeros), a fresh prefill, a chunk no
+            multiple of the 64-pair tile, a chunk starting mid-page, a
+            2-token prefill and a decode row at 2048. Each of k4, k5,
+            k4_int8 and k5_int8 reports ``device_ms`` beside the
+            single-call ``kernel_ms``: the summed device time of every
+            kernel one call launches (split and merge), from
+            torch.profiler's kernel events over 20 calls with the L2
+            flushed before each;
 10. serve_equal — LLaMA-2-7B widths, 2 layers, f32: tokens served on the
             card (kernels) equal those served on the CPU (plain versions),
             in four runs: float pools greedy, int8 pools greedy, float
@@ -171,6 +182,44 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+L2_FLUSH_BYTES = 64 << 20          # > the H100's 50 MB L2
+
+
+def device_ms(fn, calls=20, warmup=2):
+    """Device milliseconds of one ``fn()``: the summed durations of every
+    kernel it launches once (a split pass and its merge alike), each the
+    mean of torch.profiler's CUDA kernel events over ``calls`` calls, with
+    the L2 flushed before each by a 64 MB write (a decode step finds a
+    layer's pages cold). Returns (ms, {kernel name: ms per call})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            flush.fill_(float(i))
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or "FillFunctor" in ev.name):
+            continue
+        t = ev.time_range
+        us, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (us + (t.end - t.start), n + 1)
+    if not by_name:
+        raise AssertionError("device_ms: the profiler saw no kernel")
+    # each kernel of these calls launches once a call: its mean over the
+    # events the profiler kept (it can drop some under load)
+    per_call = {name[:120]: us / n / 1e3 for name, (us, n) in by_name.items()}
+    return sum(per_call.values()), per_call
+
+
 def compare(name, got, want, valid_rows):
     """Max |got - want| over the valid rows; raises past the tolerance or
     on a non-finite output anywhere."""
@@ -189,10 +238,10 @@ def compare(name, got, want, valid_rows):
     return float(err.max())
 
 
-def pools(gen, hkv, dtype):
+def pools(gen, hkv, dtype, d=D):
     import torch
 
-    shape = (hkv, NUM_PAGES, BS, D)
+    shape = (hkv, NUM_PAGES, BS, d)
     return (torch.randn(shape, generator=gen, device="cuda").to(dtype),
             torch.randn(shape, generator=gen, device="cuda").to(dtype))
 
@@ -212,14 +261,128 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def int8_pools(gen, hkv):
+def int8_pools(gen, hkv, d=D):
     """An int8 K/V pool pair: seeded f32 rows quantized on the card."""
     import torch
 
     from paddle_tpu_torch.ops.quantization import quantize_pages
 
-    kf, vf = pools(gen, hkv, torch.float32)
+    kf, vf = pools(gen, hkv, torch.float32, d)
     return quantize_pages(kf), quantize_pages(vf)
+
+
+def same_bits(name, fn):
+    """Two launches of ``fn`` give the same bits (the int8 kernels' split
+    partials merge in a fixed order, with no atomics)."""
+    import torch
+
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a.view(torch.int16 if a.element_size() == 2
+                              else torch.int32),
+                       b.view(torch.int16 if b.element_size() == 2
+                              else torch.int32)):
+        raise AssertionError(f"{name}: two launches differ in "
+                             f"{int((a != b).sum())} elements")
+    return True
+
+
+INT8_EDGE_CONFIGS = (   # (hkv, hq, d): groups 1, 2, 4, 8 and head dim 64
+    (32, 32, 128), (16, 32, 128), (8, 32, 128), (4, 32, 128), (8, 32, 64))
+
+
+def k5_int8_edges(seed):
+    """K5-int8 at its edges, q bf16 and f32, against the plain version
+    within TOLERANCE, every output finite: per group and head dim, rows of
+    length 1 (frozen at page 0), bs, bs + 1, a split's span and one past
+    it, two spans and a few, the full MAX_LEN and one in between; then B
+    1. Returns one row per case."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    cases = [(c, False) for c in INT8_EDGE_CONFIGS] + [((32, 32, 128), True)]
+    for (hkv, hq, d), single in cases:
+        splits, per = pa.kv_split_plan(PAGES_PER_SEQ, hkv,
+                                       pa.num_sms(torch.device("cuda")))
+        span = per * BS
+        kp, vp = int8_pools(gen, hkv, d)
+        pt = page_table(rng)
+        if single:      # B 1
+            lengths = np.array([1337], np.int32)
+            pt = pt[:1].contiguous()
+        else:
+            lengths = np.array([1, BS, BS + 1, span, span + 1,
+                                min(2 * span + 5, MAX_LEN), MAX_LEN, 700],
+                               np.int32)
+            pt[0] = 0   # the frozen row reads the scratch page
+        q32 = torch.randn((len(lengths), hq, d), generator=gen,
+                          device="cuda")
+        lens = torch.from_numpy(lengths).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            q = q32.to(dtype)
+            scale = d ** -0.5
+            got = pa.paged_decode_attention(q, kp, vp, lens, pt)
+            torch.cuda.synchronize()
+            want = pa._paged_math(q, kp, vp, lens, pt, scale)
+            case = (f"k5_int8 edge hkv={hkv} hq={hq} d={d} B={len(lengths)}"
+                    f" {dtype}")
+            rows.append({"case": case, "lengths": lengths.tolist(),
+                         "splits": splits, "pages_per_split": per,
+                         "max_abs_err": compare(case, got, want,
+                                                len(lengths))})
+        del kp, vp
+    return rows
+
+
+def k4_int8_edges(seed):
+    """K4-int8 at its edges, q bf16 and f32, against the plain version
+    within TOLERANCE, every output finite and the pad tokens zero: per
+    group and head dim, one stream holding a decode row at MAX_LEN, an
+    empty row, a fresh prefill (kv_len = q_len = 100), a chunk of 77
+    tokens (no multiple of a tile), a 40-token chunk starting mid-page
+    (kv 1010), a short decode row, a 2-token prefill, and 3 pad tokens.
+    Returns one row per case."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q_lens = np.array([1, 0, 100, 77, 40, 1, 2, 0], np.int32)
+    kv_lens = np.array([MAX_LEN, 0, 100, 300, 1010, 17, 2, 0], np.int32)
+    cu = np.zeros(MAX_SEQS + 1, np.int32)
+    cu[1:] = np.cumsum(q_lens)
+    n_valid = int(cu[-1])
+    T = n_valid + 3
+    rows = []
+    for hkv, hq, d in INT8_EDGE_CONFIGS:
+        kp, vp = int8_pools(gen, hkv, d)
+        pt = page_table(rng)
+        q32 = torch.randn((T, hq, d), generator=gen, device="cuda")
+        args_i = (torch.from_numpy(kv_lens).cuda(), pt,
+                  torch.from_numpy(cu).cuda())
+        for dtype in (torch.bfloat16, torch.float32):
+            q = q32.to(dtype)
+            scale = d ** -0.5
+            got = rpa.ragged_paged_attention(q, kp, vp, *args_i)
+            torch.cuda.synchronize()
+            want = rpa._ragged_math(q, kp, vp, *args_i, scale)
+            case = f"k4_int8 edge hkv={hkv} hq={hq} d={d} {dtype}"
+            err = compare(case, got, want, n_valid)
+            if (got[n_valid:] != 0).any():
+                raise AssertionError(f"{case}: pad tokens not zero")
+            rows.append({"case": case, "q_lens": q_lens.tolist(),
+                         "kv_lens": kv_lens.tolist(), "T": T,
+                         "max_abs_err": err})
+        del kp, vp
+    return rows
 
 
 def pool_row_bytes(hkv, quant, elt):
@@ -267,6 +430,8 @@ def phase_k4(seed=1, quant=False):
                           f"{' int8 pool' if quant else ''}", got, want,
                           n_valid)
             ms = cuda_ms(lambda: rpa.ragged_paged_attention(*args))
+            dev_ms, dev_kernels = device_ms(
+                lambda: rpa.ragged_paged_attention(*args))
             plain_ms = cuda_ms(lambda: rpa._ragged_math(*args, scale),
                                reps=5, warmup=1)
             live = kv_lens[q_lens > 0].astype(np.int64)
@@ -284,12 +449,22 @@ def phase_k4(seed=1, quant=False):
                    "valid_tokens": n_valid, "q_lens": q_lens.tolist(),
                    "kv_lens": kv_lens.tolist(), "dtype": str(dtype),
                    "pool": "int8" if quant else str(dtype),
-                   "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, "kernel_ms": ms,
+                   "device_ms": dev_ms, "device_kernels": dev_kernels,
+                   "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                    "ops": ops}
+            if quant:
+                row["same_bits"] = same_bits(
+                    f"ragged_paged_attention Hkv={hkv} {dtype} int8 pool",
+                    lambda: rpa.ragged_paged_attention(*args))
             emit(row)
             rows.append(row)
         del kp, vp
+    if quant:
+        edges = k4_int8_edges(seed + 100)
+        emit({"phase": "k4_int8_edges", "cases": edges})
+        rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
     return rows
 
 
@@ -325,6 +500,8 @@ def phase_k5(seed=2, quant=False):
                           f"{' int8 pool' if quant else ''}", got, want,
                           MAX_SEQS)
             ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
+            dev_ms, dev_kernels = device_ms(
+                lambda: pa.paged_decode_attention(*args))
             plain_ms = cuda_ms(lambda: pa._paged_math(*args, scale), reps=5,
                                warmup=1)
             elt = q.element_size()
@@ -338,12 +515,22 @@ def phase_k5(seed=2, quant=False):
                    "hq": HQ, "d": D, "bs": BS, "B": MAX_SEQS,
                    "lengths": lengths.tolist(), "dtype": str(dtype),
                    "pool": "int8" if quant else str(dtype),
-                   "max_abs_err": err, "kernel_ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, "kernel_ms": ms,
+                   "device_ms": dev_ms, "device_kernels": dev_kernels,
+                   "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                    "ops": ops}
+            if quant:
+                row["same_bits"] = same_bits(
+                    f"paged_decode_attention Hkv={hkv} {dtype} int8 pool",
+                    lambda: pa.paged_decode_attention(*args))
             emit(row)
             rows.append(row)
         del kp, vp
+    if quant:
+        edges = k5_int8_edges(seed + 100)
+        emit({"phase": "k5_int8_edges", "cases": edges})
+        rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
     return rows
 
 
@@ -809,6 +996,14 @@ def _family(name):
         return "ragged_paged_attention"
     if "paged_decode_kernel" in name:
         return "paged_decode_attention"
+    # the int8 pools' kernels: K4-int8's tiles, the split-KV decode (K5-int8
+    # and K4-int8's decode rows) and the splits' merge
+    if "ragged_int8_tile_kernel" in name:
+        return "ragged_paged_attention_int8"
+    if "paged_int8_split_kernel" in name:
+        return "paged_decode_attention_int8"
+    if "int8_split_merge_kernel" in name:
+        return "int8_split_merge"
     # the forward's kernels (bf16 flash_fwd_hopper, f32 flash_fwd_f32) are
     # templated <D, SEG, RING>, the bf16 gradients' <D, SEG, ACC>, the f32
     # backward's <T, D, SEG>: SEG is K3's segment mask (its delta pass is
@@ -2625,11 +2820,11 @@ def kernel_table(rows):
             ("ragged_paged_attention_int8", "k4_int8",
              "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
              "paddle_tpu/ops/ragged_paged_attention.py:258 (int8 pool, "
-             "dequantized at :227-230)", "slice_int8"),
+             "dequantized at :228-230)", "slice_int8"),
             ("paged_decode_attention_int8", "k5_int8",
-             "paddle_tpu_torch/ops/csrc/paged_attention.cu",
-             "paddle_tpu/ops/paged_attention.py:155 (int8 pool)",
-             "slice_int8")):
+             "paddle_tpu_torch/ops/csrc/int8_paged.cuh",
+             "paddle_tpu/ops/paged_attention.py:155 (int8 pool, q bf16 at "
+             ":175)", "slice_int8")):
         if phase not in rows:
             continue
         # MHA with a bf16 q: the shapes LLaMA-2-7B gives it
@@ -2644,7 +2839,12 @@ def kernel_table(rows):
                       "plain_ms": main_row["plain_ms"],
                       "bound_ms": main_row["bound_ms"],
                       "bound_by": main_row["bound_by"],
-                      "library_ms": None})
+                      "library_ms": None,
+                      "device_ms": main_row["device_ms"],
+                      "gqa_device_ms": next(
+                          r["device_ms"] for r in rows[phase]
+                          if r["hkv"] != HQ and r["dtype"] == main_row[
+                              "dtype"])})
     errs = {"fwd": ("o",), "bwd_delta": ("delta",), "bwd_dkdv": ("dk", "dv"),
             "bwd_dq": ("dq",)}
     for entry, keys in errs.items():

@@ -1,19 +1,15 @@
 // Device helpers shared by the paged decode (K5) and ragged paged (K4)
 // attention kernels: float <-> storage-type conversion, vectorised row
-// loads into registers, the int8 pool's dequantization, and a warp-wide
-// sum.
+// loads into registers, and a warp-wide sum.
 //
 // Layout convention of both kernels: a "row" of D values is split over the
 // 32 lanes of a warp, lane l owning the contiguous elements
 // [l * D/32, (l+1) * D/32). Neighbouring lanes therefore read neighbouring
-// addresses, and a lane's slice is one 4-, 8- or 16-byte load for D = 128
-// (int8, bf16, f32).
+// addresses, and a lane's slice is one 8- or 16-byte load for D = 128
+// (bf16, f32).
 //
-// Pool types: a K/V pool holds rows in q's storage type T, or int8 codes
-// with one f32 scale per row (the reference's QuantizedTensor layout:
-// codes [Hkv, P, bs, D], scales [Hkv, P, bs, 1]); a code's value is
-// code * scale / 127.5 in f32, multiplied first, as the reference's
-// from_int8 computes it.
+// A float K/V pool holds rows in q's storage type T. The int8 pools'
+// kernels (codes and per-row scales) are in int8_paged.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,9 +25,6 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -90,29 +83,6 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p,
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = to_float(p[i]);
   }
-}
-
-// An int8 pool's codes, loaded as f32, to values in place:
-// code * scale / 127.5 in f32, multiplied first.
-template <int N>
-__device__ __forceinline__ void dequantize(float (&v)[N], float scale) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = v[i] * scale / 127.5f;
-}
-
-// 16 int8 codes (one 16-byte load) of a row with `scale`, dequantized into
-// 16 f32 values at dst (16-byte aligned).
-__device__ __forceinline__ void dequantize16(uint4 u, float scale,
-                                             float* __restrict__ dst) {
-  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
-  float v[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = static_cast<float>(c[i]);
-  dequantize<16>(v, scale);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    reinterpret_cast<float4*>(dst)[i] =
-        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
 }
 
 template <typename T, int N>

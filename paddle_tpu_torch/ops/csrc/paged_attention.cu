@@ -30,17 +30,35 @@
 // Rows frozen at the scratch page (engine caps 0) arrive with lengths = 1
 // and page-table row 0: they read page 0, offset 0, which is legal.
 //
-// The int8 variant (paged_decode_attention_int8_launch) reads an int8 pool:
-// codes [Hkv, P, bs, D] plus one f32 scale per row. A lane's D/32 codes are
-// one 4-byte load at D = 128, and a page's scales are one load per lane
-// (lane t holds row t's; page_size <= 32), passed to the warp by a shuffle
-// as each row is read. Each row costs D + 4 bytes instead of 2D in bf16:
-// the byte floor falls to (D + 4) / 2D = 0.52 of the bf16 kernel's. The
-// codes are dequantized in registers (code * scale / 127.5, in f32) and
-// everything after the load is the float kernel's arithmetic; q and the
-// output stay f32 or bf16.
+// The int8 variant (paged_decode_attention_int8_launch, K5-int8) is its own
+// design, int8p::paged_int8_split_kernel in int8_paged.cuh:
+// - bound: bytes; a row costs D + 4 bytes (codes and a scale), (D + 4) / 2D
+//   = 0.52 of the bf16 kernel's floor;
+// - split-KV: the wrapper sizes the splits from pages_per_seq and the SM
+//   count (kv_split_plan: the longest possible row over about two waves of
+//   the SMs, at least 16 pages a split); lengths stay on the device. The
+//   grid is (kv head, work item): each block finds its row and split among
+//   the rows' splits that hold pages, numbered compactly, so the SMs take
+//   them evenly and no block is launched for a split past its row's
+//   length (an empty row's one split writes an empty partial, m = -inf,
+//   l = 0). A second launch merges a row's live splits in a fixed order
+//   (no atomics: two calls give the same bits);
+// - a page ring: one producer thread keeps up to 8 pages per block in
+//   flight by 1-D bulk copies on mbarriers, four consumer warps take whole
+//   pages; the block's scale rows are read once, at the start;
+// - a page's 16-token block at a time: all its scores together, their
+//   partial sums added over the D / 16 lanes of a token once, one max and
+//   one correction per block and query head;
+// - hoisted scales (q . codes * k_scale / 127.5; the weight takes
+//   v_scale / 127.5 before the V sum) and codes converted by a byte
+//   permute and a subtract, not an I2F each;
+// - the products on CUDA cores as f32 FMAs: 2 G operations per code byte
+//   (G <= 8 query heads a kv head) is far below the ~295 per byte where
+//   tensor cores would matter. bf16 and f32 q share the kernel; q * scale
+//   is rounded to q's dtype first, as the plain version computes it.
 
 #include "attention_common.cuh"
+#include "int8_paged.cuh"
 
 namespace {
 
@@ -48,21 +66,16 @@ using namespace ptt;
 
 constexpr int kWarps = 8;
 
-// KT: the pool's element type, T (float pool) or int8_t (int8 pool, with
-// per-row scales k_scales / v_scales [Hkv, P, bs]; unread for a float pool)
-template <typename T, typename KT, int D, int G>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(const T* __restrict__ q,
-                        const KT* __restrict__ k_pages,
-                        const KT* __restrict__ v_pages,
-                        const float* __restrict__ k_scales,
-                        const float* __restrict__ v_scales,
+                        const T* __restrict__ k_pages,
+                        const T* __restrict__ v_pages,
                         const int* __restrict__ lengths,
                         const int* __restrict__ page_indices,
                         T* __restrict__ out, int num_pages, int page_size,
                         int pages_per_seq, float scale) {
   constexpr int EPL = D / 32;
-  constexpr bool kInt8 = std::is_same_v<KT, int8_t>;
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int num_kv_heads = gridDim.y;
@@ -90,32 +103,18 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   const size_t page_elems = (size_t)page_size * D;
-  const KT* kh = k_pages + (size_t)h * num_pages * page_elems + lane * EPL;
-  const KT* vh = v_pages + (size_t)h * num_pages * page_elems + lane * EPL;
-  const size_t head_rows = (size_t)h * num_pages * page_size;  // scale rows
+  const T* kh = k_pages + (size_t)h * num_pages * page_elems + lane * EPL;
+  const T* vh = v_pages + (size_t)h * num_pages * page_elems + lane * EPL;
   const int* pt = page_indices + (size_t)b * pages_per_seq;
   for (int j = warp; j < npages; j += kWarps) {
-    const size_t prow = (size_t)pt[j] * page_size;
-    const size_t base = prow * D;
+    const size_t base = (size_t)pt[j] * page_size * D;
     const int ntok = min(page_size, len - j * page_size);
-    float ksc = 0.f;  // int8 pool: lane t holds row t's scales
-    float vsc = 0.f;
-    if constexpr (kInt8) {
-      if (lane < ntok) {
-        ksc = k_scales[head_rows + prow + lane];
-        vsc = v_scales[head_rows + prow + lane];
-      }
-    }
 #pragma unroll 4
     for (int t = 0; t < ntok; ++t) {
       float kr[EPL];
       float vr[EPL];
-      load_row<KT, EPL>(kh + base + (size_t)t * D, kr);
-      load_row<KT, EPL>(vh + base + (size_t)t * D, vr);
-      if constexpr (kInt8) {  // ntok is uniform over the warp
-        dequantize<EPL>(kr, __shfl_sync(0xffffffffu, ksc, t));
-        dequantize<EPL>(vr, __shfl_sync(0xffffffffu, vsc, t));
-      }
+      load_row<T, EPL>(kh + base + (size_t)t * D, kr);
+      load_row<T, EPL>(vh + base + (size_t)t * D, vr);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
@@ -160,37 +159,33 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, typename KT, int D, int G>
+template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* k_scales, const void* v_scales,
                    const void* lengths, const void* page_indices, void* out,
                    int batch, int num_kv_heads, int num_pages, int page_size,
                    int pages_per_seq, float scale, cudaStream_t stream) {
   dim3 grid(batch, num_kv_heads);
-  paged_decode_kernel<T, KT, D, G><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KT*>(k_pages),
-      static_cast<const KT*>(v_pages), static_cast<const float*>(k_scales),
-      static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
+  paged_decode_kernel<T, D, G><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const int*>(lengths),
       static_cast<const int*>(page_indices), static_cast<T*>(out), num_pages,
       page_size, pages_per_seq, scale);
   return cudaGetLastError();
 }
 
-// One dispatch over head_dim and group for a (q type, pool type) pair.
-template <typename T, typename KT>
+// One dispatch over head_dim and group for a float q type.
+template <typename T>
 cudaError_t launch_any(int head_dim, int group, const void* q,
                        const void* k_pages, const void* v_pages,
-                       const void* k_scales, const void* v_scales,
                        const void* lengths, const void* page_indices,
                        void* out, int batch, int num_kv_heads, int num_pages,
                        int page_size, int pages_per_seq, float scale,
                        cudaStream_t stream) {
 #define PTT_CASE(D_, G_)                                                    \
   if (head_dim == D_ && group == G_)                                        \
-    return launch<T, KT, D_, G_>(q, k_pages, v_pages, k_scales, v_scales,   \
-                                 lengths, page_indices, out, batch,         \
-                                 num_kv_heads, num_pages, page_size,        \
-                                 pages_per_seq, scale, stream);
+    return launch<T, D_, G_>(q, k_pages, v_pages, lengths, page_indices,    \
+                             out, batch, num_kv_heads, num_pages, page_size, \
+                             pages_per_seq, scale, stream);
   PTT_CASE(64, 1)
   PTT_CASE(64, 2)
   PTT_CASE(64, 4)
@@ -217,39 +212,50 @@ extern "C" int paged_decode_attention_launch(
     int pages_per_seq, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return launch_any<float, float>(
-        head_dim, group, q, k_pages, v_pages, nullptr, nullptr, lengths,
-        page_indices, out, batch, num_kv_heads, num_pages, page_size,
-        pages_per_seq, scale, s);
+    return launch_any<float>(head_dim, group, q, k_pages, v_pages, lengths,
+                             page_indices, out, batch, num_kv_heads,
+                             num_pages, page_size, pages_per_seq, scale, s);
   if (dtype == ptt::kBFloat16)
-    return launch_any<__nv_bfloat16, __nv_bfloat16>(
-        head_dim, group, q, k_pages, v_pages, nullptr, nullptr, lengths,
-        page_indices, out, batch, num_kv_heads, num_pages, page_size,
-        pages_per_seq, scale, s);
+    return launch_any<__nv_bfloat16>(head_dim, group, q, k_pages, v_pages,
+                                     lengths, page_indices, out, batch,
+                                     num_kv_heads, num_pages, page_size,
+                                     pages_per_seq, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// The int8 variant: the same operands, each pool given as int8 codes
-// [num_kv_heads, num_pages, page_size, head_dim] and f32 scales
-// [num_kv_heads, num_pages, page_size, 1]; q/out f32 or bf16 (dtype);
-// page_size <= 32.
+// K5-int8: the same operands, each pool given as int8 codes [num_kv_heads,
+// num_pages, page_size, head_dim] and f32 scales [num_kv_heads, num_pages,
+// page_size, 1]; q/out f32 or bf16 (dtype); page_size a multiple of 16;
+// every pointer 16-byte aligned. The split kernel over num_splits splits of
+// pages_per_split pages and, with more than one split, their merge, both
+// on `stream`; o_part [batch, Hq, num_splits, head_dim] and ml_part
+// [batch, Hq, num_splits, 2] are f32 scratch. Allocates nothing.
 extern "C" int paged_decode_attention_int8_launch(
     const void* q, const void* k_codes, const void* k_scales,
     const void* v_codes, const void* v_scales, const void* lengths,
-    const void* page_indices, void* out, int batch, int num_kv_heads,
-    int group, int head_dim, int num_pages, int page_size, int pages_per_seq,
+    const void* page_indices, void* out, void* o_part, void* ml_part,
+    int batch, int num_kv_heads, int group, int head_dim, int num_pages,
+    int page_size, int pages_per_seq, int num_splits, int pages_per_split,
     float scale, int dtype, void* stream) {
-  if (page_size > 32) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kFloat32)
-    return launch_any<float, int8_t>(
-        head_dim, group, q, k_codes, v_codes, k_scales, v_scales, lengths,
-        page_indices, out, batch, num_kv_heads, num_pages, page_size,
-        pages_per_seq, scale, s);
-  if (dtype == ptt::kBFloat16)
-    return launch_any<__nv_bfloat16, int8_t>(
-        head_dim, group, q, k_codes, v_codes, k_scales, v_scales, lengths,
-        page_indices, out, batch, num_kv_heads, num_pages, page_size,
-        pages_per_seq, scale, s);
-  return cudaErrorInvalidValue;
+  if (page_size % 16 != 0 || (head_dim != 64 && head_dim != 128))
+    return cudaErrorInvalidValue;
+  const ptt::int8p::SplitArgs a{
+      {static_cast<const int8_t*>(k_codes), static_cast<const int8_t*>(v_codes),
+       static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
+       num_pages},
+      q,
+      static_cast<const int*>(lengths),
+      static_cast<const int*>(page_indices),
+      nullptr,
+      out,
+      static_cast<float*>(o_part),
+      static_cast<float*>(ml_part),
+      batch,
+      page_size,
+      pages_per_seq,
+      pages_per_split,
+      num_splits,
+      scale};
+  return ptt::int8p::decode_int8(a, num_kv_heads, group, head_dim, dtype,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -11,12 +11,13 @@ scales)`` pair of int8 codes and one f32 scale per row
 
 ``paged_decode_attention`` picks its tier from the tensor's device: a CUDA
 tensor launches the hand-written kernel K5 (``csrc/paged_attention.cu``;
-its int8 variant for an int8 pool), a CPU tensor runs the plain version
-``_paged_math``. There is no fallback between them: a kernel that cannot
-build or launch raises.
+for an int8 pool K5-int8, the split-KV kernel of ``csrc/int8_paged.cuh``
+and its merge), a CPU tensor runs the plain version ``_paged_math``. There
+is no fallback between them: a kernel that cannot build or launch raises.
 """
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -103,15 +104,46 @@ def _paged_math(q, k_pages, v_pages, lengths, page_indices, scale):
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# the int8 entry takes each pool as two pointers: codes and scales
-_ARGTYPES_INT8 = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+# the int8 entry takes each pool as two pointers (codes, scales) and the
+# split plan with its f32 scratch
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+INT8_PAGE_MULTIPLE = 16   # an int8 pool's page_size: a multiple of 16
+SPLIT_MIN_PAGES = 16      # four pages per consumer warp of a split block
+
+
+def kv_split_plan(pages_per_seq, num_kv_heads, num_sms):
+    """Split-KV plan of the int8 decode kernel: ``(num_splits,
+    pages_per_split)``. A row's pages [0, n) are cut into splits of
+    ``pages_per_split`` consecutive pages; the longest possible row
+    (``pages_per_seq`` pages) is spread over about two waves of
+    ``num_sms`` SMs across the kv heads, with at least SPLIT_MIN_PAGES
+    pages a split. Needs no row length, so no device sync."""
+    pages_per_seq = max(int(pages_per_seq), 1)
+    want = max(1, -(-2 * int(num_sms) // int(num_kv_heads)))
+    per = min(pages_per_seq, max(SPLIT_MIN_PAGES, -(-pages_per_seq // want)))
+    return -(-pages_per_seq // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device):
+    """Streaming multiprocessors of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_scratch(rows, num_q_heads, num_splits, head_dim, device):
+    """The split kernel's f32 scratch: unnormalised partial outputs
+    [rows, Hq, num_splits, D] and (max, sum) [rows, Hq, num_splits, 2]."""
+    return (torch.empty((rows, num_q_heads, num_splits, head_dim),
+                        dtype=torch.float32, device=device),
+            torch.empty((rows, num_q_heads, num_splits, 2),
+                        dtype=torch.float32, device=device))
 
 
 def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
-    """Launch K5 (its int8 variant for an int8 pool) on the current
+    """Launch K5 (K5-int8 and its merge for an int8 pool) on the current
     stream; validates every operand first."""
     name = "paged_decode_attention"
     quant = is_quantized(k_pages)
@@ -132,21 +164,30 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
     chk(D in HEAD_DIMS, name, f"head_dim {D} not in {HEAD_DIMS}")
     chk(Hq % Hkv == 0 and Hq // Hkv in GROUPS, name,
         f"Hq/Hkv = {Hq}/{Hkv} not a group in {GROUPS}")
-    chk(not quant or bs <= 32, name,
-        "an int8 pool's page_size must be <= 32 (a lane holds a row's "
-        "scale)")
+    chk(not quant or bs % INT8_PAGE_MULTIPLE == 0, name,
+        f"an int8 pool's page_size must be a multiple of "
+        f"{INT8_PAGE_MULTIPLE}")
     chk(lengths.dtype == torch.int32 and lengths.shape == (B,), name,
         "lengths must be int32 [B]")
     chk(page_indices.dtype == torch.int32 and page_indices.dim() == 2
         and page_indices.shape[0] == B, name,
         "page_indices must be int32 [B, pages_per_seq]")
     chk(B > 0, name, "empty batch")
+    pps = page_indices.shape[1]
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), *pool_ptrs, lengths.data_ptr(),
-            page_indices.data_ptr(), out.data_ptr(),
-            B, Hkv, Hq // Hkv, D, P, bs, page_indices.shape[1], float(scale),
-            _build.DTYPE_CODES[str(q.dtype)],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dtype = _build.DTYPE_CODES[str(q.dtype)]
+    if quant:
+        splits, per = kv_split_plan(pps, Hkv, num_sms(q.device))
+        o_part, ml_part = split_scratch(B, Hq, splits, D, q.device)
+        rc = fn(q.data_ptr(), *pool_ptrs, lengths.data_ptr(),
+                page_indices.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+                ml_part.data_ptr(), B, Hkv, Hq // Hkv, D, P, bs, pps, splits,
+                per, float(scale), dtype, stream)
+    else:
+        rc = fn(q.data_ptr(), *pool_ptrs, lengths.data_ptr(),
+                page_indices.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv,
+                D, P, bs, pps, float(scale), dtype, stream)
     _build.check_status(rc, name)
     if quant:
         paged_decode_attention.launches_int8 += 1
@@ -162,8 +203,9 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
     q: [B, Hq, D]; returns [B, Hq, D] in q's dtype. lengths must already
     INCLUDE the just-written token (the query attends to itself). The pools
     are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches K5
-    (counted in ``paged_decode_attention.launches``, the int8 variant in
-    ``.launches_int8``); a CPU q runs the plain version."""
+    (counted in ``paged_decode_attention.launches``; K5-int8, its split and
+    merge launches one call, in ``.launches_int8``); a CPU q runs the plain
+    version."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if q.device.type == "cpu":

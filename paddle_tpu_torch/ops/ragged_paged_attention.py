@@ -14,7 +14,8 @@ scales)`` pair of int8 codes and one f32 scale per row
 
 ``ragged_paged_attention`` picks its tier from the tensor's device: a CUDA
 tensor launches the hand-written kernel K4
-(``csrc/ragged_paged_attention.cu``; its int8 variant for an int8 pool), a
+(``csrc/ragged_paged_attention.cu``; for an int8 pool K4-int8: its tile
+kernel, with the decode rows taken by K5-int8's split kernel and merge), a
 CPU tensor runs the plain version ``_ragged_math``. There is no fallback
 between them.
 """
@@ -24,6 +25,13 @@ import dataclasses
 import torch
 
 from . import _build
+from .paged_attention import (
+    GROUPS,
+    INT8_PAGE_MULTIPLE,
+    kv_split_plan,
+    num_sms,
+    split_scratch,
+)
 from .quantization import from_int8, is_quantized, quantize_to_int8
 
 
@@ -150,18 +158,21 @@ def _ragged_math(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# the int8 entry takes each pool as two pointers: codes and scales
-_ARGTYPES_INT8 = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+# the int8 entry takes each pool as two pointers (codes, scales) and the
+# decode rows' split plan with its f32 scratch
+_ARGTYPES_INT8 = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
-TILE_PAIRS = 16   # (token, query head) pairs per block: group must divide it
+TILE_PAIRS = 16   # float pools: (token, query head) pairs per block
+INT8_PAGE_CODES = 2048   # int8 pools: page_size * head_dim at most
 SMEM_LIMIT = 48 * 1024
 
 
 def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
                  scale):
-    """Launch K4 (its int8 variant for an int8 pool) on the current
-    stream; validates every operand first."""
+    """Launch K4 (K4-int8 for an int8 pool: its tile kernel, the split
+    kernel over the decode rows and their merge) on the current stream;
+    validates every operand first."""
     name = "ragged_paged_attention"
     quant = is_quantized(k_pages)
     fn = _build.entry("ragged_paged_attention",
@@ -180,12 +191,21 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
     chk(Dk == D, name, "pools must be [Hkv, P, bs, D] with q's D")
     chk(D in HEAD_DIMS, name, f"head_dim {D} not in {HEAD_DIMS}")
-    chk(Hq % Hkv == 0 and TILE_PAIRS % (Hq // Hkv) == 0, name,
-        f"Hq/Hkv = {Hq}/{Hkv} must divide {TILE_PAIRS}")
-    # two staged pages; an int8 pool's are staged dequantized, in f32
-    staged = 2 * bs * D * (4 if quant else q.element_size())
-    chk(staged <= SMEM_LIMIT, name,
-        f"two pages of {bs}x{D} exceed {SMEM_LIMIT} bytes of shared memory")
+    if quant:
+        chk(Hq % Hkv == 0 and Hq // Hkv in GROUPS, name,
+            f"Hq/Hkv = {Hq}/{Hkv} not a group in {GROUPS}")
+        chk(bs % INT8_PAGE_MULTIPLE == 0, name,
+            f"an int8 pool's page_size must be a multiple of "
+            f"{INT8_PAGE_MULTIPLE}")
+        chk(bs * D <= INT8_PAGE_CODES, name,
+            f"an int8 page of {bs}x{D} codes exceeds {INT8_PAGE_CODES} (a "
+            "tile thread loads one 16-byte chunk of a page)")
+    else:
+        chk(Hq % Hkv == 0 and TILE_PAIRS % (Hq // Hkv) == 0, name,
+            f"Hq/Hkv = {Hq}/{Hkv} must divide {TILE_PAIRS}")
+        chk(2 * bs * D * q.element_size() <= SMEM_LIMIT, name,
+            f"two pages of {bs}x{D} exceed {SMEM_LIMIT} bytes of shared "
+            "memory")
     chk(kv_lens.dtype == torch.int32 and kv_lens.shape == (S,), name,
         "kv_lens must be int32 [S]")
     chk(page_indices.dtype == torch.int32 and page_indices.dim() == 2, name,
@@ -193,13 +213,23 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
     chk(cu_q_lens.dtype == torch.int32 and cu_q_lens.shape == (S + 1,), name,
         "cu_q_lens must be int32 [S+1]")
     chk(T > 0, name, "empty token stream")
+    pps = page_indices.shape[1]
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
-            page_indices.data_ptr(), cu_q_lens.data_ptr(),
-            out.data_ptr(), T, S, Hkv, Hq // Hkv, D, P, bs,
-            page_indices.shape[1], float(scale),
-            _build.DTYPE_CODES[str(q.dtype)],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dtype = _build.DTYPE_CODES[str(q.dtype)]
+    if quant:
+        splits, per = kv_split_plan(pps, Hkv, num_sms(q.device))
+        o_part, ml_part = split_scratch(S, Hq, splits, D, q.device)
+        rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
+                page_indices.data_ptr(), cu_q_lens.data_ptr(),
+                out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), T, S,
+                Hkv, Hq // Hkv, D, P, bs, pps, splits, per, float(scale),
+                dtype, stream)
+    else:
+        rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
+                page_indices.data_ptr(), cu_q_lens.data_ptr(),
+                out.data_ptr(), T, S, Hkv, Hq // Hkv, D, P, bs, pps,
+                float(scale), dtype, stream)
     _build.check_status(rc, name)
     if quant:
         ragged_paged_attention.launches_int8 += 1
@@ -217,8 +247,9 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
     cu_q_lens[-1]) return finite values that callers discard: zeros from
     the kernel, the reference's masked garbage from the plain version. The
     pools are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches
-    K4 (counted in ``ragged_paged_attention.launches``, the int8 variant in
-    ``.launches_int8``); a CPU q runs the plain version."""
+    K4 (counted in ``ragged_paged_attention.launches``; K4-int8, whose two
+    or three launches make one call, in ``.launches_int8``); a CPU q runs
+    the plain version."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if q.device.type == "cpu":
