@@ -50,18 +50,19 @@ Phases, one JSON line each (any failed phase exits non-zero):
             rows included);
 8. k4, k5 — ragged paged attention (K4) and paged decode attention (K5)
             against their plain versions at LLaMA-2-7B attention shapes
-            (MHA, then GQA), with CUDA-event timings;
-9. k4_int8, k5_int8 — their int8-pool kernels likewise, q in bf16 and
-            f32, each launched twice for the same bits; then their edges
-            in both q types (``k4_int8_edges``, ``k5_int8_edges``): groups
-            1, 2, 4 and 8 and head dim 64; for K5 lengths 1, bs, bs + 1,
-            a split's span and one past it, the full 2048, and B 1; for K4
+            (MHA, then GQA), over bf16 pools (bf16 q) and f32 pools (f32
+            q), each launched twice for the same bits; then their edges
+            for both pool types (``k4_edges``, ``k5_edges``): groups 1, 2,
+            4 and 8 and head dim 64; for K5 lengths 1, bs, bs + 1, a
+            split's span and one past it, the full 2048, and B 1; for K4
             an empty row, pad tokens (zeros), a fresh prefill, a chunk no
             multiple of the 64-pair tile, a chunk starting mid-page, a
-            2-token prefill and a decode row at 2048. Each of k4, k5,
-            k4_int8 and k5_int8 reports ``device_ms`` beside the
+            2-token prefill and a decode row at 2048;
+9. k4_int8, k5_int8 — the same over int8 pools, q in bf16 and f32, and
+            the same edges (``k4_int8_edges``, ``k5_int8_edges``). Each of
+            k4, k5, k4_int8 and k5_int8 reports ``device_ms`` beside the
             single-call ``kernel_ms``: the summed device time of every
-            kernel one call launches (split and merge), from
+            kernel one call launches (tiles, split and merge), from
             torch.profiler's kernel events over 20 calls with the L2
             flushed before each;
 10. serve_equal — LLaMA-2-7B widths, 2 layers, f32: tokens served on the
@@ -272,8 +273,8 @@ def int8_pools(gen, hkv, d=D):
 
 
 def same_bits(name, fn):
-    """Two launches of ``fn`` give the same bits (the int8 kernels' split
-    partials merge in a fixed order, with no atomics)."""
+    """Two launches of ``fn`` give the same bits (the paged kernels' split
+    partials and tile groups merge in a fixed order, with no atomics)."""
     import torch
 
     a = fn()
@@ -288,16 +289,40 @@ def same_bits(name, fn):
     return True
 
 
-INT8_EDGE_CONFIGS = (   # (hkv, hq, d): groups 1, 2, 4, 8 and head dim 64
+EDGE_CONFIGS = (   # (hkv, hq, d): groups 1, 2, 4, 8 and head dim 64
     (32, 32, 128), (16, 32, 128), (8, 32, 128), (4, 32, 128), (8, 32, 64))
 
 
-def k5_int8_edges(seed):
-    """K5-int8 at its edges, q bf16 and f32, against the plain version
-    within TOLERANCE, every output finite: per group and head dim, rows of
-    length 1 (frozen at page 0), bs, bs + 1, a split's span and one past
-    it, two spans and a few, the full MAX_LEN and one in between; then B
-    1. Returns one row per case."""
+def pool_runs(pool):
+    """(q dtype, ...) for a pool type: an int8 pool is read by a bf16 and
+    by an f32 q, a float pool by a q of its own dtype."""
+    import torch
+
+    if pool == "int8":
+        return (torch.bfloat16, torch.float32)
+    return (getattr(torch, pool),)
+
+
+def make_pools(gen, hkv, pool, d=D):
+    """A K/V pool pair of type ``pool`` (int8, bfloat16, float32)."""
+    import torch
+
+    if pool == "int8":
+        return int8_pools(gen, hkv, d)
+    return pools(gen, hkv, getattr(torch, pool), d)
+
+
+def pool_label(pool):
+    return " int8 pool" if pool == "int8" else f" {pool} pool"
+
+
+def k5_edges(seed, pool):
+    """K5 over pools of type ``pool`` at its edges (an int8 pool with q
+    bf16 and f32, a float pool with q of its dtype), against the plain
+    version within TOLERANCE, every output finite: per group and head dim,
+    rows of length 1 (frozen at page 0), bs, bs + 1, a split's span and one
+    past it, two spans and a few, the full MAX_LEN and one in between;
+    then B 1. Returns one row per case."""
     import numpy as np
     import torch
 
@@ -306,12 +331,12 @@ def k5_int8_edges(seed):
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    cases = [(c, False) for c in INT8_EDGE_CONFIGS] + [((32, 32, 128), True)]
+    cases = [(c, False) for c in EDGE_CONFIGS] + [((32, 32, 128), True)]
     for (hkv, hq, d), single in cases:
         splits, per = pa.kv_split_plan(PAGES_PER_SEQ, hkv,
                                        pa.num_sms(torch.device("cuda")))
         span = per * BS
-        kp, vp = int8_pools(gen, hkv, d)
+        kp, vp = make_pools(gen, hkv, pool, d)
         pt = page_table(rng)
         if single:      # B 1
             lengths = np.array([1337], np.int32)
@@ -324,14 +349,14 @@ def k5_int8_edges(seed):
         q32 = torch.randn((len(lengths), hq, d), generator=gen,
                           device="cuda")
         lens = torch.from_numpy(lengths).cuda()
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in pool_runs(pool):
             q = q32.to(dtype)
             scale = d ** -0.5
             got = pa.paged_decode_attention(q, kp, vp, lens, pt)
             torch.cuda.synchronize()
             want = pa._paged_math(q, kp, vp, lens, pt, scale)
-            case = (f"k5_int8 edge hkv={hkv} hq={hq} d={d} B={len(lengths)}"
-                    f" {dtype}")
+            case = (f"k5 edge hkv={hkv} hq={hq} d={d} B={len(lengths)}"
+                    f" {dtype}{pool_label(pool)}")
             rows.append({"case": case, "lengths": lengths.tolist(),
                          "splits": splits, "pages_per_split": per,
                          "max_abs_err": compare(case, got, want,
@@ -340,14 +365,14 @@ def k5_int8_edges(seed):
     return rows
 
 
-def k4_int8_edges(seed):
-    """K4-int8 at its edges, q bf16 and f32, against the plain version
-    within TOLERANCE, every output finite and the pad tokens zero: per
-    group and head dim, one stream holding a decode row at MAX_LEN, an
-    empty row, a fresh prefill (kv_len = q_len = 100), a chunk of 77
-    tokens (no multiple of a tile), a 40-token chunk starting mid-page
-    (kv 1010), a short decode row, a 2-token prefill, and 3 pad tokens.
-    Returns one row per case."""
+def k4_edges(seed, pool):
+    """K4 over pools of type ``pool`` at its edges (q types as
+    ``k5_edges``), against the plain version within TOLERANCE, every
+    output finite and the pad tokens zero: per group and head dim, one
+    stream holding a decode row at MAX_LEN, an empty row, a fresh prefill
+    (kv_len = q_len = 100), a chunk of 77 tokens (no multiple of a tile), a
+    40-token chunk starting mid-page (kv 1010), a short decode row, a
+    2-token prefill, and 3 pad tokens. Returns one row per case."""
     import numpy as np
     import torch
 
@@ -362,19 +387,19 @@ def k4_int8_edges(seed):
     n_valid = int(cu[-1])
     T = n_valid + 3
     rows = []
-    for hkv, hq, d in INT8_EDGE_CONFIGS:
-        kp, vp = int8_pools(gen, hkv, d)
+    for hkv, hq, d in EDGE_CONFIGS:
+        kp, vp = make_pools(gen, hkv, pool, d)
         pt = page_table(rng)
         q32 = torch.randn((T, hq, d), generator=gen, device="cuda")
         args_i = (torch.from_numpy(kv_lens).cuda(), pt,
                   torch.from_numpy(cu).cuda())
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in pool_runs(pool):
             q = q32.to(dtype)
             scale = d ** -0.5
             got = rpa.ragged_paged_attention(q, kp, vp, *args_i)
             torch.cuda.synchronize()
             want = rpa._ragged_math(q, kp, vp, *args_i, scale)
-            case = f"k4_int8 edge hkv={hkv} hq={hq} d={d} {dtype}"
+            case = f"k4 edge hkv={hkv} hq={hq} d={d} {dtype}{pool_label(pool)}"
             err = compare(case, got, want, n_valid)
             if (got[n_valid:] != 0).any():
                 raise AssertionError(f"{case}: pad tokens not zero")
@@ -394,16 +419,20 @@ def pool_row_bytes(hkv, quant, elt):
 def phase_k4(seed=1, quant=False):
     """6 decode rows, one 256-token prefill chunk and one empty row:
     S = 8 rows in a T = 264 stream (2 pad tokens), the mixed dispatch's
-    shapes; MHA then GQA (Hkv = 8). ``quant``: the int8 variant over an
-    int8 pool, with q in bf16 and in f32."""
+    shapes; MHA then GQA (Hkv = 8), each over bf16 pools (bf16 q) and f32
+    pools (f32 q). ``quant``: the int8 variant over an int8 pool, with q in
+    bf16 and in f32. Each run is held to the plain version, launched twice
+    for the same bits and timed; then the edges (``k4_edges``) for each
+    pool type."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
+    phase = "k4_int8" if quant else "k4"
+    kinds = ("int8",) if quant else ("bfloat16", "float32")
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    dtypes = (torch.bfloat16, torch.float32) if quant else (torch.bfloat16,)
     T = CHUNK + MAX_SEQS
     q_lens = np.array([1, 1, 1, CHUNK, 1, 0, 1, 1], np.int32)
     kv_lens = rng.randint(1, MAX_LEN + 1, MAX_SEQS).astype(np.int32)
@@ -414,123 +443,124 @@ def phase_k4(seed=1, quant=False):
     n_valid = int(cu[-1])
     rows = []
     for hkv in (HQ, 8):
-        kp, vp = (int8_pools(gen, hkv) if quant
-                  else pools(gen, hkv, torch.bfloat16))
         pt = page_table(rng)
         q32 = torch.randn((T, HQ, D), generator=gen, device="cuda")
-        for dtype in dtypes:
-            q = q32.to(dtype)
-            args = (q, kp, vp, torch.from_numpy(kv_lens).cuda(), pt,
-                    torch.from_numpy(cu).cuda())
-            scale = D ** -0.5
-            got = rpa.ragged_paged_attention(*args)
-            torch.cuda.synchronize()
-            want = rpa._ragged_math(*args, scale)
-            err = compare(f"ragged_paged_attention Hkv={hkv} {dtype}"
-                          f"{' int8 pool' if quant else ''}", got, want,
-                          n_valid)
-            ms = cuda_ms(lambda: rpa.ragged_paged_attention(*args))
-            dev_ms, dev_kernels = device_ms(
-                lambda: rpa.ragged_paged_attention(*args))
-            plain_ms = cuda_ms(lambda: rpa._ragged_math(*args, scale),
-                               reps=5, warmup=1)
-            live = kv_lens[q_lens > 0].astype(np.int64)
-            limits = np.concatenate([
-                kv_lens[b] - q_lens[b] + np.arange(q_lens[b]) + 1
-                for b in range(MAX_SEQS)]).astype(np.int64)
-            elt = q.element_size()
-            nbytes = (int(live.sum()) * pool_row_bytes(hkv, quant, elt)
-                      + 2 * T * HQ * D * elt
-                      + (kv_lens.nbytes + pt.numel() * 4 + cu.nbytes))
-            ops = int(limits.sum()) * HQ * D * 4
-            b_ms, b_by = bound(nbytes, ops, str(dtype))
-            row = {"phase": "k4_int8" if quant else "k4", "hkv": hkv,
-                   "hq": HQ, "d": D, "bs": BS, "T": T,
-                   "valid_tokens": n_valid, "q_lens": q_lens.tolist(),
-                   "kv_lens": kv_lens.tolist(), "dtype": str(dtype),
-                   "pool": "int8" if quant else str(dtype),
-                   "max_abs_err": err, "kernel_ms": ms,
-                   "device_ms": dev_ms, "device_kernels": dev_kernels,
-                   "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "ops": ops}
-            if quant:
-                row["same_bits"] = same_bits(
-                    f"ragged_paged_attention Hkv={hkv} {dtype} int8 pool",
+        for pool in kinds:
+            kp, vp = make_pools(gen, hkv, pool)
+            for dtype in pool_runs(pool):
+                q = q32.to(dtype)
+                args = (q, kp, vp, torch.from_numpy(kv_lens).cuda(), pt,
+                        torch.from_numpy(cu).cuda())
+                scale = D ** -0.5
+                name = f"ragged_paged_attention Hkv={hkv} {dtype}" + (
+                    pool_label(pool))
+                got = rpa.ragged_paged_attention(*args)
+                torch.cuda.synchronize()
+                want = rpa._ragged_math(*args, scale)
+                err = compare(name, got, want, n_valid)
+                ms = cuda_ms(lambda: rpa.ragged_paged_attention(*args))
+                dev_ms, dev_kernels = device_ms(
                     lambda: rpa.ragged_paged_attention(*args))
-            emit(row)
-            rows.append(row)
-        del kp, vp
-    if quant:
-        edges = k4_int8_edges(seed + 100)
-        emit({"phase": "k4_int8_edges", "cases": edges})
-        rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
+                plain_ms = cuda_ms(lambda: rpa._ragged_math(*args, scale),
+                                   reps=5, warmup=1)
+                live = kv_lens[q_lens > 0].astype(np.int64)
+                limits = np.concatenate([
+                    kv_lens[b] - q_lens[b] + np.arange(q_lens[b]) + 1
+                    for b in range(MAX_SEQS)]).astype(np.int64)
+                elt = q.element_size()
+                nbytes = (int(live.sum()) * pool_row_bytes(hkv, quant, elt)
+                          + 2 * T * HQ * D * elt
+                          + (kv_lens.nbytes + pt.numel() * 4 + cu.nbytes))
+                ops = int(limits.sum()) * HQ * D * 4
+                b_ms, b_by = bound(nbytes, ops, str(dtype))
+                row = {"phase": phase, "hkv": hkv,
+                       "hq": HQ, "d": D, "bs": BS, "T": T,
+                       "valid_tokens": n_valid, "q_lens": q_lens.tolist(),
+                       "kv_lens": kv_lens.tolist(), "dtype": str(dtype),
+                       "pool": pool, "max_abs_err": err, "kernel_ms": ms,
+                       "device_ms": dev_ms, "device_kernels": dev_kernels,
+                       "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                       "ops": ops,
+                       "same_bits": same_bits(
+                           name, lambda: rpa.ragged_paged_attention(*args))}
+                emit(row)
+                rows.append(row)
+            del kp, vp
+    edges = []
+    for pool in kinds:
+        cases = k4_edges(seed + 100, pool)
+        emit({"phase": phase + "_edges", "pool": pool, "cases": cases})
+        edges += cases
+    rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
     return rows
 
 
 def phase_k5(seed=2, quant=False):
-    """B = 8 decode rows, kv lengths up to 2048; MHA then GQA (Hkv = 8).
-    ``quant``: the int8 variant over an int8 pool, with q in bf16 and in
-    f32."""
+    """B = 8 decode rows, kv lengths up to 2048; MHA then GQA (Hkv = 8),
+    each over bf16 pools (bf16 q) and f32 pools (f32 q). ``quant``: the
+    int8 variant over an int8 pool, with q in bf16 and in f32. Each run is
+    held to the plain version, launched twice for the same bits and timed;
+    then the edges (``k5_edges``) for each pool type."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
+    phase = "k5_int8" if quant else "k5"
+    kinds = ("int8",) if quant else ("bfloat16", "float32")
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    dtypes = (torch.bfloat16, torch.float32) if quant else (torch.bfloat16,)
     lengths = rng.randint(1, MAX_LEN + 1, MAX_SEQS).astype(np.int32)
     lengths[0] = 1      # a row frozen at the scratch page reads page 0
     rows = []
     for hkv in (HQ, 8):
-        kp, vp = (int8_pools(gen, hkv) if quant
-                  else pools(gen, hkv, torch.bfloat16))
         pt = page_table(rng)
         pt[0] = 0
         q32 = torch.randn((MAX_SEQS, HQ, D), generator=gen, device="cuda")
-        for dtype in dtypes:
-            q = q32.to(dtype)
-            args = (q, kp, vp, torch.from_numpy(lengths).cuda(), pt)
-            scale = D ** -0.5
-            got = pa.paged_decode_attention(*args)
-            torch.cuda.synchronize()
-            want = pa._paged_math(*args, scale)
-            err = compare(f"paged_decode_attention Hkv={hkv} {dtype}"
-                          f"{' int8 pool' if quant else ''}", got, want,
-                          MAX_SEQS)
-            ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
-            dev_ms, dev_kernels = device_ms(
-                lambda: pa.paged_decode_attention(*args))
-            plain_ms = cuda_ms(lambda: pa._paged_math(*args, scale), reps=5,
-                               warmup=1)
-            elt = q.element_size()
-            tokens = int(lengths.astype(np.int64).sum())
-            nbytes = (tokens * pool_row_bytes(hkv, quant, elt)
-                      + 2 * MAX_SEQS * HQ * D * elt
-                      + lengths.nbytes + pt.numel() * 4)
-            ops = tokens * HQ * D * 4
-            b_ms, b_by = bound(nbytes, ops, str(dtype))
-            row = {"phase": "k5_int8" if quant else "k5", "hkv": hkv,
-                   "hq": HQ, "d": D, "bs": BS, "B": MAX_SEQS,
-                   "lengths": lengths.tolist(), "dtype": str(dtype),
-                   "pool": "int8" if quant else str(dtype),
-                   "max_abs_err": err, "kernel_ms": ms,
-                   "device_ms": dev_ms, "device_kernels": dev_kernels,
-                   "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "ops": ops}
-            if quant:
-                row["same_bits"] = same_bits(
-                    f"paged_decode_attention Hkv={hkv} {dtype} int8 pool",
+        for pool in kinds:
+            kp, vp = make_pools(gen, hkv, pool)
+            for dtype in pool_runs(pool):
+                q = q32.to(dtype)
+                args = (q, kp, vp, torch.from_numpy(lengths).cuda(), pt)
+                scale = D ** -0.5
+                name = f"paged_decode_attention Hkv={hkv} {dtype}" + (
+                    pool_label(pool))
+                got = pa.paged_decode_attention(*args)
+                torch.cuda.synchronize()
+                want = pa._paged_math(*args, scale)
+                err = compare(name, got, want, MAX_SEQS)
+                ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
+                dev_ms, dev_kernels = device_ms(
                     lambda: pa.paged_decode_attention(*args))
-            emit(row)
-            rows.append(row)
-        del kp, vp
-    if quant:
-        edges = k5_int8_edges(seed + 100)
-        emit({"phase": "k5_int8_edges", "cases": edges})
-        rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
+                plain_ms = cuda_ms(lambda: pa._paged_math(*args, scale),
+                                   reps=5, warmup=1)
+                elt = q.element_size()
+                tokens = int(lengths.astype(np.int64).sum())
+                nbytes = (tokens * pool_row_bytes(hkv, quant, elt)
+                          + 2 * MAX_SEQS * HQ * D * elt
+                          + lengths.nbytes + pt.numel() * 4)
+                ops = tokens * HQ * D * 4
+                b_ms, b_by = bound(nbytes, ops, str(dtype))
+                row = {"phase": phase, "hkv": hkv,
+                       "hq": HQ, "d": D, "bs": BS, "B": MAX_SEQS,
+                       "lengths": lengths.tolist(), "dtype": str(dtype),
+                       "pool": pool, "max_abs_err": err, "kernel_ms": ms,
+                       "device_ms": dev_ms, "device_kernels": dev_kernels,
+                       "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                       "ops": ops,
+                       "same_bits": same_bits(
+                           name, lambda: pa.paged_decode_attention(*args))}
+                emit(row)
+                rows.append(row)
+            del kp, vp
+    edges = []
+    for pool in kinds:
+        cases = k5_edges(seed + 100, pool)
+        emit({"phase": phase + "_edges", "pool": pool, "cases": cases})
+        edges += cases
+    rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
     return rows
 
 
@@ -990,20 +1020,24 @@ def phase_slice_sampled_prefix(model, seed=0, new_tokens=64):
     return row
 
 
+PAGED_KERNELS = (("ragged_tile_kernel<", "ragged_paged_attention"),
+                 ("paged_split_kernel<", "paged_decode_attention"),
+                 ("split_merge_kernel<", "paged_split_merge"))
+POOL_FAMILY = {"PoolInt8": "_int8", "PoolBf16": "", "PoolF32": ""}
+
+
 def _family(name):
     """Kernel family of a device event, by the kernel's name."""
-    if "ragged_paged_kernel" in name:
-        return "ragged_paged_attention"
-    if "paged_decode_kernel" in name:
-        return "paged_decode_attention"
-    # the int8 pools' kernels: K4-int8's tiles, the split-KV decode (K5-int8
-    # and K4-int8's decode rows) and the splits' merge
-    if "ragged_int8_tile_kernel" in name:
-        return "ragged_paged_attention_int8"
-    if "paged_int8_split_kernel" in name:
-        return "paged_decode_attention_int8"
-    if "int8_split_merge_kernel" in name:
-        return "int8_split_merge"
+    # the paged kernels, templated <Pool, T, D(, G)>: K4's tiles, the
+    # split-KV decode (K5 and K4's decode rows) and the splits' merge, each
+    # of the float pools' family or the int8 pool's by its pool type
+    for kernel, family in PAGED_KERNELS:
+        if kernel in name:
+            pool = name.partition(kernel)[2].partition(",")[0]
+            tag = pool.strip().rpartition("::")[2]
+            if tag not in POOL_FAMILY:
+                raise AssertionError(f"_family: no pool type in {name!r}")
+            return family + POOL_FAMILY[tag]
     # the forward's kernels (bf16 flash_fwd_hopper, f32 flash_fwd_f32) are
     # templated <D, SEG, RING>, the bf16 gradients' <D, SEG, ACC>, the f32
     # backward's <T, D, SEG>: SEG is K3's segment mask (its delta pass is
@@ -2815,14 +2849,14 @@ def kernel_table(rows):
              "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
              "paddle_tpu/ops/ragged_paged_attention.py:258", "slice"),
             ("paged_decode_attention", "k5",
-             "paddle_tpu_torch/ops/csrc/paged_attention.cu",
+             "paddle_tpu_torch/ops/csrc/paged_common.cuh",
              "paddle_tpu/ops/paged_attention.py:155", "slice"),
             ("ragged_paged_attention_int8", "k4_int8",
              "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
              "paddle_tpu/ops/ragged_paged_attention.py:258 (int8 pool, "
              "dequantized at :228-230)", "slice_int8"),
             ("paged_decode_attention_int8", "k5_int8",
-             "paddle_tpu_torch/ops/csrc/int8_paged.cuh",
+             "paddle_tpu_torch/ops/csrc/paged_common.cuh",
              "paddle_tpu/ops/paged_attention.py:155 (int8 pool, q bf16 at "
              ":175)", "slice_int8")):
         if phase not in rows:
@@ -2844,7 +2878,11 @@ def kernel_table(rows):
                       "gqa_device_ms": next(
                           r["device_ms"] for r in rows[phase]
                           if r["hkv"] != HQ and r["dtype"] == main_row[
-                              "dtype"])})
+                              "dtype"]),
+                      # f32 q (over f32 pools for K4 and K5)
+                      "f32_device_ms": [
+                          r["device_ms"] for r in rows[phase]
+                          if r["dtype"] == "torch.float32"]})
     errs = {"fwd": ("o",), "bwd_delta": ("delta",), "bwd_dkdv": ("dk", "dv"),
             "bwd_dq": ("dq",)}
     for entry, keys in errs.items():

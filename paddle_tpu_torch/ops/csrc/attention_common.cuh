@@ -1,15 +1,16 @@
-// Device helpers shared by the paged decode (K5) and ragged paged (K4)
-// attention kernels: float <-> storage-type conversion, vectorised row
-// loads into registers, and a warp-wide sum.
+// Device helpers shared by the port's attention kernels (the paged K4 and
+// K5, the flash kernels' f32 and delta passes): float <-> storage-type
+// conversion, vectorised row loads into registers and stores from them, and
+// a warp-wide sum.
 //
-// Layout convention of both kernels: a "row" of D values is split over the
-// 32 lanes of a warp, lane l owning the contiguous elements
+// Layout convention of the row helpers: a "row" of D values is split over
+// the 32 lanes of a warp, lane l owning the contiguous elements
 // [l * D/32, (l+1) * D/32). Neighbouring lanes therefore read neighbouring
 // addresses, and a lane's slice is one 8- or 16-byte load for D = 128
 // (bf16, f32).
 //
-// A float K/V pool holds rows in q's storage type T. The int8 pools'
-// kernels (codes and per-row scales) are in int8_paged.cuh.
+// The paged kernels' pool types and their conversions are in
+// paged_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,21 +97,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// One step of the f32 online softmax for a single score s against value
-// slice v: the running max m, sum l and accumulator acc absorb it.
-template <int N>
-__device__ __forceinline__ void online_update(float s, const float (&v)[N],
-                                              float& m, float& l,
-                                              float (&acc)[N]) {
-  const float m_new = fmaxf(m, s);
-  const float corr = expf(m - m_new);
-  const float p = expf(s - m_new);
-  l = l * corr + p;
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = acc[i] * corr + p * v[i];
-  m = m_new;
 }
 
 }  // namespace ptt

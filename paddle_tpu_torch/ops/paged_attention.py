@@ -10,10 +10,11 @@ scales)`` pair of int8 codes and one f32 scale per row
 (``ops/quantization.py``).
 
 ``paged_decode_attention`` picks its tier from the tensor's device: a CUDA
-tensor launches the hand-written kernel K5 (``csrc/paged_attention.cu``;
-for an int8 pool K5-int8, the split-KV kernel of ``csrc/int8_paged.cuh``
-and its merge), a CPU tensor runs the plain version ``_paged_math``. There
-is no fallback between them: a kernel that cannot build or launch raises.
+tensor launches the hand-written kernel K5 (``csrc/paged_attention.cu``:
+the split-KV kernel of ``csrc/paged_common.cuh`` and its merge, one
+instance per pool type), a CPU tensor runs the plain version
+``_paged_math``. There is no fallback between them: a kernel that cannot
+build or launch raises.
 """
 import ctypes
 import dataclasses
@@ -102,20 +103,35 @@ def _paged_math(q, k_pages, v_pages, lengths, page_indices, scale):
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+# each entry takes the split plan with its f32 scratch; the int8 entry
+# takes each pool as two pointers (codes, scales)
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# the int8 entry takes each pool as two pointers (codes, scales) and the
-# split plan with its f32 scratch
 _ARGTYPES_INT8 = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
-INT8_PAGE_MULTIPLE = 16   # an int8 pool's page_size: a multiple of 16
+PAGE_MULTIPLE = 16        # page_size: a multiple of 16 (a 16-token block)
 SPLIT_MIN_PAGES = 16      # four pages per consumer warp of a split block
 
 
+def check_geometry(kernel, num_q_heads, num_kv_heads, page_size, head_dim):
+    """Raise ValueError for a head layout or page size the paged kernels
+    (K4, K5, every pool type) do not take: head_dim in HEAD_DIMS, the GQA
+    group in GROUPS, page_size a multiple of PAGE_MULTIPLE."""
+    _build.check(head_dim in HEAD_DIMS, kernel,
+                 f"head_dim {head_dim} not in {HEAD_DIMS}")
+    _build.check(num_q_heads % num_kv_heads == 0
+                 and num_q_heads // num_kv_heads in GROUPS, kernel,
+                 f"Hq/Hkv = {num_q_heads}/{num_kv_heads} not a group in "
+                 f"{GROUPS}")
+    _build.check(page_size % PAGE_MULTIPLE == 0, kernel,
+                 f"page_size {page_size} is not a multiple of "
+                 f"{PAGE_MULTIPLE}")
+
+
 def kv_split_plan(pages_per_seq, num_kv_heads, num_sms):
-    """Split-KV plan of the int8 decode kernel: ``(num_splits,
+    """Split-KV plan of the decode kernel: ``(num_splits,
     pages_per_split)``. A row's pages [0, n) are cut into splits of
     ``pages_per_split`` consecutive pages; the longest possible row
     (``pages_per_seq`` pages) is spread over about two waves of
@@ -143,8 +159,8 @@ def split_scratch(rows, num_q_heads, num_splits, head_dim, device):
 
 
 def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
-    """Launch K5 (K5-int8 and its merge for an int8 pool) on the current
-    stream; validates every operand first."""
+    """Launch K5 (its split kernel and merge; over an int8 pool K5-int8's)
+    on the current stream; validates every operand first."""
     name = "paged_decode_attention"
     quant = is_quantized(k_pages)
     fn = _build.entry("paged_attention",
@@ -161,12 +177,7 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
         chk(t.is_contiguous(), name, "operands must be contiguous")
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
     chk(Dk == D, name, "pools must be [Hkv, P, bs, D] with q's D")
-    chk(D in HEAD_DIMS, name, f"head_dim {D} not in {HEAD_DIMS}")
-    chk(Hq % Hkv == 0 and Hq // Hkv in GROUPS, name,
-        f"Hq/Hkv = {Hq}/{Hkv} not a group in {GROUPS}")
-    chk(not quant or bs % INT8_PAGE_MULTIPLE == 0, name,
-        f"an int8 pool's page_size must be a multiple of "
-        f"{INT8_PAGE_MULTIPLE}")
+    check_geometry(name, Hq, Hkv, bs, D)
     chk(lengths.dtype == torch.int32 and lengths.shape == (B,), name,
         "lengths must be int32 [B]")
     chk(page_indices.dtype == torch.int32 and page_indices.dim() == 2
@@ -177,17 +188,12 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dtype = _build.DTYPE_CODES[str(q.dtype)]
-    if quant:
-        splits, per = kv_split_plan(pps, Hkv, num_sms(q.device))
-        o_part, ml_part = split_scratch(B, Hq, splits, D, q.device)
-        rc = fn(q.data_ptr(), *pool_ptrs, lengths.data_ptr(),
-                page_indices.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-                ml_part.data_ptr(), B, Hkv, Hq // Hkv, D, P, bs, pps, splits,
-                per, float(scale), dtype, stream)
-    else:
-        rc = fn(q.data_ptr(), *pool_ptrs, lengths.data_ptr(),
-                page_indices.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv,
-                D, P, bs, pps, float(scale), dtype, stream)
+    splits, per = kv_split_plan(pps, Hkv, num_sms(q.device))
+    o_part, ml_part = split_scratch(B, Hq, splits, D, q.device)
+    rc = fn(q.data_ptr(), *pool_ptrs, lengths.data_ptr(),
+            page_indices.data_ptr(), out.data_ptr(), o_part.data_ptr(),
+            ml_part.data_ptr(), B, Hkv, Hq // Hkv, D, P, bs, pps, splits,
+            per, float(scale), dtype, stream)
     _build.check_status(rc, name)
     if quant:
         paged_decode_attention.launches_int8 += 1
@@ -202,10 +208,10 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
 
     q: [B, Hq, D]; returns [B, Hq, D] in q's dtype. lengths must already
     INCLUDE the just-written token (the query attends to itself). The pools
-    are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches K5
-    (counted in ``paged_decode_attention.launches``; K5-int8, its split and
-    merge launches one call, in ``.launches_int8``); a CPU q runs the plain
-    version."""
+    are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches K5 (its
+    split and merge launches one call, counted in
+    ``paged_decode_attention.launches``; over an int8 pool in
+    ``.launches_int8``); a CPU q runs the plain version."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if q.device.type == "cpu":

@@ -14,9 +14,9 @@ scales)`` pair of int8 codes and one f32 scale per row
 
 ``ragged_paged_attention`` picks its tier from the tensor's device: a CUDA
 tensor launches the hand-written kernel K4
-(``csrc/ragged_paged_attention.cu``; for an int8 pool K4-int8: its tile
-kernel, with the decode rows taken by K5-int8's split kernel and merge), a
-CPU tensor runs the plain version ``_ragged_math``. There is no fallback
+(``csrc/ragged_paged_attention.cu``: its tile kernel, with the decode rows
+taken by K5's split kernel and merge, one instance per pool type), a CPU
+tensor runs the plain version ``_ragged_math``. There is no fallback
 between them.
 """
 import ctypes
@@ -26,8 +26,7 @@ import torch
 
 from . import _build
 from .paged_attention import (
-    GROUPS,
-    INT8_PAGE_MULTIPLE,
+    check_geometry,
     kv_split_plan,
     num_sms,
     split_scratch,
@@ -156,22 +155,19 @@ def _ragged_math(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
     return out.reshape(T, Hq, D).to(q.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+# each entry takes the decode rows' split plan with its f32 scratch; the
+# int8 entry takes each pool as two pointers (codes, scales)
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# the int8 entry takes each pool as two pointers (codes, scales) and the
-# decode rows' split plan with its f32 scratch
 _ARGTYPES_INT8 = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-HEAD_DIMS = (64, 128)
-TILE_PAIRS = 16   # float pools: (token, query head) pairs per block
 INT8_PAGE_CODES = 2048   # int8 pools: page_size * head_dim at most
-SMEM_LIMIT = 48 * 1024
 
 
 def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
                  scale):
-    """Launch K4 (K4-int8 for an int8 pool: its tile kernel, the split
-    kernel over the decode rows and their merge) on the current stream;
+    """Launch K4 (its tile kernel, the split kernel over the decode rows
+    and their merge; over an int8 pool K4-int8's) on the current stream;
     validates every operand first."""
     name = "ragged_paged_attention"
     quant = is_quantized(k_pages)
@@ -190,22 +186,10 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
         chk(t.is_contiguous(), name, "operands must be contiguous")
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
     chk(Dk == D, name, "pools must be [Hkv, P, bs, D] with q's D")
-    chk(D in HEAD_DIMS, name, f"head_dim {D} not in {HEAD_DIMS}")
-    if quant:
-        chk(Hq % Hkv == 0 and Hq // Hkv in GROUPS, name,
-            f"Hq/Hkv = {Hq}/{Hkv} not a group in {GROUPS}")
-        chk(bs % INT8_PAGE_MULTIPLE == 0, name,
-            f"an int8 pool's page_size must be a multiple of "
-            f"{INT8_PAGE_MULTIPLE}")
-        chk(bs * D <= INT8_PAGE_CODES, name,
-            f"an int8 page of {bs}x{D} codes exceeds {INT8_PAGE_CODES} (a "
-            "tile thread loads one 16-byte chunk of a page)")
-    else:
-        chk(Hq % Hkv == 0 and TILE_PAIRS % (Hq // Hkv) == 0, name,
-            f"Hq/Hkv = {Hq}/{Hkv} must divide {TILE_PAIRS}")
-        chk(2 * bs * D * q.element_size() <= SMEM_LIMIT, name,
-            f"two pages of {bs}x{D} exceed {SMEM_LIMIT} bytes of shared "
-            "memory")
+    check_geometry(name, Hq, Hkv, bs, D)
+    chk(not quant or bs * D <= INT8_PAGE_CODES, name,
+        f"an int8 page of {bs}x{D} codes exceeds {INT8_PAGE_CODES} (a "
+        "tile thread loads one 16-byte chunk of a page)")
     chk(kv_lens.dtype == torch.int32 and kv_lens.shape == (S,), name,
         "kv_lens must be int32 [S]")
     chk(page_indices.dtype == torch.int32 and page_indices.dim() == 2, name,
@@ -217,19 +201,12 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dtype = _build.DTYPE_CODES[str(q.dtype)]
-    if quant:
-        splits, per = kv_split_plan(pps, Hkv, num_sms(q.device))
-        o_part, ml_part = split_scratch(S, Hq, splits, D, q.device)
-        rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
-                page_indices.data_ptr(), cu_q_lens.data_ptr(),
-                out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), T, S,
-                Hkv, Hq // Hkv, D, P, bs, pps, splits, per, float(scale),
-                dtype, stream)
-    else:
-        rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
-                page_indices.data_ptr(), cu_q_lens.data_ptr(),
-                out.data_ptr(), T, S, Hkv, Hq // Hkv, D, P, bs, pps,
-                float(scale), dtype, stream)
+    splits, per = kv_split_plan(pps, Hkv, num_sms(q.device))
+    o_part, ml_part = split_scratch(S, Hq, splits, D, q.device)
+    rc = fn(q.data_ptr(), *pool_ptrs, kv_lens.data_ptr(),
+            page_indices.data_ptr(), cu_q_lens.data_ptr(), out.data_ptr(),
+            o_part.data_ptr(), ml_part.data_ptr(), T, S, Hkv, Hq // Hkv, D,
+            P, bs, pps, splits, per, float(scale), dtype, stream)
     _build.check_status(rc, name)
     if quant:
         ragged_paged_attention.launches_int8 += 1
@@ -247,9 +224,9 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
     cu_q_lens[-1]) return finite values that callers discard: zeros from
     the kernel, the reference's masked garbage from the plain version. The
     pools are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches
-    K4 (counted in ``ragged_paged_attention.launches``; K4-int8, whose two
-    or three launches make one call, in ``.launches_int8``); a CPU q runs
-    the plain version."""
+    K4 (its two or three launches make one call, counted in
+    ``ragged_paged_attention.launches``; over an int8 pool in
+    ``.launches_int8``); a CPU q runs the plain version."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if q.device.type == "cpu":
