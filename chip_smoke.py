@@ -44,7 +44,16 @@ Phases, one JSON line each (any failed phase exits non-zero):
             and forward + backward beside K1 over the whole 8192 and F.sdpa
             over it; the edges (shards of 1000, head dim 64, Hq 4); two
             runs of the ring's backward bit for bit;
-6a. adamw — the AdamW update kernel against its plain version;
+6a. adamw — the AdamW update kernel against its plain version, bf16 and
+            f32, and its recipe instances (ADAMW_RECIPE_CASES: bf16 p with
+            an f32 master, m, v or alone; with and without the loss scale,
+            the clip factor, L1/L2 decay and the dynamics epilogue, whose
+            sums are checked too) on one 7B MLP weight;
+6b. grad_norm — the gradient-norm kernel (kernel A) against its plain
+            version: the gradients of 2 layers at 7B widths plus the
+            embedding and the head, bf16 and f32, without and with a
+            scale, grouped; edge lists; a planted NaN, Inf and finite
+            1e30; two launches bit for bit; torch._foreach_norm beside;
 7. codec  — the int8 KV codec on the card against the CPU: codes, scales
             and dequantized values bit-identical (zero, +-absmax and .5-tie
             rows included);
@@ -100,10 +109,20 @@ Phases, one JSON line each (any failed phase exits non-zero):
             and the CPU, the ring and then Ulysses, with the amplified
             rule as in 16a; on the card the first step's loss equals the
             no-mesh loss within 1e-5 relative;
+16c. train_recipe_equal — the training recipe card against CPU: f32,
+            7B widths, 2 layers, B 1 x S 256, 4 TrainSteps under LLaMA 2's
+            AdamW, a warm-up + cosine schedule, a global-norm clip that
+            clips, a dynamic loss scaler whose first step overflows and
+            dynamics spilling every step: losses, gradients, parameters,
+            lr, skip and scale sequences, clip factors, dynamics sums and
+            exact launches (kernel A, kernel B's master-less general
+            instance);
 17. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
             "full", fused linear cross-entropy, AdamW; B 2, S 2048, 2
             warm-up and 8 timed steps; tokens/s, MFU, peak memory, losses
-            and the flash kernels' launch counts over the timed steps;
+            and the launch counts of the flash kernels, AdamW and the
+            gradient-norm kernel (the non-finite guard's, once a step)
+            over the timed steps;
 18. train_profile — two steps of `train` under torch.profiler;
 19. train_packed — SFT packing on `train`'s model and optimizer: B 2 x S
             2048 of k3's packed rows, 2 warm-up and 8 timed steps, K3's
@@ -118,13 +137,21 @@ Phases, one JSON line each (any failed phase exits non-zero):
             mesh (K1 over the whole 4096), step ms, tokens/s, MFU and peak
             memory of both, and two steps of each profiled;
 20. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
-            B 1, S 2048: 1 warm-up and 3 timed steps.
+            B 1, S 2048: 1 warm-up and 3 timed steps;
+21. train_recipe — LLaMA-2-7B widths cut to 16 layers, bf16, B 2, S
+            2048: `train`'s plain recipe, then LLaMA 2's (f32 master
+            weights, clip 1.0, warm-up + cosine, StepMetricsBus,
+            PADDLE_DYNAMICS=1), 2 warm-up and 5 timed steps each: step ms,
+            tokens/s, MFU (the bus's beside), peak memory, exact launches
+            of K1, kernel A and kernel B's master instance.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and the contract's last line. ``--only k1,k2`` runs the named phases alone
 (with the build), to iterate on a kernel (``--only k3,train_packed_equal,
 train_packed`` for the packed path, ``--only k6,train_equal_s1024,
-train_cp_equal,train_cp`` for context parallelism): it ends in a
+train_cp_equal,train_cp`` for context parallelism, ``--only
+grad_norm,adamw,train_recipe_equal,train_recipe`` for the training
+recipe): it ends in a
 ``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
 a run of every phase (no arguments) reads as a passing smoke. Imports no
@@ -144,11 +171,12 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense tensor-core bf16
 TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
              "torch.float32": (1e-4, 1e-4)}   # summation order only
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
-PHASES = ("k1", "k2", "k3", "k6", "adamw", "codec", "k4", "k5", "k4_int8",
+PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "codec", "k4", "k5", "k4_int8",
           "k5_int8", "serve_equal", "slice", "profile", "slice_int8",
           "slice_sampled_prefix", "train_equal", "train_packed_equal",
-          "train_equal_s1024", "train_cp_equal", "train", "train_profile",
-          "train_packed", "train_cp", "train_gqa")
+          "train_equal_s1024", "train_cp_equal", "train_recipe_equal",
+          "train", "train_profile", "train_packed", "train_cp", "train_gqa",
+          "train_recipe")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 PAGES_PER_SEQ = MAX_LEN // BS
@@ -1953,17 +1981,8 @@ def phase_adamw(seed=8):
         ulp = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -24
         err, differ = 0.0, 0
         for name, got, want in zip("pmv", *states):
-            g32, w32 = got.float(), want.float()
-            diff = (g32 - w32).abs()
-            bad = diff > 4 * ulp * w32.abs() + ulp * float(w32.abs().max())
-            if bad.any():
-                i = int(bad.flatten().nonzero()[0])
-                raise AssertionError(
-                    f"adamw {dtype} {name}: {int(bad.sum())} elements past "
-                    f"tolerance, e.g. {float(g32.flatten()[i])} vs "
-                    f"{float(w32.flatten()[i])}")
-            err = max(err, float(diff.max()))
-            differ += int((diff > 0).sum())
+            e, n = _ulp_check(f"adamw {dtype} {name}", got, want, ulp)
+            err, differ = max(err, e), differ + n
         n, elt = p0.numel(), p0.element_size()
         p, m, v = states[0]
         g = grads[0]
@@ -1988,7 +2007,320 @@ def phase_adamw(seed=8):
         rows.append(row)
         del states, grads, lib, lib_p
         torch.cuda.empty_cache()
+    rows.append(_adamw_master(gen))
     return rows
+
+
+def _ulp_check(name, got, want, ulp):
+    """``got`` within two ulps of ``want`` per element plus one ulp of the
+    tensor's largest magnitude (phase_adamw's rule); returns (max abs
+    error, elements differing)."""
+    g32, w32 = got.float(), want.float()
+    diff = (g32 - w32).abs()
+    bad = diff > 4 * ulp * w32.abs() + ulp * float(w32.abs().max())
+    if bad.any():
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements past tolerance, e.g. "
+            f"{float(g32.flatten()[i])} vs {float(w32.flatten()[i])}")
+    return float(diff.max()), int((diff > 0).sum())
+
+
+# Kernel B's recipe instances that _adamw_master holds against the plain
+# version: (f32 master, loss scale, clip factor, decay, dynamics epilogue).
+# A bf16 gradient times the clip factor with no scale is rounded back to
+# bf16 in the kernel: that is LLaMA 2's recipe in bf16 (no scaler), with
+# and without the epilogue.
+ADAMW_RECIPE_CASES = (
+    (True, False, False, None, True),
+    (True, True, True, None, True),
+    (True, False, True, None, False),
+    (True, False, True, None, True),
+    (True, True, True, "L2", False),
+    (True, False, True, "L1", True),
+    (False, False, True, "L1", False),
+    (False, True, False, "L2", True),
+)
+
+
+def _adamw_master(gen):
+    """Kernel B's training-recipe instances on one LLaMA-2-7B MLP weight
+    (11008 x 4096), each case (``ADAMW_RECIPE_CASES``) after three updates
+    against the plain version on the same inputs: a bf16 parameter with
+    f32 master, m and v (or bf16 p, m and v alone) and a bf16 gradient;
+    with or without the loss scale and the clip factor (each one f32 on
+    the card), the L1 or L2 decay, and the dynamics epilogue. Master, m and
+    v within phase_adamw's two-ulp rule in their dtype, p the master
+    rounded to bf16 and within the rule in bf16; the epilogue's sums of
+    p_old^2 and of the update's squares against the same sums over the
+    kernel's own p in f64, 1e-6 relative. Times, on the master instance
+    with scale and factor: the kernel without and with the epilogue, the
+    plain version, and the library's two calls (``torch._fused_adamw_`` on
+    the master, then ``p.copy_(master)``; no single PyTorch call computes
+    the update and the bf16 parameter)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import adamw
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+    shape = (11008, 4096)
+    p0 = (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    # the unscaled gradients' size: a scaled case sees them times the scale
+    raw = [0.3 * torch.randn(shape, generator=gen, device="cuda")
+           for _ in range(3)]
+    scale = torch.tensor(1024.0, device="cuda")
+    factor = torch.tensor(0.37, device="cuda")
+    args = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-5,
+                factor=float(np.float32(1) - np.float32(3e-4 * 0.1)))
+    regs = {"L1": L1Decay(0.1), "L2": L2Decay(4.0)}
+    err, differ, dyn_err, checked, timed = 0.0, 0, 0.0, [], None
+    for master_on, scaled, clipped, reg, dyn in ADAMW_RECIPE_CASES:
+        grads = [(x * 1024.0 if scaled else x).to(torch.bfloat16)
+                 for x in raw]
+        sc, fa = (scale if scaled else None), (factor if clipped else None)
+        rg = regs.get(reg)
+        states = []
+        for tier in ("kernel", "plain"):
+            p = p0.clone()
+            master = p0.float() if master_on else None
+            m, v = (torch.zeros_like(master if master_on else p)
+                    for _ in range(2))
+            norms = adamw.UpdateNorms([p], [0], 1) if dyn else None
+            for step, g in enumerate(grads, start=1):
+                if tier == "plain":
+                    adamw._adamw_plain(
+                        p, g, m, v, (args["lr"], args["beta1"],
+                                     args["beta2"], args["eps"], step,
+                                     args["factor"]), master, sc, fa, rg,
+                        None)
+                    continue
+                old = p.clone() if dyn else None
+                if dyn:
+                    norms.begin()
+                adamw.adamw_update(p, g, m, v, step=step, master=master,
+                                   scale=sc, grad_factor=fa,
+                                   regularization=rg, norms=norms, **args)
+                if dyn:
+                    out = norms.reduce()
+                    d = (p.float() - old.float()).double()
+                    want = torch.stack([old.double().square().sum(),
+                                        d.square().sum()])
+                    got = out[:, 0].double()
+                    rel = float(((got - want).abs() / want.clamp_min(
+                        1e-30)).max())
+                    dyn_err = max(dyn_err, rel)
+                    if rel > 1e-6:
+                        raise AssertionError(
+                            f"adamw recipe {reg} dynamics: {got.tolist()} vs "
+                            f"{want.tolist()}")
+            states.append((p, master, m, v))
+        torch.cuda.synchronize()
+        case = (f"master={master_on} scale={scaled} factor={clipped} "
+                f"reg={reg} dynamics={dyn}")
+        ulp = 2 ** -24 if master_on else 2 ** -8
+        for name, got, want in zip(("master", "m", "v"), states[0][1:],
+                                   states[1][1:]):
+            if got is None:
+                continue
+            e, n = _ulp_check(f"adamw {case} {name}", got, want, ulp)
+            err, differ = max(err, e), differ + n
+        if master_on and not torch.equal(states[0][0],
+                                         states[0][1].to(torch.bfloat16)):
+            raise AssertionError(f"adamw {case}: p is not its master rounded")
+        e, n = _ulp_check(f"adamw {case} p", states[0][0], states[1][0],
+                          2 ** -8)
+        err, differ = max(err, e), differ + n
+        checked.append(case)
+        if master_on and scaled and clipped and reg is None:
+            timed = states[0], grads[0]
+        del states, grads
+    (p, master, m, v), g = timed
+    norms = adamw.UpdateNorms([p], [0], 1)
+    ms = cuda_ms(lambda: adamw.adamw_update(
+        p, g, m, v, step=4, master=master, scale=scale, grad_factor=factor,
+        **args))
+    ms_dyn = cuda_ms(lambda: adamw.adamw_update(
+        p, g, m, v, step=4, master=master, scale=scale, grad_factor=factor,
+        norms=norms, **args))
+    plain_ms = cuda_ms(lambda: adamw._adamw_plain(
+        p, g, m, v, (args["lr"], args["beta1"], args["beta2"], args["eps"],
+                     4, args["factor"]), master, scale, factor, None, None),
+        reps=5, warmup=1)
+    lib_master = master.detach().clone()
+    lib_grad = g.float()
+    lib_m, lib_v = m.clone(), v.clone()
+    lib_step = torch.tensor(4.0, device="cuda")
+
+    def library():
+        torch._fused_adamw_([lib_master], [lib_grad], [lib_m], [lib_v], [],
+                            [lib_step], lr=3e-4, beta1=0.9, beta2=0.95,
+                            weight_decay=0.1, eps=1e-5, amsgrad=False,
+                            maximize=False)
+        p.copy_(lib_master)
+
+    lib_ms = cuda_ms(library)
+    n = p0.numel()
+    nbytes, ops = 28 * n, 30 * n
+    b_ms, b_by = bound(nbytes, ops, "torch.float32")
+    row = {"phase": "adamw", "instance": "master", "shape": list(shape),
+           "dtype": "bf16 p, f32 master/m/v, bf16 g",
+           "cases": checked, "max_abs_err": err,
+           "elements_differing": differ, "dynamics_max_rel_err": dyn_err,
+           "kernel_ms": ms,
+           "kernel_ms_with_dynamics": ms_dyn, "plain_ms": plain_ms,
+           "library_ms": lib_ms,
+           "library": "torch._fused_adamw_ on the f32 master, then "
+                      "p.copy_(master): no single call computes it",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+    emit(row)
+    del timed, raw, lib_master, lib_grad, lib_m, lib_v
+    torch.cuda.empty_cache()
+    return row
+
+
+def _llama_grad_shapes(layers, cfg=None):
+    """{name: shape} of LLaMA-2-7B's parameters at ``layers`` layers (the
+    embedding, each layer's projections and norms, the final norm, the
+    head), in the model's order: the gradients a step hands kernel A."""
+    h, m, v = 4096, 11008, 32000
+    shapes = {"llama.embed_tokens.weight": (v, h)}
+    for i in range(layers):
+        pre = f"llama.layers.{i}."
+        for proj in ("q", "k", "v", "o"):
+            shapes[f"{pre}self_attn.{proj}_proj.weight"] = (h, h)
+        shapes[f"{pre}mlp.gate_proj.weight"] = (m, h)
+        shapes[f"{pre}mlp.up_proj.weight"] = (m, h)
+        shapes[f"{pre}mlp.down_proj.weight"] = (h, m)
+        shapes[f"{pre}input_layernorm.weight"] = (h,)
+        shapes[f"{pre}post_attention_layernorm.weight"] = (h,)
+    shapes["llama.norm.weight"] = (h,)
+    shapes["lm_head.weight"] = (v, h)
+    return shapes
+
+
+def _check_sumsq(name, got, want, rel=1e-6):
+    """Kernel A's outputs against its plain version's: sums, group sums,
+    total and factor within ``rel`` relative (inf where the plain one is
+    inf), every flag exact. Returns the largest relative and absolute
+    errors."""
+    import torch
+
+    out_g, flags_g = got
+    out_w, flags_w = want
+    if not torch.equal(flags_g, flags_w):
+        raise AssertionError(f"{name}: flags {flags_g.tolist()} vs "
+                             f"{flags_w.tolist()}")
+    g, w = out_g.double(), out_w.double()
+    same_inf = torch.isinf(g) == torch.isinf(w)
+    finite = torch.isfinite(w) & torch.isfinite(g)
+    err = ((g - w).abs() / w.abs().clamp_min(1e-30))[finite]
+    worst = float(err.max()) if err.numel() else 0.0
+    worst_abs = float((g - w).abs()[finite].max()) if err.numel() else 0.0
+    if not same_inf.all() or worst > rel or (torch.isnan(g) != torch.isnan(
+            w)).any():
+        raise AssertionError(f"{name}: sums apart by {worst} (limit {rel}) "
+                             f"or inf/nan differ: {g.tolist()[:8]} vs "
+                             f"{w.tolist()[:8]}")
+    return worst, worst_abs
+
+
+def phase_grad_norm(seed=15):
+    """Kernel A (the multi-tensor gradient norm) against its plain version
+    on the card: the gradient list of 2 layers at LLaMA-2-7B widths plus
+    the embedding and the head, bf16 and f32, without a scale, with a
+    power-of-two scale and with 3.0, grouped as the dynamics group them;
+    edge lists (1 element, 7 elements, 1,000,003 elements, dtypes mixed);
+    a planted NaN, a planted Inf and a finite 1e30 whose square overflows.
+    Sums within 1e-6 relative, flags exact, two launches bit-identical.
+    Times (bf16 list, no scale): the kernel, its plain version and
+    ``torch._foreach_norm`` over the same list (the library call)."""
+    import torch
+
+    from paddle_tpu_torch.observability.dynamics import group_of
+    from paddle_tpu_torch.ops import grad_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = _llama_grad_shapes(2)
+    names = list(shapes)
+    group_names = sorted({group_of(n) for n in names})
+    groups = [group_names.index(group_of(n)) for n in names]
+    rows, worst, worst_abs = [], 0.0, 0.0
+
+    def run(name, tensors, scale, grp, n_groups, clip=1.0):
+        nonlocal worst, worst_abs
+        sc = None if scale is None else torch.tensor(
+            scale, dtype=torch.float32, device="cuda")
+        a = gn.grad_sumsq(tensors, scale=sc, clip_norm=clip, groups=grp,
+                          n_groups=n_groups)
+        ref = gn._sumsq_math(tensors, sc, clip, grp or [-1] * len(tensors),
+                             n_groups)
+        b = gn.grad_sumsq(tensors, scale=sc, clip_norm=clip, groups=grp,
+                          n_groups=n_groups)
+        torch.cuda.synchronize()
+        out_a = torch.cat([a.sums, a.group_sums, a.total[None],
+                           a.norm[None], a.factor[None]])
+        out_b = torch.cat([b.sums, b.group_sums, b.total[None],
+                           b.norm[None], b.factor[None]])
+        out_r = torch.cat([ref.sums, ref.group_sums, ref.total[None],
+                           ref.norm[None], ref.factor[None]])
+        fl = lambda x: torch.cat([x.nonfinite, x.group_nonfinite,
+                                  x.any_nonfinite[None]])
+        if not torch.equal(out_a.view(torch.int32), out_b.view(torch.int32)):
+            raise AssertionError(f"grad_norm {name}: two launches differ")
+        rel, err = _check_sumsq(f"grad_norm {name}", (out_a, fl(a)),
+                                (out_r, fl(ref)))
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+        return a
+
+    for dtype in (torch.bfloat16, torch.float32):
+        grads = [(1e-3 * torch.randn(s, generator=gen, device="cuda")).to(
+            dtype) for s in shapes.values()]
+        for scale in (None, 1024.0, 3.0):
+            run(f"7b-2layers {dtype} scale {scale}", grads, scale, groups,
+                len(group_names))
+        grads[3].view(-1)[1234] = float("nan")
+        grads[7].view(-1)[0] = float("inf")
+        grads[-2].view(-1)[-1] = 1e30
+        st = run(f"planted {dtype}", grads, 1024.0, groups, len(group_names))
+        want = [int(i in (3, 7)) for i in range(len(grads))]
+        if st.nonfinite.tolist() != want or not torch.isinf(st.sums[-2]):
+            raise AssertionError(f"grad_norm planted {dtype}: flags "
+                                 f"{st.nonfinite.tolist()}, sums {st.sums}")
+        if dtype == torch.bfloat16:
+            for t, i in ((grads[3], 1234), (grads[7], 0), (grads[-2], -1)):
+                t.view(-1)[i] = 0.0
+            n_el = sum(t.numel() for t in grads)
+            nbytes = n_el * grads[0].element_size() + 4 * (3 + 2 * len(grads))
+            ms = cuda_ms(lambda: gn.grad_sumsq(grads))
+            plain_ms = cuda_ms(lambda: gn._sumsq_math(
+                grads, None, None, [-1] * len(grads), 0), reps=5, warmup=1)
+            lib_ms = cuda_ms(lambda: torch._foreach_norm(grads))
+            b_ms, b_by = bound(nbytes, 3 * n_el, "torch.float32")
+            row = {"phase": "grad_norm", "tensors": len(grads),
+                   "elements": n_el, "dtype": str(dtype), "kernel_ms": ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library": "torch._foreach_norm over the same list",
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            rows.append(row)
+        del grads
+        torch.cuda.empty_cache()
+    edges = [torch.randn(1, generator=gen, device="cuda"),
+             torch.randn(7, generator=gen, device="cuda").to(torch.bfloat16),
+             torch.randn(1_000_003, generator=gen, device="cuda"),
+             torch.randn(1_000_003, generator=gen, device="cuda").to(
+                 torch.bfloat16),
+             torch.randn(CHUNK_EDGE, generator=gen, device="cuda")]
+    for scale in (None, 2.0 ** 15, 3.0):
+        run(f"edges scale {scale}", edges, scale, [0, 1, 0, 1, 2], 3)
+        run(f"edges alone scale {scale}", edges[1:2], scale, None, 0)
+    rows[0].update(max_rel_err=worst, max_abs_err=worst_abs)
+    emit(rows[0])
+    return rows
+
+
+CHUNK_EDGE = 65536 + 8      # one kernel-A chunk and one vector more
 
 
 def _flash_wrappers():
@@ -2007,23 +2339,31 @@ def _flash_wrappers():
 
 def _flash_counts():
     """Launch counts of the training path's kernels: the K1/K2 and K3
-    flash entries and the AdamW update."""
-    from paddle_tpu_torch.ops.adamw import adamw_update
+    flash entries, the AdamW update, the gradient-norm kernel (kernel A)
+    and the dynamics reduction of the AdamW kernel's epilogue."""
+    from paddle_tpu_torch.ops.adamw import UpdateNorms, adamw_update
+    from paddle_tpu_torch.ops.grad_norm import grad_sumsq
 
     counts = {name: k.launches for name, k in _flash_wrappers().items()}
     counts["adamw_update"] = adamw_update.launches
+    counts["grad_sumsq"] = grad_sumsq.launches
+    counts["adamw_dynamics_reduce"] = UpdateNorms.reduces
     return counts
 
 
 def _reset_flash_counts():
-    from paddle_tpu_torch.ops.adamw import adamw_update
+    from paddle_tpu_torch.ops.adamw import UpdateNorms, adamw_update
+    from paddle_tpu_torch.ops.grad_norm import grad_sumsq
 
     for k in _flash_wrappers().values():
         k.launches = 0
     adamw_update.launches = 0
+    grad_sumsq.launches = 0
+    UpdateNorms.reduces = 0
 
 
-def _expected_counts(layers, steps, n_params, path="k1", sep=1):
+def _expected_counts(layers, steps, n_params, path="k1", sep=1,
+                     updates=None, dyn_skips=None):
     """Exact launches of ``steps`` training steps under recompute "full"
     or "dots": per layer and step two forwards (the forward and its
     recompute) and one backward, through ``path``:
@@ -2034,7 +2374,12 @@ def _expected_counts(layers, steps, n_params, path="k1", sep=1):
       backward, K1's delta once per rank and its dK/dV and dQ once per
       kept visit; no K1 forward;
     - "ulysses": each K1 entry once per rank (a rank's heads);
-    none of the others; one AdamW update per parameter."""
+    none of the others; one AdamW update per parameter and update
+    (``updates``, default ``steps``: a skipped step updates nothing); one
+    gradient-norm launch a step (the non-finite guard's), one more for
+    each of ``dyn_skips`` skipped steps under dynamics (the parameters'
+    norms), and one dynamics reduction per update under dynamics
+    (``dyn_skips`` not None)."""
     visits = sep * (sep + 1) // 2
     k1 = {"flash_attention_fwd": 2, "flash_attention_bwd_delta": 1,
           "flash_attention_bwd_dkdv": 1, "flash_attention_bwd_dq": 1}
@@ -2048,7 +2393,10 @@ def _expected_counts(layers, steps, n_params, path="k1", sep=1):
            "ulysses": {n: c * sep for n, c in k1.items()}}[path]
     want = {name: per.get(name, 0) * layers * steps
             for name in _flash_wrappers()}
-    want["adamw_update"] = n_params * steps
+    updates = steps if updates is None else updates
+    want["adamw_update"] = n_params * updates
+    want["grad_sumsq"] = steps + (dyn_skips or 0)
+    want["adamw_dynamics_reduce"] = 0 if dyn_skips is None else updates
     return want
 
 
@@ -2099,16 +2447,24 @@ NOISE_MULT = 10
 
 
 def _record_gradients(step):
-    """Keep, on the CPU, the gradients ``step`` hands its optimizer: one
-    {name: gradient} per step."""
+    """Keep, on the CPU, the gradients ``step`` hands its optimizer, as the
+    update takes them (unscaled and clipped where the step gives a scale
+    and a factor, ``transform_grad``): one {name: gradient} per update; a
+    skipped step records nothing."""
+    from paddle_tpu_torch.ops.adamw import transform_grad
+
     names = {id(p): n for n, p in step.model.named_parameters()}
     record, apply = [], step.optimizer.apply_gradients
 
-    def recording(params_grads, skip_update=False):
+    def recording(params_grads, skip_update=False, scale=None, factor=None,
+                  **kw):
         params_grads = list(params_grads)
-        record.append({names[id(p)]: g.detach().cpu()
-                       for p, g in params_grads if g is not None})
-        return apply(params_grads, skip_update=skip_update)
+        if not skip_update:
+            record.append({names[id(p)]: transform_grad(
+                g, scale, factor).detach().cpu()
+                for p, g in params_grads if g is not None})
+        return apply(params_grads, skip_update=skip_update, scale=scale,
+                     factor=factor, **kw)
 
     step.optimizer.apply_gradients = recording
     return record
@@ -2517,7 +2873,7 @@ def _tokens(seed, vocab, shape):
 
 
 def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
-                 packing=None, extra=None, check_trend=True):
+                 packing=None, extra=None, check_trend=True, dyn_skips=None):
     """``warmup`` steps, then one timed step per remaining batch with the
     kernels' counts taken over the timed steps alone (``_expected_counts``
     exactly). MFU is ``flops_per_token(cfg, S)`` (the reference's, full
@@ -2527,7 +2883,8 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
     (the attention term from those pairs), not the padding tail; the same
     over every token and every segment's pairs
     (``pairs_with_padding``) is kept beside, named as counting padding.
-    ``check_trend``: the loss must not rise over the steps."""
+    ``check_trend``: the loss must not rise over the steps. ``dyn_skips``:
+    ``_expected_counts``'s, for a step under dynamics."""
     import numpy as np
     import torch
 
@@ -2549,7 +2906,7 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
     L = cfg.num_hidden_layers
     flops = LlamaForCausalLM.flops_per_token(cfg, seq_len=S)
     want = _expected_counts(L, steps, len(list(model.parameters())), path,
-                            sep)
+                            sep, dyn_skips=dyn_skips)
     row = {"phase": phase, "layers": L, "hidden": cfg.hidden_size,
            "heads": cfg.num_attention_heads,
            "kv_heads": cfg.num_key_value_heads,
@@ -2768,6 +3125,287 @@ def phase_train_packed(model, step, train_row, seed=11):
     return row
 
 
+RECIPE_PEAK_LR = 3e-4    # LLaMA 2's 7B peak lr (Touvron et al. 2023, 2.2)
+RECIPE_CLIP = 1.0
+OVERFLOW = 2.0 ** 127    # multiplies a loss past f32's range (see below)
+
+
+def _no_norm_decay(name):
+    """LLaMA 2's decay spares the norms' weights."""
+    return "norm" not in name
+
+
+def _recipe_optimizer(model, peak_lr=RECIPE_PEAK_LR, warmup=2000,
+                      total=100000, clip=RECIPE_CLIP, master=True):
+    """LLaMA 2's recipe (Touvron et al. 2023, section 2.2): AdamW beta2
+    0.95, eps 1e-5, weight decay 0.1 off the norms, gradients clipped at
+    global norm ``clip``, ``warmup`` linear warm-up steps then a cosine
+    decay to 10% of the peak over ``total``; f32 master weights."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(peak_lr, T_max=total, eta_min=peak_lr / 10),
+        warmup_steps=warmup, start_lr=0.0, end_lr=peak_lr)
+    return AdamW(learning_rate=sched, beta2=0.95, epsilon=1e-5,
+                 weight_decay=0.1, apply_decay_param_fun=_no_norm_decay,
+                 parameters=model.named_parameters(),
+                 grad_clip=ClipGradByGlobalNorm(clip), multi_precision=master)
+
+
+def _overflowing_loss(cfg):
+    """The criterion times the batch's last array, one f32: 1 on a normal
+    step, OVERFLOW on the step that must overflow. The loss scaler's point
+    is fp16's range; f32 and bf16 share f32's, where the largest gradient
+    of this model is about 1e-2 of the loss scale, so no finite scale
+    overflows them. A loss multiplied by 2^127 does, scale or no scale:
+    the loss becomes inf and every gradient inf or NaN, on both tiers
+    alike."""
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+
+    crit = LlamaPretrainingCriterion(cfg)
+
+    def loss_fn(h, w, labels, mult):
+        return crit(h, w, labels) * mult.reshape(())
+
+    return loss_fn
+
+
+def _close(name, got, want, rel):
+    """Lists of numbers (or lists of lists) equal where non-finite and
+    within ``rel`` relative elsewhere; returns the largest relative
+    error."""
+    import numpy as np
+
+    g, w = np.asarray(got, dtype=np.float64), np.asarray(want,
+                                                         dtype=np.float64)
+    if g.shape != w.shape or not np.array_equal(np.isnan(g), np.isnan(w)) \
+            or not np.array_equal(np.isinf(g), np.isinf(w)):
+        raise AssertionError(f"{name}: {got} vs {want}")
+    ok = np.isfinite(w)
+    err = np.abs(g[ok] - w[ok]) / np.maximum(np.abs(w[ok]), 1e-30)
+    worst = float(err.max()) if err.size else 0.0
+    if worst > rel:
+        raise AssertionError(f"{name}: apart by {worst} (limit {rel}): "
+                             f"{got} vs {want}")
+    return worst
+
+
+def phase_train_recipe_equal(seed=16, steps=4, S=256):
+    """The training recipe, card against CPU: f32, LLaMA-2-7B widths, 2
+    layers, recompute "full", fused CE, B 1 x S 256, 4 TrainSteps from
+    the same weights and batches: LLaMA 2's AdamW (beta2 0.95, eps 1e-5,
+    decay 0.1 off the norms), LinearWarmup(CosineAnnealingDecay) with 2
+    warm-up steps, ClipGradByGlobalNorm at 1e-3 (below every step's norm,
+    so that it clips), f32 master weights off (f32 parameters), a
+    dynamic GradScaler (2^15, halved after one bad step, doubled after two
+    good ones) whose first step overflows (``_overflowing_loss``), and
+    PADDLE_DYNAMICS=1 spilling every step. Held: the losses (steps 2-4),
+    gradients and parameters to train_equal's limits with rule (a); the
+    lr sequence, the skip pattern and the scale sequence identical; the
+    clip factor within 1e-5; the dynamics spills' grad_sq and upd_sq per
+    group within 1e-4 relative; exact launches: K1, kernel A once a step
+    and once more on the skipped step (the parameters' norms), kernel B
+    once per parameter of each update, one dynamics reduction an
+    update."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit_api import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+
+    os.environ["PADDLE_DYNAMICS"] = "1"
+    os.environ["PADDLE_DYNAMICS_EVERY_STEPS"] = "1"
+    cfg = llama2_7b(use_recompute=True, recompute_policy="full",
+                    fuse_linear_cross_entropy=True)
+    cfg.num_hidden_layers = 2
+    ids = _tokens(seed, cfg.vocab_size, (steps, 1, S + 1))
+    mult = [np.array([OVERFLOW if i == 0 else 1.0], np.float32)
+            for i in range(steps)]
+    batches = [(i[:, :-1], i[:, 1:], m) for i, m in zip(ids, mult)]
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    runs = {}
+    for tier, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        opt = _recipe_optimizer(model, peak_lr=1e-4, warmup=2, total=10,
+                                clip=1e-3, master=False)
+        scaler = GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
+                            decr_every_n_nan_or_inf=1)
+        step = TrainStep(model, _overflowing_loss(cfg), opt, n_labels=2,
+                         scaler=scaler, device=tier)
+        rec = _record_gradients(step)
+        if tier == "cuda":
+            _reset_flash_counts()
+        out = {"losses": [], "lr": [], "skipped": [], "scale": [],
+               "factor": [], "grad_sq": [], "upd_sq": [], "rec": rec,
+               "step": step, "t0": time.perf_counter()}
+        for b in batches:
+            out["lr"].append(opt.get_lr())
+            out["losses"].append(float(step(*b)))
+            out["skipped"].append(step.last_skipped)
+            out["scale"].append(float(step._scaler_state["scale"]))
+            out["factor"].append(float(step.last_stats.factor))
+            out["grad_sq"].append(step._dynamics.last["grad_sq"])
+            out["upd_sq"].append(step._dynamics.last["upd_sq"])
+        if tier == "cuda":
+            torch.cuda.synchronize()
+            out["kernels"] = _flash_counts()
+        out["s"] = time.perf_counter() - out["t0"]
+        runs[tier] = out
+    del os.environ["PADDLE_DYNAMICS"], os.environ["PADDLE_DYNAMICS_EVERY_STEPS"]
+    g, c = runs["cuda"], runs["cpu"]
+    n_params = len(list(cpu_model.parameters()))
+    want = _expected_counts(2, steps, n_params, updates=steps - 1,
+                            dyn_skips=1)
+    rel = [abs(a - b) / abs(b) for a, b in zip(g["losses"][1:],
+                                              c["losses"][1:])]
+    grad_rel = _grad_report(g["rec"], c["rec"])
+    worst_grad = max(((r, k, n) for k, st in enumerate(grad_rel, 2)
+                      for n, r in st.items()))
+    peak = max(c["lr"])
+    with torch.no_grad():
+        per, worst, _ = _param_report(gpu_model, cpu_model, g["rec"],
+                                      c["rec"], peak, g["step"].optimizer)
+    n_el = sum(p.numel() for p in cpu_model.parameters())
+    outliers = sum(r["outliers"] for r in per.values())
+    unexplained = outliers - sum(r["explained"] for r in per.values())
+    row = {"phase": "train_recipe_equal", "layers": 2, "dtype": "float32",
+           "B": 1, "S": S, "losses_gpu": g["losses"], "losses_cpu": c["losses"],
+           "rel_err": rel, "lr": g["lr"], "skipped": g["skipped"],
+           "scale": g["scale"], "factor_gpu": g["factor"],
+           "factor_cpu": c["factor"],
+           "grad_rel_worst": {"rel": worst_grad[0], "step": worst_grad[1],
+                              "param": worst_grad[2]},
+           "param_outliers": outliers, "param_unexplained": unexplained,
+           "elements": n_el, "param_diff_worst": worst[:4],
+           "kernels": g["kernels"], "expected_kernels": want,
+           "gpu_s": g["s"], "cpu_s": c["s"]}
+    try:
+        if not all(np.isinf(x) or np.isnan(x)
+                   for x in (g["losses"][0], c["losses"][0])):
+            raise AssertionError(f"the first step did not overflow: "
+                                 f"{g['losses'][0]}, {c['losses'][0]}")
+        if g["skipped"] != c["skipped"] or g["skipped"] != [True] + [
+                False] * (steps - 1):
+            raise AssertionError(f"skips {g['skipped']} vs {c['skipped']}")
+        if g["lr"] != c["lr"] or g["scale"] != c["scale"]:
+            raise AssertionError(f"lr {g['lr']} vs {c['lr']}, scale "
+                                 f"{g['scale']} vs {c['scale']}")
+        if not max(g["scale"][:1]) < 2.0 ** 15:
+            raise AssertionError(f"the scale did not fall: {g['scale']}")
+        row["factor_rel_err"] = _close("clip factor", g["factor"][1:],
+                                       c["factor"][1:], 1e-5)
+        if not max(g["factor"][1:]) < 1.0:
+            raise AssertionError(f"the clip did not clip: {g['factor']}")
+        row["grad_sq_rel_err"] = _close("dynamics grad_sq", g["grad_sq"],
+                                        c["grad_sq"], 1e-4)
+        row["upd_sq_rel_err"] = _close("dynamics upd_sq", g["upd_sq"],
+                                       c["upd_sq"], 1e-4)
+        if max(rel) > 1e-4:
+            raise AssertionError(f"losses differ: {g['losses']} vs "
+                                 f"{c['losses']}")
+        if worst_grad[0] > 1e-4:
+            raise AssertionError(f"gradients differ: {worst_grad}")
+        if outliers > 1e-5 * n_el or unexplained:
+            raise AssertionError(f"parameters differ: {outliers} past 0.1 "
+                                 f"lr, {unexplained} unexplained")
+        if g["kernels"] != want:
+            raise AssertionError(f"launches {g['kernels']}, expected {want}")
+    finally:
+        emit(row)
+    del runs, g, c, gpu_model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+RECIPE_LAYERS = 16   # depth cut: 16 bytes a parameter at 32 layers = 108 GB
+
+
+def phase_train_recipe(seed=17, warmup=2, timed=5):
+    """LLaMA-2-7B widths, bf16, recompute "full", fused CE, B 2 x S 2048,
+    depth cut from 32 to RECIPE_LAYERS layers (master weights, f32 moments
+    and bf16 gradients take 16 bytes a parameter: 108 GB at 32 layers),
+    first on `train`'s plain recipe (AdamW lr 1e-4 constant, decay 0.01,
+    no clip, bf16 moments), then, that optimizer freed, on LLaMA 2's recipe
+    (``_recipe_optimizer``: warm-up then cosine, clip 1.0, beta2 0.95,
+    f32 master weights) with StepMetricsBus(peak_flops=989e12) and
+    PADDLE_DYNAMICS=1 as bench.py sets them; 2 warm-up and 5 timed steps
+    each. Step ms, tokens/s, MFU (the bus's beside chip_smoke's), peak
+    memory (under 80 GB), exact launches (K1; kernel A once a
+    step; kernel B once per parameter a step; one dynamics reduction a
+    step), and one forced dynamics spill after the timed steps. The bus
+    times the host's window between its on_step calls, chip_smoke the
+    device's between two synchronisations, so the two MFUs agree within
+    5%, not exactly."""
+    import os
+
+    import torch
+
+    from paddle_tpu_torch.jit_api import TrainStep
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM, LlamaPretrainingCriterion, llama2_7b,
+    )
+    from paddle_tpu_torch.utils.metrics_bus import StepMetricsBus
+
+    cfg = llama2_7b(dtype="bfloat16", use_recompute=True,
+                    recompute_policy="full", fuse_linear_cross_entropy=True)
+    cfg.num_hidden_layers = RECIPE_LAYERS
+    model, step = _trainer(cfg, seed)
+    batches = _token_batches(seed, cfg.vocab_size, warmup + timed, 2, 2048)
+    plain = _timed_steps("train_recipe_plain", cfg, model, step, batches,
+                         warmup=warmup, check_trend=False)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["PADDLE_DYNAMICS"] = "1"
+    flops = LlamaForCausalLM.flops_per_token(
+        cfg, seq_len=batches[0][0].shape[1])
+    bus = StepMetricsBus(tokens_per_step=batches[0][0].size,
+                         flops_per_token=flops,
+                         peak_flops=989e12, log_every=timed,
+                         skip_first=warmup)
+    records = []
+    bus.subscribe(records.append)
+    step = TrainStep(model, LlamaPretrainingCriterion(cfg),
+                     _recipe_optimizer(model), metrics_bus=bus)
+    del os.environ["PADDLE_DYNAMICS"]
+    # batches the model has not seen: one AdamW step at 3.5 B parameters
+    # all but learns a batch of uniform tokens, so a batch seen again
+    # reads a loss far below ln(vocab)
+    batches = _token_batches(seed + 1, cfg.vocab_size, warmup + timed, 2,
+                             2048)
+    row = _timed_steps("train_recipe", cfg, model, step, batches,
+                       warmup=warmup, check_trend=False, dyn_skips=0,
+                       extra={"recipe": "LLaMA 2: AdamW beta2 0.95, eps "
+                                        "1e-5, decay 0.1 off the norms, "
+                                        "clip 1.0, 2000 warm-up steps then "
+                                        "cosine to 10%, f32 master weights",
+                              "depth_cut": f"32 -> {RECIPE_LAYERS} layers"})
+    spill = step._dynamics.spill(step._dyn_state, step=step._calls)
+    row.update(bus=records[-1] if records else None,
+               bus_summary=bus.summary(), plain_step_ms=plain["step_ms"],
+               plain_peak_mem_gb=plain["peak_mem_gb"],
+               recipe_minus_plain_ms=row["step_ms"] - plain["step_ms"],
+               dynamics_grad_norm=spill["grad_norm"],
+               lr_last=step.optimizer.get_lr(),
+               clip_factor_last=float(step.last_stats.factor))
+    emit(row)
+    bus_mfu = row["bus_summary"].get("mfu", 0.0)
+    if not records or abs(bus_mfu - row["mfu"]) > 0.05 * row["mfu"]:
+        raise AssertionError(f"the bus's MFU {bus_mfu} is not chip_smoke's "
+                             f"{row['mfu']}")
+    if row["peak_mem_gb"] >= 80:
+        raise AssertionError(f"train_recipe peak {row['peak_mem_gb']} GB")
+    del model, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, plain
+
+
 def phase_train_gqa(seed=5):
     """llama2_70b widths (hidden 8192, Hq 64 / Hkv 8, intermediate 28672)
     at 2 layers, bf16, recompute "dots"; B 1, S 2048, 1 warm-up and 3
@@ -2977,6 +3615,43 @@ def kernel_table(rows):
             "k1_whole_sequence_ms": main_row["k1_whole_ms"]["fwd"],
             "fwd_bwd_ms": main_row["kernel_ms"]["fwd_bwd"],
             "gqa_ms": rows["k6"][1]["kernel_ms"]["fwd"]})
+    if "grad_norm" in rows:
+        # the gradient list of 2 layers at 7B widths plus embedding and
+        # head, bf16, no scale
+        main_row = rows["grad_norm"][0]
+        table.append({
+            "name": "grad_sumsq", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/grad_norm.cu",
+            "replaces": "paddle_tpu/jit_api.py:328 (unscale, finite check "
+                        "and nn/clip.py:55 global norm, XLA-fused in the "
+                        "compiled step; no Pallas kernel)",
+            "launches": rows.get("train_recipe", {}).get("kernels", {}).get(
+                "grad_sumsq"),
+            "max_abs_err": main_row["max_abs_err"],
+            "max_rel_err": main_row["max_rel_err"],
+            "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "library": main_row["library"]})
+    if "adamw" in rows:
+        main_row = next(r for r in rows["adamw"]
+                        if r.get("instance") == "master")
+        table.append({
+            "name": "adamw_update_master", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/adamw.cu",
+            "replaces": "paddle_tpu/optimizer/optimizer.py:161 (AdamW on "
+                        "f32 master weights with the step's unscale and "
+                        "clip, XLA-fused; no Pallas kernel)",
+            "launches": rows.get("train_recipe", {}).get("kernels", {}).get(
+                "adamw_update"),
+            "max_abs_err": main_row["max_abs_err"],
+            "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "library": main_row["library"],
+            "ms_with_dynamics": main_row["kernel_ms_with_dynamics"]})
     if "adamw" in rows:
         main_row = rows["adamw"][0]    # bf16, as the 7B step runs it
         table.append({
@@ -2986,7 +3661,8 @@ def kernel_table(rows):
                         "in the compiled step; no Pallas kernel)",
             "launches": rows.get("train", {}).get("kernels", {}).get(
                 "adamw_update"),
-            "max_abs_err": max(r["max_abs_err"] for r in rows["adamw"]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows["adamw"]
+                               if "instance" not in r),
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
@@ -3047,6 +3723,8 @@ def main(argv=None):
         rows["k6"] = phase_k6()
     if runs("adamw"):
         rows["adamw"] = phase_adamw()
+    if runs("grad_norm"):
+        rows["grad_norm"] = phase_grad_norm()
     if runs("codec"):
         phase_codec()
     if runs("k4"):
@@ -3096,6 +3774,8 @@ def main(argv=None):
         phase_train_equal_s1024()
     if runs("train_cp_equal"):
         phase_train_cp_equal()
+    if runs("train_recipe_equal"):
+        rows["train_recipe_equal"] = phase_train_recipe_equal()
     if runs("train") or runs("train_packed") or runs("train_cp"):
         rows["train"], model, step, batches = phase_train()
         if runs("train_profile"):
@@ -3110,6 +3790,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if runs("train_gqa"):
         rows["train_gqa"] = phase_train_gqa()
+    if runs("train_recipe"):
+        rows["train_recipe"], rows["train_recipe_plain"] = \
+            phase_train_recipe()
 
     if only is not None:
         # a partial run drove only some phases: no kernel table and no

@@ -14,6 +14,13 @@ fused linear cross-entropy and AdamW, and flash attention forward and
 backward (MHA and GQA) as CUDA kernels. Slice 3 extends serving: int8 KV
 pools (the int8 codec, ``ops.quantization``, and int8-pool variants of the
 two serving kernels), sampling (``generation``) and the prefix cache.
+Slices 4 and 5 train on packed rows and under context parallelism;
+slices 6 to 9 redesign the kernels for Hopper. Slice 10 ports the
+training recipe: the lr schedulers, clipping, L1/L2 decay, master
+weights and the other optimizer rules (``optimizer``, ``nn.clip``), AMP
+(``amp``), the metrics bus and the dynamics telemetry (``utils``,
+``observability``), with a multi-tensor gradient-norm kernel
+(``ops.grad_norm``) and AdamW's master-weight instance.
 """
 from . import device
 

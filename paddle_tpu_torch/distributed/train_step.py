@@ -7,10 +7,10 @@ inputs sharded on ``sep`` when the model is context-parallel
 (``_batch_spec`` :112). The port runs ``TrainStep``'s eager step inside
 ``mesh_guard(mesh)``: the context-parallel model cuts its attention into
 the sep ranks' shards itself (``LlamaAttention._ring_attention``), and
-everything else is whole on the mesh's one device. Sharding stages, other
-batch axes, the AMP scaler, the metrics bus, snapshots and
-``full_state_dict`` raise NotImplementedError until a multi-card slice
-(ROADMAP.md §1 item 8).
+everything else is whole on the mesh's one device, the AMP scaler and the
+metrics bus as ``TrainStep`` runs them. Sharding stages, other batch axes,
+snapshots and ``full_state_dict`` raise NotImplementedError until a
+multi-card slice (ROADMAP.md §1 item 8).
 """
 from ..jit_api import TrainStep
 from .mesh import _LATER, get_mesh, mesh_guard
@@ -40,8 +40,6 @@ class DistributedTrainStep(TrainStep):
             "sharding_stage > 1": sharding_stage > 1,
             "batch_axes other than the reference's default":
                 tuple(batch_axes) != _BATCH_AXES,
-            "scaler (AMP)": scaler is not None,
-            "metrics_bus": metrics_bus is not None,
         }
         for what, is_set in refused.items():
             if is_set:
@@ -51,6 +49,7 @@ class DistributedTrainStep(TrainStep):
         self.batch_axes = tuple(batch_axes)
         devices = {d for d in self.mesh.devices.flat}
         super().__init__(model, loss_fn, optimizer, n_labels=n_labels,
+                         scaler=scaler, metrics_bus=metrics_bus,
                          accumulate_steps=accumulate_steps,
                          nonfinite_guard=nonfinite_guard,
                          nonfinite_tolerance=nonfinite_tolerance,

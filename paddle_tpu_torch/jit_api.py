@@ -3,16 +3,29 @@
 
 The reference traces forward, backward and the optimizer into one XLA
 program; the port runs them eagerly on the card: forward and ``loss_fn``
-through the model (the flash kernels inside), ``loss.backward()``, then the
-optimizer's update one parameter at a time. Grad clipping, the AMP loss
-scaler, dynamics telemetry, the watchdog, device profiling, the compile
-ledger and ``run_steps`` as one captured program come in a later slice of
-the port (see ROADMAP.md).
+through the model (the flash kernels inside), ``loss.backward()``, one
+launch of the gradient-norm kernel over every gradient
+(``ops.grad_norm``: the finite check, the loss scaler's unscale, the
+global-norm clip's factor and the dynamics' group sums, in one buffer),
+one host read of the skip flag, then the optimizer's update one parameter
+at a time (the AdamW kernel takes the scale and the clip factor from the
+device and applies them in registers). The reference's rounding points
+(:328-366) are kept: ``g / scale`` in f32, the finite check on those
+gradients, the clip on them, the cast to the updated weight's dtype.
+The watchdog, device profiling, the compile ledger and ``run_steps`` as
+one captured program come in a later slice of the port (ROADMAP.md).
 """
+import math
+
 import numpy as np
 import torch
 
 from .device import resolve
+from .nn.clip import ClipGradByGlobalNorm
+from .observability.dynamics import DynamicsMonitor
+from .observability.metrics import registry as _registry
+from .ops.adamw import UpdateNorms, transform_grad
+from .ops.grad_norm import grad_sumsq
 
 
 class NonFiniteLossError(FloatingPointError):
@@ -32,25 +45,38 @@ class TrainStep:
       and backward on each, sums the gradients in f32 and averages them,
       and makes one update (reference :286-327); the loss is the mean of
       the micro-batches' losses in f32;
-    - the non-finite guard (on unless ``nonfinite_guard=False``): a NaN or
-      Inf in the loss or in any gradient skips the whole update (weights,
-      optimizer slots and its step count hold) and counts it in
-      ``nonfinite`` {"consec", "total"}; after ``nonfinite_tolerance``
-      consecutive skips the step raises NonFiniteLossError. The check reads
-      one flag back from the card per step.
+    - ``scaler`` (``amp.GradScaler``): the backward is seeded with the
+      loss scale, the gradients are divided by it, a non-finite gradient
+      skips the update, and the scale moves by the scaler's state machine
+      on the device (reference :328-352);
+    - the optimizer's ``grad_clip`` runs on the unscaled gradients
+      (:360-363); the lr is ``optimizer.get_lr()`` before the update, and
+      a scheduler steps after every call, skipped or not (:645-647);
+    - the non-finite guard (default on without a scaler, off with one, as
+      the reference's): a NaN or Inf in the loss or in any gradient skips
+      the whole update (weights, optimizer slots and its step count hold)
+      and counts it in ``nonfinite`` {"consec", "total"}; after
+      ``nonfinite_tolerance`` consecutive skips the step raises
+      NonFiniteLossError;
+    - ``metrics_bus`` (``utils.metrics_bus.StepMetricsBus``) gets
+      ``on_step(loss=...)`` after every call (:655-660);
+    - ``PADDLE_DYNAMICS=1`` attaches a ``DynamicsMonitor`` (:232): its
+      carry moves every step and spills on its cadence (:576-596).
 
     ``device`` (default "cuda") is where the batch goes and where the
     model's parameters must already be; without CUDA it raises unless
     ``device="cpu"``."""
 
-    def __init__(self, model, loss_fn, optimizer, n_labels=1,
-                 accumulate_steps=1, nonfinite_guard=None,
+    def __init__(self, model, loss_fn, optimizer, n_labels=1, scaler=None,
+                 metrics_bus=None, accumulate_steps=1, nonfinite_guard=None,
                  nonfinite_tolerance=3, device="cuda"):
         self.device = resolve(device)
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.n_labels = n_labels
+        self.scaler = scaler
+        self.metrics_bus = metrics_bus
         self.accumulate_steps = int(accumulate_steps)
         if self.accumulate_steps < 1:
             raise ValueError(
@@ -63,24 +89,42 @@ class TrainStep:
                     f"TrainStep on {self.device}: parameter {name} is on "
                     f"{p.device}")
         optimizer.init_state(self._trainable)
-        on = nonfinite_guard is None or bool(nonfinite_guard)
+        self._scaler_state = (scaler.init_state(self.device)
+                              if scaler is not None else None)
         self._nf_tolerance = int(nonfinite_tolerance)
+        on = (scaler is None if nonfinite_guard is None
+              else bool(nonfinite_guard))
         self.nonfinite = ({"consec": 0, "total": 0}
                           if on and self._nf_tolerance > 0 else None)
+        self._dynamics = dyn = DynamicsMonitor.from_env(self._trainable)
+        self._dyn_state = dyn.init_state(self.device) if dyn else None
+        self._group = (dict(zip(self._trainable, dyn.group_index))
+                       if dyn else None)
+        self._dyn_since_check = 0
+        self._norms = None
+        self._calls = 0
+        #: the last step's gradient-norm kernel output (None when the step
+        #: needed none) and whether it skipped the update
+        self.last_stats = None
+        self.last_skipped = False
 
     def _tensor(self, b):
         t = torch.from_numpy(np.asarray(b)) if not isinstance(
             b, torch.Tensor) else b
         return t.to(self.device)
 
-    def _forward_backward(self, batch):
+    def _forward_backward(self, batch, scale):
         n = self.n_labels
         inputs = batch[:-n] if n else batch
         labels = batch[-n:] if n else ()
         out = self.model(*inputs)
         outs = out if isinstance(out, (tuple, list)) else (out,)
         loss = self.loss_fn(*outs, *labels)
-        loss.backward()
+        if scale is None:
+            loss.backward()
+        else:
+            # seed the cotangent with the loss scale (reference :272-274)
+            loss.backward((torch.ones_like(loss) * scale).to(loss.dtype))
         return loss.detach()
 
     def _grads(self):
@@ -89,7 +133,7 @@ class TrainStep:
             p.grad = None
         return grads
 
-    def _accumulated(self, batch):
+    def _accumulated(self, batch, scale):
         k = self.accumulate_steps
         bdim = batch[0].shape[0] if batch and batch[0].dim() else 0
         split = [b.dim() >= 1 and b.shape[0] == bdim and bdim % k == 0
@@ -101,7 +145,7 @@ class TrainStep:
         for i in range(k):
             micro = tuple(b.chunk(k)[i] if s else b
                           for b, s in zip(batch, split))
-            loss_sum += self._forward_backward(micro).float()
+            loss_sum += self._forward_backward(micro, scale).float()
             for name, g in self._grads().items():
                 if g is None:
                     continue
@@ -111,51 +155,180 @@ class TrainStep:
                     gsum[name] = g.float()
         return loss_sum / k, {n: g / k for n, g in gsum.items()}
 
-    def _skip(self, loss, grads):
-        """The non-finite guard: True when this update must be skipped."""
-        if self.nonfinite is None:
-            return False
-        flags = [torch.isfinite(loss).all()] + [
-            torch.isfinite(g).all() for g in grads.values() if g is not None]
-        skip = not bool(torch.stack(flags).all())
-        nf = self.nonfinite
-        nf["consec"] = nf["consec"] + 1 if skip else 0
-        nf["total"] += int(skip)
-        return skip
+    # -- the gradient checks: one kernel launch, one host read --------------
+    def _global_clip(self):
+        clip = self.optimizer._grad_clip
+        return clip if isinstance(clip, ClipGradByGlobalNorm) else None
 
-    def __call__(self, *batch):
+    def _stats(self, grads, scale):
+        """The gradient-norm kernel over every gradient, or None when the
+        step needs none of its outputs."""
+        clip = self._global_clip()
+        if (self.nonfinite is None and self.scaler is None and clip is None
+                and self._dynamics is None):
+            return None
+        names = [k for k, g in grads.items() if g is not None]
+        dyn = self._dynamics
+        return grad_sumsq(
+            [grads[k] for k in names], scale=scale,
+            clip_norm=clip.clip_norm if clip is not None else None,
+            groups=[self._group[k] for k in names] if dyn else None,
+            n_groups=len(dyn.group_names) if dyn else 0)
+
+    def _skip(self, loss, stats):
+        """Decide the skip (one host read) and move the scaler's state and
+        the guard's counters (reference :331-354)."""
+        if stats is None:
+            return False
+        finite = stats.any_nonfinite == 0
+        flags = []
+        if self.scaler is not None:
+            self._scaler_state = self.scaler.update_state(self._scaler_state,
+                                                          finite)
+            flags.append(~finite)
+        if self.nonfinite is not None:
+            flags.append(~(finite & torch.isfinite(loss.float()).all()))
+        if not flags:
+            return False
+        read = torch.stack(flags).tolist()
+        if self.nonfinite is not None:
+            nf_skip = read[-1]
+            nf = self.nonfinite
+            nf["consec"] = nf["consec"] + 1 if nf_skip else 0
+            nf["total"] += int(nf_skip)
+            if nf_skip:
+                _registry.counter("train.nonfinite_skips").inc()
+        return any(read)
+
+    def _update_norms(self):
+        if self._norms is None:
+            self._norms = UpdateNorms(self._trainable.values(),
+                                      self._dynamics.group_index,
+                                      len(self._dynamics.group_names))
+        return self._norms
+
+    def _step(self, batch, lr=None):
+        """Forward, backward, checks and update; returns the loss."""
         batch = tuple(self._tensor(b) for b in batch)
         self.model.train()
         for p in self._trainable.values():
             p.grad = None
+        scale = (self._scaler_state["scale"] if self.scaler is not None
+                 else None)
         if self.accumulate_steps == 1:
-            loss = self._forward_backward(batch)
+            loss = self._forward_backward(batch, scale)
             grads = self._grads()
         else:
-            loss, grads = self._accumulated(batch)
-        skip = self._skip(loss, grads)
-        self.optimizer.apply_gradients(
-            [(p, grads.get(k)) for k, p in self._trainable.items()],
-            skip_update=skip)
-        del grads
+            loss, grads = self._accumulated(batch, scale)
+        stats = self._stats(grads, scale)
+        skip = self._skip(loss, stats)
+        clip, factor = self.optimizer._grad_clip, None
+        if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
+            # a per-tensor clip runs on the unscaled gradients in plain
+            # PyTorch; the update then takes them as they are
+            pairs = clip([(p, None if grads.get(k) is None
+                           else transform_grad(grads[k], scale))
+                          for k, p in self._trainable.items()])
+            scale = None
+        else:
+            pairs = [(p, grads.get(k)) for k, p in self._trainable.items()]
+            if clip is not None:
+                factor = stats.factor
+        dyn = self._dynamics
+        norms = self._update_norms() if dyn is not None and not skip \
+            else None
+        if norms is not None:
+            norms.begin()
+        self.optimizer.apply_gradients(pairs, skip_update=skip, scale=scale,
+                                       factor=factor, norms=norms, lr=lr)
+        del grads, pairs
+        if dyn is not None:
+            self._dynamics_update(loss, stats, norms)
+        self.last_stats, self.last_skipped = stats, skip
+        return loss
+
+    def _dynamics_update(self, loss, stats, norms):
+        """Move the dynamics carry: the gradients' group sums from this
+        step's kernel output; the parameters' and the update's from the
+        update kernels' epilogue, or on a skipped step from one
+        gradient-norm launch over the parameters (no update)."""
+        dyn = self._dynamics
+        n, g = len(self._trainable), len(dyn.group_names)
+        if norms is not None:
+            out = norms.reduce()
+            psq, usq = out[0, n:n + g], out[1, n:n + g]
+        else:
+            psq = grad_sumsq(list(self._trainable.values()),
+                             groups=dyn.group_index, n_groups=g).group_sums
+            usq = torch.zeros_like(psq)
+        self._dyn_state = dyn.update(self._dyn_state, loss, stats.group_sums,
+                                     stats.group_nonfinite, psq, usq)
+
+    def _after(self, loss, batch, ticks=1):
+        """The host epilogue of ``ticks`` steps (reference :642-660): the
+        scheduler, the guard's tolerance, the dynamics spill and, after a
+        single step (``batch`` given), the bus."""
+        sched = self.optimizer._learning_rate_scheduler
+        for _ in range(ticks):
+            if sched is not None:
+                sched.step()
         nf = self.nonfinite
         if nf is not None and nf["consec"] >= self._nf_tolerance:
+            prov = (self._dynamics.provenance(self._dyn_state)
+                    if self._dynamics is not None else None)
+            where = ""
+            if prov:
+                where = (f"; first non-finite gradients in layer group(s) "
+                         f"{', '.join(prov['first_groups']) or '<loss>'} "
+                         f"at update {prov['first_update']}")
             raise NonFiniteLossError(
                 f"loss/grads non-finite for {nf['consec']} consecutive steps "
                 f"(tolerance {self._nf_tolerance}, {nf['total']} skipped "
-                "updates in all); every skipped update left the weights "
-                "untouched: lower the learning rate or check the data")
+                f"updates in all){where}; every skipped update left the "
+                "weights untouched: lower the learning rate or check the "
+                "data")
+        self._dyn_check(n=ticks)
+        bus = self.metrics_bus
+        if bus is not None and batch is not None:
+            if bus.tokens_per_step is None and batch:
+                bus.tokens_per_step = int(math.prod(np.shape(batch[0])))
+            bus.on_step(loss=loss)
+
+    def _dyn_check(self, force=False, n=1):
+        """Spill the dynamics carry once per ``every`` steps (the read
+        synchronises on the step, so it is cadence-gated)."""
+        if self._dynamics is None:
+            return
+        self._dyn_since_check += n
+        if not force and self._dyn_since_check < self._dynamics.every:
+            return
+        self._dyn_since_check = 0
+        self._dynamics.spill(self._dyn_state, step=self._calls)
+        self._dyn_state = self._dynamics.reset_window(self._dyn_state)
+
+    def __call__(self, *batch):
+        loss = self._step(batch)
+        self._calls += 1
+        self._after(loss, batch)
         return loss
 
     def run_steps(self, *batch, n, stacked=False):
         """n steps; with ``stacked`` each batch array carries a leading [n]
-        dim, one batch per step, else the same batch every step. Returns
-        the [n] losses on the device."""
+        dim, one batch per step, else the same batch every step. As the
+        reference's one dispatch does (:483-510), the n steps share the lr
+        read before the first, and a scheduler then steps n times. Returns
+        the [n] losses on the device. The metrics bus is not told, as the
+        reference's ``run_steps`` does not tell it."""
         if stacked:
             for b in batch:
                 if np.shape(b)[0] != n:
                     raise ValueError(f"stacked run_steps: leading dim "
                                      f"{np.shape(b)[0]} != n={n}")
-        losses = [self(*(tuple(b[i] for b in batch) if stacked else batch))
-                  for i in range(n)]
+        lr = self.optimizer.get_lr()
+        losses = []
+        for i in range(n):
+            step_batch = tuple(b[i] for b in batch) if stacked else batch
+            losses.append(self._step(step_batch, lr=lr))
+            self._calls += 1
+        self._after(losses[-1], None, ticks=n)
         return torch.stack(losses)

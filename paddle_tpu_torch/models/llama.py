@@ -33,6 +33,7 @@ from ..nn.functional import (
     fused_rotary_position_embedding, rope_tables, scaled_dot_product_attention,
     swiglu,
 )
+from ..nn.functional.common import linear
 from ..nn.norm import RMSNorm
 from ..ops.flash_attention import (
     flash_attention_fwd, flash_attention_packed, pack_segments,
@@ -52,6 +53,8 @@ _PACKED_CP = ("packed segment_ids do not compose with context_parallel: "
               "a packed row's segments do not follow the sep shards")
 _CP_MASK = ("context_parallel attention is causal-only: padding masks are "
             "not supported on the ring path (pack sequences instead)")
+_PACKED_MASK = ("packed segment_ids and attention_mask are exclusive — give "
+                "padding its own segment id instead")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -157,8 +160,26 @@ def llama_tiny(**kw):
     return LlamaConfig(**kw)
 
 
+class _Linear(nn.Linear):
+    """A bias-free projection through ``nn.functional.common.linear``,
+    whose inputs the autocast mode casts first, as the reference's
+    projections do (nn/functional/common.py:17-28)."""
+
+    def forward(self, x):
+        return linear(x, self.weight.t())
+
+
 def _linear(in_f, out_f, **kw):
-    return nn.Linear(in_f, out_f, bias=False, **kw)
+    return _Linear(in_f, out_f, bias=False, **kw)
+
+
+def padding_mask(attention_mask):
+    """A [B, S] padding mask (1 keep, 0 pad) as the additive [B, 1, 1, S]
+    mask the reference adds on top of causal (:313-318); any other mask is
+    taken as it is."""
+    if attention_mask.dim() != 2:
+        return attention_mask
+    return (1.0 - attention_mask.float()[:, None, None, :]) * -1e9
 
 
 class LlamaAttention(nn.Module):
@@ -189,11 +210,16 @@ class LlamaAttention(nn.Module):
           ``flash_attention_packed`` (K3 on the card). Context parallel
           (``_use_context_parallel``): rope over the global positions,
           then ``_ring_attention`` over the sep shards; packed segment
-          ids raise. A padding ``attention_mask`` raises: under context
-          parallel with the reference's words, elsewhere as a later slice
-          of the port. Returns (out, None);
+          ids raise. A padding ``attention_mask`` ([B, S], 1 keep, 0 pad,
+          or an additive mask) adds ``padding_mask`` on top of causal and
+          takes the masked plain attention, which the reference also
+          computes outside its Pallas kernels; with ``segment_ids`` or
+          under context parallel it raises with the reference's words.
+          Returns (out, None);
         - PagedLayerCache: decode-only (S == 1); the new token's K/V land in
-          the pool, then paged decode attention (K5);
+          the pool, then paged decode attention (K5); as in the reference,
+          the paged and ragged caches take no ``attention_mask`` (their
+          lengths say which keys exist) and ignore one;
         - RaggedLayerCache: S is a packed mixed prefill+decode stream
           (B == 1); the stream's K/V land in the pool, then ragged paged
           attention (K4).
@@ -220,10 +246,10 @@ class LlamaAttention(nn.Module):
         if past_key_value is None:
             cp = self._use_context_parallel(past_key_value)
             if attention_mask is not None:
+                if segment_ids is not None:
+                    raise ValueError(_PACKED_MASK)
                 if cp:
                     raise ValueError(_CP_MASK)
-                raise NotImplementedError(
-                    f"LlamaAttention: a padding attention_mask {_LATER}")
             if segment_ids is not None:
                 if cp:
                     raise ValueError(_PACKED_CP)
@@ -239,8 +265,10 @@ class LlamaAttention(nn.Module):
             elif cp:
                 out = self._ring_attention(q, k, v)
             else:
-                out = scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   training=self.training)
+                out = scaled_dot_product_attention(
+                    q, k, v, attn_mask=None if attention_mask is None
+                    else padding_mask(attention_mask), is_causal=True,
+                    training=self.training)
             out = out.reshape(B, S, self.num_heads * self.head_dim)
             return self.o_proj(out), None
         if position_ids is None:
@@ -378,8 +406,8 @@ class LlamaModel(nn.Module):
         layer attends within segments, and rope restarts at each segment's
         start unless ``position_ids`` are given (reference :497-504). The
         ids' positions and K3's tile tables are prepared here once
-        (``pack_segments``) for every layer. ``attention_mask``: refused
-        (``LlamaAttention``)."""
+        (``pack_segments``) for every layer. ``attention_mask``: a padding
+        mask for every layer (``LlamaAttention``)."""
         if segment_ids is not None:
             if past_key_values is not None:
                 raise ValueError(_PACKED_CACHE)
@@ -389,6 +417,9 @@ class LlamaModel(nn.Module):
                 position_ids = segment_ids.position_ids
         h = self.embed_tokens(input_ids)
         if past_key_values is None:
+            if attention_mask is not None:
+                attention_mask = torch.as_tensor(attention_mask,
+                                                 device=input_ids.device)
             remat = self.config.use_recompute and self.training
             for layer in self.layers:
                 if remat:
@@ -482,13 +513,12 @@ class LlamaForCausalLM(nn.Module):
         fused and training without labels, (hidden, lm weight) for a loss
         function; otherwise the logits, or their loss given labels.
         ``segment_ids`` [B, S]: SFT-packed rows (``LlamaModel``); refused
-        with caches. ``attention_mask``: refused (``LlamaAttention``)."""
+        with caches. ``attention_mask``: a padding mask on the training
+        path (``LlamaAttention``); the paged and ragged caches ignore it,
+        as the reference's do."""
         if past_key_values is not None:
             if segment_ids is not None:
                 raise ValueError(_PACKED_CACHE)
-            if attention_mask is not None:
-                raise NotImplementedError(
-                    f"LlamaForCausalLM: a padding attention_mask {_LATER}")
             h, presents = self.llama(input_ids, position_ids, past_key_values)
             return self.head(h), presents
         h = self.llama(input_ids, position_ids, segment_ids=segment_ids,

@@ -1,4 +1,5 @@
-"""Attention ops of the serving and training paths, each with a
-hand-written CUDA kernel (``csrc/``, built by ``_build``) and its plain
-PyTorch version; the int8 KV codec of the serving pools
-(``quantization``)."""
+"""Attention ops of the serving and training paths and the training
+step's own (the AdamW update, ``adamw``; the multi-tensor gradient norm,
+``grad_norm``), each with a hand-written CUDA kernel (``csrc/``, built by
+``_build``) and its plain PyTorch version; the int8 KV codec of the
+serving pools (``quantization``)."""

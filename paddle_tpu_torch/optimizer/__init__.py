@@ -1,6 +1,15 @@
-"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``; slice 2:
-the base class, Adam and AdamW)."""
-from .optimizer import L2Decay, Optimizer
-from .optimizers import Adam, AdamW
+"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``): the
+base class with schedulers, clipping, L1/L2 decay, param groups and master
+weights, the thirteen rules, and the learning-rate schedulers (``lr``).
+``LBFGS`` comes in a later slice (ROADMAP.md)."""
+from . import lr
+from ..regularizer import L1Decay, L2Decay
+from .optimizer import Optimizer
+from .optimizers import (
+    ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Momentum, NAdam,
+    RAdam, RMSProp, Rprop,
+)
 
-__all__ = ["Optimizer", "L2Decay", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "L1Decay", "L2Decay", "SGD", "Momentum",
+           "Adam", "AdamW", "Adagrad", "RMSProp", "Adadelta", "Adamax",
+           "Lamb", "NAdam", "RAdam", "Rprop", "ASGD"]

@@ -1,0 +1,316 @@
+"""Learning-rate schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``).
+
+Pure Python, as in the reference: each scheduler's ``get_lr`` is the
+reference's arithmetic line for line, so the port's lr sequences are equal
+to the reference's, not close. An optimizer given a scheduler as its
+``learning_rate`` reads ``scheduler()`` at every update; ``TrainStep``
+steps the scheduler after every call (reference jit_api.py:645-647).
+"""
+import math
+
+
+class LRScheduler:
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+        self.base_lr = learning_rate
+        self.last_epoch = last_epoch
+        self.verbose = verbose
+        self.last_lr = learning_rate
+        self.step()
+
+    def __call__(self):
+        return self.last_lr
+
+    def step(self, epoch=None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+
+    def get_lr(self):
+        raise NotImplementedError
+
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items() if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, state_dict):
+        self.__dict__.update(state_dict)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1, verbose=False):
+        self.d_model, self.warmup_steps = d_model, warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch == 0:
+            return 0.0
+        a = self.last_epoch**-0.5
+        b = self.warmup_steps**-1.5 * self.last_epoch
+        return self.base_lr * (self.d_model**-0.5) * min(a, b)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries, self.values = boundaries, values
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0, cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps, self.end_lr, self.power, self.cycle = decay_steps, end_lr, power, cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        if self.cycle:
+            div = math.ceil(t / self.decay_steps) if t > 0 else 1
+            steps = self.decay_steps * div
+        else:
+            steps = self.decay_steps
+            t = min(t, steps)
+        return (self.base_lr - self.end_lr) * (1 - t / steps) ** self.power + self.end_lr
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr, last_epoch=-1, verbose=False):
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        self.final_lr = learning_rate if not isinstance(learning_rate, LRScheduler) else None
+        self.warmup_steps, self.start_lr, self.end_lr = warmup_steps, start_lr, end_lr
+        super().__init__(start_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * self.last_epoch / self.warmup_steps + self.start_lr
+        if self.lr_sched is not None:
+            self.lr_sched.step()
+            return self.lr_sched()
+        return self.final_lr
+
+    def state_dict(self):
+        sd = super().state_dict()
+        if self.lr_sched is not None:
+            sd["LinearWarmup_LR"] = self.lr_sched.state_dict()
+        return sd
+
+    def set_state_dict(self, sd):
+        inner = sd.pop("LinearWarmup_LR", None)
+        super().set_state_dict(sd)
+        if inner and self.lr_sched is not None:
+            self.lr_sched.set_state_dict(inner)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma**self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1, verbose=False):
+        self.milestones, self.gamma = milestones, gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma**n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1, verbose=False):
+        self.step_size, self.gamma = step_size, gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+    def state_dict(self):
+        return {k: v for k, v in super().state_dict().items() if k != "lr_lambda"}
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = learning_rate
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10, threshold=1e-4,
+                 threshold_mode="rel", cooldown=0, min_lr=0, epsilon=1e-8, verbose=False):
+        self.mode, self.factor, self.patience = mode, factor, patience
+        self.threshold, self.threshold_mode = threshold, threshold_mode
+        self.cooldown, self.min_lr, self.epsilon = cooldown, min_lr, epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = learning_rate
+        self.last_lr = learning_rate
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def step(self, metrics=None, epoch=None):
+        self.last_epoch += 1
+        if metrics is None:
+            return
+        current = float(metrics.item() if hasattr(metrics, "item") else metrics)
+        if self.best is None or self._is_better(current):
+            self.best = current
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            self.last_lr = max(self.last_lr * self.factor, self.min_lr)
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+    def _is_better(self, current):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return current < self.best * (1 - self.threshold)
+            return current < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return current > self.best * (1 + self.threshold)
+        return current > self.best + self.threshold
+
+    def get_lr(self):
+        return self.last_lr
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_max, self.eta_min = T_max, eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+        )
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_0, self.T_mult, self.eta_min = T_0, T_mult, eta_min
+        self.T_cur = last_epoch
+        self.T_i = T_0
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        T_i, T_0 = self.T_0, self.T_0
+        while t >= T_i:
+            t -= T_i
+            T_i = T_i * self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / T_i)) / 2
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0, end_learning_rate=0.0001,
+                 phase_pct=0.3, anneal_strategy="cos", three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        up = int(self.phase_pct * self.total_steps)
+        t = min(self.last_epoch, self.total_steps)
+
+        def _interp(a, b, pct):
+            if self.anneal == "cos":
+                return b + (a - b) * (1 + math.cos(math.pi * pct)) / 2
+            return a + (b - a) * pct
+
+        if t <= up:
+            return _interp(self.initial_lr, self.max_lr, t / max(up, 1))
+        return _interp(self.max_lr, self.end_lr, (t - up) / max(self.total_steps - up, 1))
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up, step_size_down=None,
+                 mode="triangular", exp_gamma=1.0, scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.up = step_size_up
+        self.down = step_size_down if step_size_down is not None else step_size_up
+        self.mode, self.exp_gamma = mode, exp_gamma
+        self.scale_fn, self.scale_mode = scale_fn, scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.up + self.down
+        cycle = self.last_epoch // total
+        pos = self.last_epoch % total
+        if pos <= self.up:
+            pct = pos / self.up if self.up else 0.0
+        else:
+            pct = 1 - (pos - self.up) / self.down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp = amp / (2**cycle)
+        elif self.mode == "exp_range":
+            amp = amp * self.exp_gamma**self.last_epoch
+        elif self.scale_fn is not None:
+            amp = amp * self.scale_fn(cycle if self.scale_mode == "cycle" else self.last_epoch)
+        return self.base_lr + amp
+
+
+class LinearLR(LRScheduler):
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3, end_factor=1.0, last_epoch=-1, verbose=False):
+        self.total_steps, self.start_factor, self.end_factor = total_steps, start_factor, end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(self.last_epoch, self.total_steps)
+        factor = self.start_factor + (self.end_factor - self.start_factor) * t / self.total_steps
+        return self.base_lr * factor

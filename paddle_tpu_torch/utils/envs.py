@@ -1,0 +1,42 @@
+"""Environment readers of the port (the port's own copy of
+``paddle_tpu/utils/envs.py``).
+
+The only module of ``paddle_tpu_torch`` that reads the environment. The
+names it is asked for switch telemetry on and set its cadence
+(``PADDLE_DYNAMICS*``, ``observability.dynamics``); none picks a kernel
+or its plain version, which the tensor's device alone decides. A garbage
+value reads as the default, so a typo'd variable never stops a process.
+"""
+import os
+
+__all__ = ["env_int", "env_float", "env_bool"]
+
+#: truthy spellings for env_bool — everything else (including unset and
+#: garbage) is False unless a different default is passed
+_TRUE = ("1", "true", "yes", "on")
+
+
+def env_int(name, default):
+    """int(os.environ[name]) with ``default`` for unset/empty/garbage —
+    config knobs must never crash a process over a typo'd env var."""
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def env_float(name, default):
+    """float(os.environ[name]) with ``default`` for unset/empty/garbage."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def env_bool(name, default=False):
+    """True for '1'/'true'/'yes'/'on' (case-insensitive), False for any
+    other SET value, ``default`` when unset/empty."""
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    return raw.strip().lower() in _TRUE

@@ -3,7 +3,10 @@ the device or the kernel.
 
 - importing the package (every module of it) pulls in neither ``jax`` nor
   ``paddle_tpu``, and no module of the package or ``chip_smoke.py``
-  imports either, nor reads an environment variable;
+  imports either, nor reads an environment variable: only
+  ``utils/envs.py`` reads one, for the dynamics telemetry's
+  ``PADDLE_DYNAMICS*`` switches alone, so no variable picks a kernel or
+  its plain version (``chip_smoke.py`` may set those switches);
 - entry points default to the card: without CUDA they raise unless the
   caller asks for the CPU by name;
 - a kernel wrapper given a CUDA tensor launches its kernel or raises: when
@@ -12,9 +15,10 @@ the device or the kernel.
   tensor, so no card is needed. That holds for the serving kernels (their
   int8-pool variants too) and for every flash-attention entry, forward and
   backward, the flash dispatch itself, K3's segment-masked entries and the
-  packed dispatch, K6's ring visit and the ring's backward dispatch, and
-  the AdamW update; a K/V pool pair of one int8 and one float pool is
-  refused;
+  packed dispatch, K6's ring visit and the ring's backward dispatch, the
+  AdamW update (its plain and its general, master-weight instance) and
+  the gradient-norm kernel; a K/V pool pair of one int8 and one float
+  pool is refused;
 - the training entry points (``LlamaForCausalLM``, ``TrainStep``,
   ``DistributedTrainStep`` and its default mesh) default to the card too.
 """
@@ -38,6 +42,7 @@ from paddle_tpu_torch.models.llama import (
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import adamw as tadamw
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops import grad_norm as tgn
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
@@ -90,14 +95,56 @@ def test_source_imports_neither_jax_nor_reference(path):
     assert bad == []
 
 
+ENV_READER = PKG / "utils" / "envs.py"
+
+
+def _environment_reads(tree):
+    """Lines that read the environment: any ``environ``/``getenv``
+    attribute but the target of an assignment or a ``del``."""
+    writes = {id(n.value) for n in ast.walk(tree)
+              if isinstance(n, ast.Subscript)
+              and isinstance(n.ctx, (ast.Store, ast.Del))}
+    return [n.lineno for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute)
+            and n.attr in ("environ", "getenv", "environb")
+            and id(n) not in writes]
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_reads_no_environment_variable(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    reads = [n.lineno for n in ast.walk(tree)
-             if isinstance(n, ast.Attribute)
-             and n.attr in ("environ", "getenv", "environb")]
-    assert reads == []
+    if path == ENV_READER:
+        return
+    assert _environment_reads(tree) == []
+    if path.parent == ROOT:       # chip_smoke.py sets the telemetry's
+        writes = [n.slice.value for n in ast.walk(tree)
+                  if isinstance(n, ast.Subscript)
+                  and isinstance(n.ctx, (ast.Store, ast.Del))
+                  and getattr(n.value, "attr", None) == "environ"]
+        assert all(w.startswith("PADDLE_DYNAMICS") for w in writes), writes
+    else:                         # the package writes none
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                    and n.attr in ("environ", "putenv", "unsetenv")]
+
+
+def test_only_the_dynamics_reads_the_environment():
+    """The env readers are called from ``observability/dynamics.py`` alone,
+    with its ``PADDLE_DYNAMICS*`` names."""
+    from paddle_tpu_torch.observability import dynamics
+
+    readers = {"env_int", "env_float", "env_bool"}
+    callers = set()
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        if any(isinstance(n, ast.Call)
+               and getattr(n.func, "id", None) in readers
+               for n in ast.walk(tree)):
+            callers.add(path.relative_to(PKG).as_posix())
+    assert callers == {"observability/dynamics.py"}
+    names = [v for k, v in vars(dynamics).items() if k.endswith("_ENV")]
+    assert len(names) == 6
+    assert all(n.startswith("PADDLE_DYNAMICS") for n in names)
 
 
 @pytest.fixture
@@ -151,6 +198,8 @@ def library_missing(monkeypatch):
     monkeypatch.setattr(tfa, "_ring_merge_math", plain_forbidden)
     monkeypatch.setattr(tra, "_visit_bwd_math", plain_forbidden)
     monkeypatch.setattr(tadamw, "_adamw_math", plain_forbidden)
+    monkeypatch.setattr(tadamw, "_adamw_plain", plain_forbidden)
+    monkeypatch.setattr(tgn, "_sumsq_math", plain_forbidden)
 
 
 def test_ragged_wrapper_raises_without_its_kernel(library_missing):
@@ -282,6 +331,24 @@ def test_adamw_wrapper_raises_without_its_kernel(library_missing):
         tadamw.adamw_update(p, p, p, p, lr=1e-4, beta1=0.9, beta2=0.999,
                             eps=1e-8, step=1)
     assert tadamw.adamw_update.launches == n
+
+
+def test_adamw_master_instance_raises_without_its_kernel(library_missing):
+    n = tadamw.adamw_update.launches
+    p = _CudaStub(4, 8)
+    with pytest.raises(_build.KernelBuildError, match="adamw"):
+        tadamw.adamw_update(p, p, p, p, lr=1e-4, beta1=0.9, beta2=0.95,
+                            eps=1e-5, step=1, master=p, scale=p,
+                            grad_factor=p)
+    assert tadamw.adamw_update.launches == n
+
+
+def test_grad_norm_wrapper_raises_without_its_kernel(library_missing):
+    n = tgn.grad_sumsq.launches
+    g = _CudaStub(4, 8)
+    with pytest.raises(_build.KernelBuildError, match="grad_norm"):
+        tgn.grad_sumsq([g, g], clip_norm=1.0)
+    assert tgn.grad_sumsq.launches == n
 
 
 def test_build_raises_when_nvcc_is_missing(monkeypatch, tmp_path):

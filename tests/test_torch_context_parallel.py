@@ -21,6 +21,8 @@ order only), save the capped exemption below:
 - the reference's own oracle (tests/test_context_parallel.py:34-57): the
   loss under the sep mesh equals the loss with no mesh within rtol 2e-5,
   atol 2e-6;
+- a [B, S] padding ``attention_mask`` with no mesh: logits (rtol 1e-5,
+  atol 1e-5), loss and gradients at the limits above;
 - every refusal raises with the reference's words where it has them.
 """
 import numpy as np
@@ -244,6 +246,55 @@ def test_cp_step_takes_the_ring_every_layer_forward_and_recompute(
     assert calls == {"visit": 2 * 2 * 10, "visit_bwd": 2 * 10}
 
 
+MASK_CASES = {
+    "plain": dict(),
+    "recompute-gqa": dict(TRAIN_KW, num_key_value_heads=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_attention_mask_matches_reference(case):
+    """A [B, S] padding mask on the causal path with no mesh (the
+    reference's additive [B, 1, 1, S] mask on top of causal, :313-318):
+    logits, the loss and every gradient against the reference's, within
+    this module's limits; and the mask changes the padded row."""
+    kw = MASK_CASES[case]
+    jm = _jax_model(**kw)
+    tm = _port_of(jm, **kw)
+    x, y = _batch(5)
+    mask = np.ones(x.shape, np.int64)
+    mask[1, -9:] = 0                  # row 1's last 9 tokens are padding
+    jm.eval()
+    tm.eval()
+    with torch.no_grad():
+        tl = tm(torch.from_numpy(x), attention_mask=torch.from_numpy(mask))
+        plain = tm(torch.from_numpy(x))
+    jl = jm(paddle.to_tensor(x), attention_mask=paddle.to_tensor(mask))
+    if isinstance(jl, tuple):
+        jl = jl[0]
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl._data), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(tl[0], plain[0])    # row 0 has no padding
+    assert not torch.allclose(tl[1], plain[1])
+    jm.train()
+    tm.train()
+    jloss = jm(paddle.to_tensor(x), attention_mask=paddle.to_tensor(mask),
+               labels=paddle.to_tensor(y))
+    jloss.backward()
+    tloss = tm(torch.from_numpy(x), attention_mask=torch.from_numpy(mask),
+               labels=torch.from_numpy(y))
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss), float(np.asarray(jloss._data)),
+                               rtol=1e-5)
+    linear = _linear_names(tm)
+    jgrads = {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
+    for name, p in tm.named_parameters():
+        g = p.grad.numpy()
+        g = g.T if name in linear else g
+        np.testing.assert_allclose(g, jgrads[name], rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
 def _refusal_model(**kw):
     return LlamaForCausalLM(llama_tiny(num_hidden_layers=1,
                                        context_parallel=True, **kw),
@@ -273,12 +324,15 @@ REFUSALS = {
         lambda: _run_in_mesh(lambda: _refusal_model()(
             _ids(), attention_mask=torch.ones(2, 32)))),
     "padding-mask-no-mesh": (
-        NotImplementedError, "attention_mask comes in a later slice",
-        lambda: _refusal_model()(_ids(), attention_mask=torch.ones(2, 32))),
+        ValueError, "segment_ids and attention_mask are exclusive",
+        lambda: _refusal_model()(
+            _ids(), attention_mask=torch.ones(2, 32),
+            segment_ids=torch.zeros(2, 32, dtype=torch.int32))),
     "padding-mask-cache": (
-        NotImplementedError, "attention_mask comes in a later slice",
-        lambda: _refusal_model()(_ids(), past_key_values=[None],
-                                 attention_mask=torch.ones(2, 32))),
+        ValueError, "packing is a training path",
+        lambda: _refusal_model()(
+            _ids(), past_key_values=[None], attention_mask=torch.ones(2, 32),
+            segment_ids=torch.zeros(2, 32, dtype=torch.int32))),
     "segment-ids": (
         ValueError, "do not compose with context_parallel",
         lambda: _run_in_mesh(lambda: _refusal_model()(
