@@ -27,8 +27,7 @@ class DistributedTrainStep(TrainStep):
 
     def __init__(self, model, loss_fn, optimizer, n_labels=1, scaler=None,
                  mesh=None, sharding_stage=1, batch_axes=_BATCH_AXES,
-                 metrics_bus=None, accumulate_steps=1, nonfinite_guard=None,
-                 nonfinite_tolerance=3):
+                 metrics_bus=None, accumulate_steps=1, nonfinite_guard=None):
         self.mesh = mesh if mesh is not None else get_mesh()
         wider = {a: n for a, n in self.mesh.shape.items()
                  if a != "sep" and n > 1}
@@ -52,7 +51,6 @@ class DistributedTrainStep(TrainStep):
                          scaler=scaler, metrics_bus=metrics_bus,
                          accumulate_steps=accumulate_steps,
                          nonfinite_guard=nonfinite_guard,
-                         nonfinite_tolerance=nonfinite_tolerance,
                          device=next(iter(devices)))
 
     def _sep(self):
@@ -62,17 +60,30 @@ class DistributedTrainStep(TrainStep):
                      False)
         return self.mesh.shape.get("sep", 1) if cp else 1
 
-    def __call__(self, *batch):
+    def _check_sequence(self, batch, dim):
+        """Every batch array of rank > ``dim`` has its sequence dim
+        ``dim`` divisible by the sep ranks."""
         sep = self._sep()
         for b in batch:
             shape = getattr(b, "shape", ())
-            if len(shape) >= 2 and shape[1] % sep:
+            if len(shape) > dim and shape[dim] % sep:
                 raise ValueError(
-                    f"context_parallel: sequence length {shape[1]} is not "
+                    f"context_parallel: sequence length {shape[dim]} is not "
                     f"divisible by the sep axis size {sep} — pad the "
                     "sequence or change the mesh")
+
+    def __call__(self, *batch):
+        self._check_sequence(batch, 1)
         with mesh_guard(self.mesh):
             return super().__call__(*batch)
+
+    def run_steps(self, *batch, n, stacked=False):
+        """``TrainStep.run_steps`` under the mesh (reference :364): the n
+        steps go through the sep ring as ``__call__``'s do. A stacked
+        batch carries its sequence dim one to the right."""
+        self._check_sequence(batch, 2 if stacked else 1)
+        with mesh_guard(self.mesh):
+            return super().run_steps(*batch, n=n, stacked=stacked)
 
     def full_state_dict(self):
         raise NotImplementedError(

@@ -21,11 +21,20 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .utils.envs import env_int
 from .nn.clip import ClipGradByGlobalNorm
 from .observability.dynamics import DynamicsMonitor
 from .observability.metrics import registry as _registry
 from .ops.adamw import UpdateNorms, transform_grad
 from .ops.grad_norm import grad_sumsq
+
+#: consecutive non-finite (NaN/Inf loss or grads) steps tolerated before the
+#: guard raises NonFiniteLossError; <= 0 turns the guard off (reference
+#: jit_api.py:28-30)
+NONFINITE_TOLERANCE_ENV = "PADDLE_NONFINITE_TOLERANCE"
+#: the host checks the guard's counters every this many dispatches;
+#: default max(tolerance, 16) (reference :31-33)
+NONFINITE_CHECK_ENV = "PADDLE_NONFINITE_CHECK_EVERY"
 
 
 class NonFiniteLossError(FloatingPointError):
@@ -53,11 +62,16 @@ class TrainStep:
       (:360-363); the lr is ``optimizer.get_lr()`` before the update, and
       a scheduler steps after every call, skipped or not (:645-647);
     - the non-finite guard (default on without a scaler, off with one, as
-      the reference's): a NaN or Inf in the loss or in any gradient skips
-      the whole update (weights, optimizer slots and its step count hold)
-      and counts it in ``nonfinite`` {"consec", "total"}; after
-      ``nonfinite_tolerance`` consecutive skips the step raises
-      NonFiniteLossError;
+      the reference's; off with ``PADDLE_NONFINITE_TOLERANCE`` <= 0): a
+      NaN or Inf in the loss or in any gradient skips the whole update
+      (weights, optimizer slots and its step count hold) and counts it in
+      ``nonfinite`` {"consec", "total"}. As in the reference (:512-566),
+      the counters are checked every ``PADDLE_NONFINITE_CHECK_EVERY``
+      dispatches (default max(tolerance, 16); after ``run_steps``
+      always): the check adds the new skips to ``train.nonfinite_skips``
+      and raises NonFiniteLossError once ``consec`` has reached
+      ``PADDLE_NONFINITE_TOLERANCE`` (default 3). The update's skip itself
+      is read every step (the optimizer counts its steps on the host);
     - ``metrics_bus`` (``utils.metrics_bus.StepMetricsBus``) gets
       ``on_step(loss=...)`` after every call (:655-660);
     - ``PADDLE_DYNAMICS=1`` attaches a ``DynamicsMonitor`` (:232): its
@@ -69,7 +83,7 @@ class TrainStep:
 
     def __init__(self, model, loss_fn, optimizer, n_labels=1, scaler=None,
                  metrics_bus=None, accumulate_steps=1, nonfinite_guard=None,
-                 nonfinite_tolerance=3, device="cuda"):
+                 device="cuda"):
         self.device = resolve(device)
         self.model = model
         self.loss_fn = loss_fn
@@ -91,11 +105,15 @@ class TrainStep:
         optimizer.init_state(self._trainable)
         self._scaler_state = (scaler.init_state(self.device)
                               if scaler is not None else None)
-        self._nf_tolerance = int(nonfinite_tolerance)
+        self._nf_tolerance = env_int(NONFINITE_TOLERANCE_ENV, 3)
         on = (scaler is None if nonfinite_guard is None
               else bool(nonfinite_guard))
         self.nonfinite = ({"consec": 0, "total": 0}
                           if on and self._nf_tolerance > 0 else None)
+        self._nf_check_every = max(1, env_int(
+            NONFINITE_CHECK_ENV, max(self._nf_tolerance, 16)))
+        self._nf_reported = 0     # skips already added to the registry
+        self._nf_since_check = 0  # dispatches since the last check
         self._dynamics = dyn = DynamicsMonitor.from_env(self._trainable)
         self._dyn_state = dyn.init_state(self.device) if dyn else None
         self._group = (dict(zip(self._trainable, dyn.group_index))
@@ -196,8 +214,6 @@ class TrainStep:
             nf = self.nonfinite
             nf["consec"] = nf["consec"] + 1 if nf_skip else 0
             nf["total"] += int(nf_skip)
-            if nf_skip:
-                _registry.counter("train.nonfinite_skips").inc()
         return any(read)
 
     def _update_norms(self):
@@ -272,27 +288,50 @@ class TrainStep:
         for _ in range(ticks):
             if sched is not None:
                 sched.step()
-        nf = self.nonfinite
-        if nf is not None and nf["consec"] >= self._nf_tolerance:
-            prov = (self._dynamics.provenance(self._dyn_state)
-                    if self._dynamics is not None else None)
-            where = ""
-            if prov:
-                where = (f"; first non-finite gradients in layer group(s) "
-                         f"{', '.join(prov['first_groups']) or '<loss>'} "
-                         f"at update {prov['first_update']}")
-            raise NonFiniteLossError(
-                f"loss/grads non-finite for {nf['consec']} consecutive steps "
-                f"(tolerance {self._nf_tolerance}, {nf['total']} skipped "
-                f"updates in all){where}; every skipped update left the "
-                "weights untouched: lower the learning rate or check the "
-                "data")
+        # one dispatch covered the n steps of run_steps: always checked
+        self._nf_check(force=batch is None)
         self._dyn_check(n=ticks)
         bus = self.metrics_bus
         if bus is not None and batch is not None:
             if bus.tokens_per_step is None and batch:
                 bus.tokens_per_step = int(math.prod(np.shape(batch[0])))
             bus.on_step(loss=loss)
+
+    def _nf_check(self, force=False):
+        """The guard's host check, once per ``_nf_check_every`` dispatches
+        (reference :512-566): the new skips go to ``train.nonfinite_skips``,
+        and ``consec`` at the tolerance raises NonFiniteLossError."""
+        nf = self.nonfinite
+        if nf is None:
+            return
+        self._nf_since_check += 1
+        if not force and self._nf_since_check < self._nf_check_every:
+            return
+        self._nf_since_check = 0
+        consec, total = self._nf_read()
+        if total > self._nf_reported:
+            _registry.counter("train.nonfinite_skips").inc(
+                total - self._nf_reported)
+            self._nf_reported = total
+        if consec < self._nf_tolerance:
+            return
+        prov = (self._dynamics.provenance(self._dyn_state)
+                if self._dynamics is not None else None)
+        where = ""
+        if prov:
+            where = (f"; first non-finite gradients in layer group(s) "
+                     f"{', '.join(prov['first_groups']) or '<loss>'} "
+                     f"at update {prov['first_update']}")
+        raise NonFiniteLossError(
+            f"loss/grads non-finite for {consec} consecutive steps "
+            f"(tolerance {self._nf_tolerance}, {total} skipped updates in "
+            f"all){where}; every skipped update left the weights untouched: "
+            f"lower the learning rate, check the data, or raise "
+            f"{NONFINITE_TOLERANCE_ENV}")
+
+    def _nf_read(self):
+        """The guard's counters (consec, total) as the check reads them."""
+        return self.nonfinite["consec"], self.nonfinite["total"]
 
     def _dyn_check(self, force=False, n=1):
         """Spill the dynamics carry once per ``every`` steps (the read

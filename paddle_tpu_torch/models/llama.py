@@ -1,10 +1,14 @@
-"""LLaMA for serving and training (counterpart of
+"""LLaMA for serving, generation and training (counterpart of
 ``paddle_tpu/models/llama.py``).
 
-Two paths:
+Three paths:
 - serving: the attention takes the two paged cache protocols of the ragged
   continuous-batching engine, ``PagedLayerCache`` (one decode token per
   row) and ``RaggedLayerCache`` (a packed mixed prefill+decode stream);
+- generation (``generation.GenerationMixin``): the dense caches, a
+  fixed-shape ``(k_cache, v_cache)`` pair per layer written at
+  ``cache_position`` and attended under an absolute-position mask, or a
+  growing ``(k, v)`` pair that each forward extends;
 - training: with no cache, causal attention through
   ``F.scaled_dot_product_attention`` (the flash kernels on the card) or,
   for SFT-packed rows given ``segment_ids``, through
@@ -16,8 +20,8 @@ Two paths:
   attention runs over the sep ranks' sequence shards: the ring (K6 per
   visit on the card, K1's backward entries) or Ulysses' head regrouping
   around K1/K2.
-The fixed-shape or growing caches, MoE and sequence parallelism raise
-NotImplementedError until a later slice of the port (see ROADMAP.md).
+MoE and sequence parallelism raise NotImplementedError until a later
+slice of the port (see ROADMAP.md).
 Parameter names match the reference's ``named_parameters()``, so
 ``models.convert.load_paddle_tpu_state`` maps a reference checkpoint one
 to one.
@@ -27,6 +31,7 @@ from torch import nn
 
 from ..device import resolve
 from ..distributed.fleet.recompute import recompute
+from ..generation import GenerationMixin
 from ..distributed.mesh import get_mesh, has_mesh
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional import (
@@ -182,6 +187,19 @@ def padding_mask(attention_mask):
     return (1.0 - attention_mask.float()[:, None, None, :]) * -1e9
 
 
+def cache_mask(cache_position, S, S_max, attention_mask=None, device=None):
+    """The fixed cache's additive mask (reference :271-280): query row i,
+    at absolute position ``cache_position + i``, sees cache columns j <=
+    that position (0, else -1e9), [1, 1, S, S_max] f32; a [B, S_max]
+    padding ``attention_mask`` adds ``padding_mask`` ([B, 1, S, S_max])."""
+    rows = cache_position + torch.arange(S, device=device)[:, None]
+    cols = torch.arange(S_max, device=device)[None, :]
+    mask = torch.where(cols <= rows, 0.0, -1e9)[None, None]
+    if attention_mask is not None and attention_mask.dim() == 2:
+        mask = mask + padding_mask(attention_mask)
+    return mask
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config, **kw):
         super().__init__()
@@ -196,7 +214,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(self.num_heads * self.head_dim, h, **kw)
 
     def forward(self, hidden_states, position_ids=None, past_key_value=None,
-                rope=None, segment_ids=None, attention_mask=None):
+                rope=None, segment_ids=None, attention_mask=None,
+                cache_position=None, cache_mask=None):
         """past_key_value:
         - None (training): causal self-attention over the S positions,
           rope at ``position_ids`` (default 0..S-1) with ``rope_theta``,
@@ -222,20 +241,35 @@ class LlamaAttention(nn.Module):
           lengths say which keys exist) and ignore one;
         - RaggedLayerCache: S is a packed mixed prefill+decode stream
           (B == 1); the stream's K/V land in the pool, then ragged paged
-          attention (K4).
-        The pools are updated IN PLACE and the cache is returned as the
-        layer's present. ``rope`` is the (cos, sin) table pair covering
-        pages_per_seq * page_size positions (``LlamaModel`` builds it once
-        per forward)."""
+          attention (K4);
+        - (k_cache, v_cache) [B, S_max, Hkv, D] with ``cache_position``:
+          the fixed-shape cache (reference :260-283). The S new K/V land at
+          ``cache_position`` (a slice assignment into the caller's cache,
+          the reference's ``dynamic_update_slice``; cast to the cache's
+          dtype), rope at ``position_ids`` (``LlamaModel``'s default:
+          ``cache_position + arange(S)``) over a table covering S_max,
+          then attention over
+          the whole cache under ``cache_mask`` (``LlamaModel`` builds it
+          once per forward: ``cache_mask(cache_position, S, S_max,
+          attention_mask)``) in the masked plain tier, where the
+          reference takes its math tier too;
+        - (k, v) without ``cache_position``: the growing cache (reference
+          :285-288). The new K/V are appended, and causal attention over
+          the whole pair follows (bottom-right: K1 on the card with Sq <
+          Sk), a [B, S_past + S] ``attention_mask`` adding its padding.
+          Rope is at ``position_ids`` (``LlamaModel``'s default 0..S-1,
+          the reference's) over a table covering S_past + S positions;
+          the reference's table covers S only, so its absolute positions
+          past S are NaN.
+        The pools and the fixed cache are updated IN PLACE and returned as
+        the layer's present; the growing cache's present is the new pair.
+        ``rope`` is the (cos, sin) table pair covering the cache's
+        positions (``LlamaModel`` builds it once per forward)."""
         paged = isinstance(past_key_value, PagedLayerCache)
         ragged = isinstance(past_key_value, RaggedLayerCache)
-        if segment_ids is not None and past_key_value is not None:
+        if segment_ids is not None and (past_key_value is not None
+                                        or cache_position is not None):
             raise ValueError(_PACKED_CACHE)
-        if past_key_value is not None and not (paged or ragged):
-            raise NotImplementedError(
-                "LlamaAttention: only PagedLayerCache and RaggedLayerCache "
-                "caches are ported; the dense and fixed-shape caches "
-                f"{_LATER}")
         B, S = hidden_states.shape[0], hidden_states.shape[1]
         q = self.q_proj(hidden_states).view(B, S, self.num_heads,
                                             self.head_dim)
@@ -271,6 +305,9 @@ class LlamaAttention(nn.Module):
                     training=self.training)
             out = out.reshape(B, S, self.num_heads * self.head_dim)
             return self.o_proj(out), None
+        if not (paged or ragged):
+            return self._dense(q, k, v, position_ids, past_key_value, rope,
+                               attention_mask, cache_position, cache_mask)
         if position_ids is None:
             raise ValueError("the paged caches need position_ids")
         cos, sin = rope
@@ -297,6 +334,33 @@ class LlamaAttention(nn.Module):
                                          c.cu_q_lens)
         out = out.reshape(B, S, self.num_heads * self.head_dim)
         return self.o_proj(out), c
+
+    def _dense(self, q, k, v, position_ids, cache, rope, attention_mask,
+               cache_position, mask):
+        """The fixed-shape cache (``cache_position`` given) or the growing
+        one (the ``forward`` docstring)."""
+        B, S = q.shape[0], q.shape[1]
+        k_past, v_past = cache
+        cos, sin = rope
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, None, cos=cos, sin=sin, position_ids=position_ids)
+        if cache_position is None:
+            k = torch.cat([k_past, k], dim=1)
+            v = torch.cat([v_past, v], dim=1)
+            out = scaled_dot_product_attention(
+                q, k, v, attn_mask=None if attention_mask is None
+                else padding_mask(attention_mask), is_causal=True,
+                training=self.training)
+            out = out.reshape(B, S, self.num_heads * self.head_dim)
+            return self.o_proj(out), (k, v)
+        pos = int(cache_position)
+        k_past[:, pos:pos + S] = k
+        v_past[:, pos:pos + S] = v
+        out = scaled_dot_product_attention(
+            q, k_past.to(q.dtype), v_past.to(q.dtype), attn_mask=mask,
+            is_causal=False, training=self.training)
+        out = out.reshape(B, S, self.num_heads * self.head_dim)
+        return self.o_proj(out), cache
 
     def _use_context_parallel(self, past_key_value):
         """Context parallel applies: the config asks for it, no cache is
@@ -374,10 +438,11 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
 
     def forward(self, hidden_states, position_ids=None, past_key_value=None,
-                rope=None, segment_ids=None, attention_mask=None):
+                rope=None, segment_ids=None, attention_mask=None,
+                **cache_kw):
         h, present = self.self_attn(self.input_layernorm(hidden_states),
                                     position_ids, past_key_value, rope,
-                                    segment_ids, attention_mask)
+                                    segment_ids, attention_mask, **cache_kw)
         h = hidden_states + h
         return h + self.mlp(self.post_attention_layernorm(h)), present
 
@@ -396,9 +461,15 @@ class LlamaModel(nn.Module):
                             **kw)
 
     def forward(self, input_ids, position_ids=None, past_key_values=None,
-                segment_ids=None, attention_mask=None):
-        """With one paged or ragged cache per layer in ``past_key_values``:
-        returns (normed hidden states, presents). Without: the training
+                segment_ids=None, attention_mask=None, cache_position=None,
+                use_cache=False):
+        """With one cache per layer in ``past_key_values`` (paged, ragged,
+        or a dense (k, v) pair: fixed-shape with ``cache_position``, else
+        growing; ``LlamaAttention``): returns (normed hidden states,
+        presents); ``attention_mask`` reaches the dense caches alone, and
+        the rope table and the fixed cache's mask are built here once for
+        every layer. ``use_cache`` is the reference's flag: presents come
+        back whenever caches are given. Without caches: the training
         forward, returning the normed hidden states; each layer runs under
         ``recompute`` (``config.recompute_policy``) when
         ``config.use_recompute`` and the model is training. ``segment_ids``
@@ -432,12 +503,34 @@ class LlamaModel(nn.Module):
                               attention_mask=attention_mask)[0]
             return self.norm(h)
         c0 = past_key_values[0]
-        rope = rope_tables(c0.page_indices.shape[1] * c0.page_size,
-                           self.config.head_dim, self.config.rope_theta,
-                           input_ids.device)
+        dev = input_ids.device
+        kw = {}
+        if isinstance(c0, (tuple, list)):   # a dense (k, v) pair
+            B, S = input_ids.shape
+            if attention_mask is not None:
+                attention_mask = torch.as_tensor(attention_mask, device=dev)
+            n_tab = c0[0].shape[1]
+            # positions default to the tokens' own (fixed cache) or to
+            # 0..S-1 (the growing cache, as the reference's default)
+            pos = 0 if cache_position is None else int(cache_position)
+            if position_ids is None:
+                position_ids = (pos + torch.arange(S, device=dev)).expand(
+                    B, S)
+            position_ids = torch.as_tensor(position_ids, device=dev)
+            if cache_position is not None:
+                kw = dict(cache_position=pos,
+                          cache_mask=cache_mask(pos, S, n_tab,
+                                                attention_mask, dev))
+            else:
+                n_tab += S
+                kw = dict(attention_mask=attention_mask)
+        else:
+            n_tab = c0.page_indices.shape[1] * c0.page_size
+        rope = rope_tables(n_tab, self.config.head_dim, self.config.rope_theta,
+                           dev)
         presents = []
         for layer, pkv in zip(self.layers, past_key_values):
-            h, present = layer(h, position_ids, pkv, rope)
+            h, present = layer(h, position_ids, pkv, rope, **kw)
             presents.append(present)
         return self.norm(h), presents
 
@@ -467,10 +560,12 @@ class LlamaPretrainingCriterion(nn.Module):
             reduction="mean")
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Trunk (``llama``) plus LM head; weights drawn from ``seed`` with the
     reference's init (Normal(0, 0.02) for projections and embedding, ones
-    for the norms) on ``device`` (default "cuda") in ``config.dtype``."""
+    for the norms) on ``device`` (default "cuda") in ``config.dtype``.
+    ``generate``, ``generate_speculative`` and beam search come from
+    ``GenerationMixin``."""
 
     def __init__(self, config, device="cuda", seed=0):
         super().__init__()
@@ -505,21 +600,26 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.embed_tokens.weight.t()
 
     def forward(self, input_ids, position_ids=None, past_key_values=None,
-                labels=None, segment_ids=None, attention_mask=None):
-        """Serving (caches given): returns (logits, presents) over the paged
-        or ragged caches. Training (no cache), as the reference's :758-783:
+                labels=None, segment_ids=None, attention_mask=None,
+                cache_position=None, use_cache=False):
+        """Serving and generation (caches given): returns (logits,
+        presents) over the paged, ragged or dense caches (``LlamaModel``;
+        ``cache_position`` selects the fixed-shape dense cache). Training
+        (no cache), as the reference's :758-783:
         with ``fuse_linear_cross_entropy`` and labels, the fused loss from
         (hidden, lm weight, labels), never building [B, S, vocab] logits;
         fused and training without labels, (hidden, lm weight) for a loss
         function; otherwise the logits, or their loss given labels.
         ``segment_ids`` [B, S]: SFT-packed rows (``LlamaModel``); refused
         with caches. ``attention_mask``: a padding mask on the training
-        path (``LlamaAttention``); the paged and ragged caches ignore it,
-        as the reference's do."""
+        path and the dense caches (``LlamaAttention``); the paged and
+        ragged caches ignore it, as the reference's do."""
         if past_key_values is not None:
             if segment_ids is not None:
                 raise ValueError(_PACKED_CACHE)
-            h, presents = self.llama(input_ids, position_ids, past_key_values)
+            h, presents = self.llama(input_ids, position_ids, past_key_values,
+                                     attention_mask=attention_mask,
+                                     cache_position=cache_position)
             return self.head(h), presents
         h = self.llama(input_ids, position_ids, segment_ids=segment_ids,
                        attention_mask=attention_mask)

@@ -13,8 +13,16 @@ carry the rule in f32 throughout.
 The other eleven rules (SGD, Momentum, Adagrad, RMSProp, Adadelta, Adamax,
 Lamb, NAdam, RAdam, Rprop, ASGD) are the reference's pure rules in plain
 PyTorch on the parameter's device: the reference leaves them to XLA's
-fusion, with no Pallas kernel. ``LBFGS`` comes in a later slice
-(ROADMAP.md).
+fusion, with no Pallas kernel. They keep its dtype promotion step for
+step, so a bf16 parameter without master weights updates to the same
+bits: a Python scalar (and the lr, a weakly typed scalar in the
+reference's step) is rounded to the tensor's dtype before it meets a
+tensor (``_w``; PyTorch would multiply a bf16 tensor by the unrounded
+scalar), and a bf16 tensor that meets an f32 step-count scalar widens to
+f32 first, as JAX promotes it (PyTorch would keep bf16). Where the
+reference widens the result of a bf16 operation, XLA computes that last
+operation in f32 unrounded (``_widened_sum``, ``_norm``), and so do the
+rules. ``LBFGS`` comes in a later slice (ROADMAP.md).
 """
 import numpy as np
 import torch
@@ -29,6 +37,38 @@ def _f32(x, like):
     return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
+def _w(x, like):
+    """A Python scalar as JAX's weak typing gives it to ``like``: rounded
+    to ``like``'s dtype first (a 0-dim tensor of it, by a fill)."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def _widened_sum(a, b):
+    """``(a + b)`` of two tensors in a low dtype as XLA computes it where
+    the sum is widened to f32 next: the sum itself in f32, unrounded (XLA
+    drops the rounding of the last operation before a widening cast)."""
+    return a.float() + b.float()
+
+
+def _moments(opt, p, g, slots):
+    """Adam's moments in the updated weight's dtype, b1 m + (1 - b1) g and
+    b2 v + (1 - b2) g^2, each scalar rounded to that dtype first: (m, v)
+    as stored and (m, v) widened to f32 (``_widened_sum``), as the rules
+    read them."""
+    b1, b2 = opt._beta1, opt._beta2
+    m1, m2 = _w(b1, p) * slots["moment1"], _w(1 - b1, p) * g
+    v1, v2 = _w(b2, p) * slots["moment2"], _w(1 - b2, p) * g.square()
+    return (m1 + m2, v1 + v2), (_widened_sum(m1, m2), _widened_sum(v1, v2))
+
+
+def _norm(x):
+    """``jnp.linalg.norm(x)`` widened to f32, as XLA computes it: the
+    squares and their sum in f32, the sum rounded to x's dtype, its square
+    root in f32."""
+    xf = x.float()
+    return (xf * xf).sum().to(x.dtype).float().sqrt()
+
+
 class SGD(Optimizer):
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
@@ -37,7 +77,7 @@ class SGD(Optimizer):
                          multi_precision, name)
 
     def _rule(self, p, g, slots, lr, step):
-        return p - lr * g, {}
+        return p - _w(lr, p) * g, {}
 
 
 class Momentum(Optimizer):
@@ -55,11 +95,12 @@ class Momentum(Optimizer):
         return slots
 
     def _rule(self, p, g, slots, lr, step):
-        v = slots["velocity"] * self._momentum + g
+        mom = _w(self._momentum, p)
+        v = slots["velocity"] * mom + g
         if self._use_nesterov:
-            new_p = p - lr * (g + self._momentum * v)
+            new_p = p - _w(lr, p) * (g + mom * v)
         else:
-            new_p = p - lr * v
+            new_p = p - _w(lr, p) * v
         return new_p, {"velocity": v}
 
 
@@ -147,7 +188,7 @@ class Adagrad(Optimizer):
 
     def _rule(self, p, g, slots, lr, step):
         acc = slots["moment"] + g.square()
-        new_p = p - lr * g / (acc.sqrt() + self._epsilon)
+        new_p = p - _w(lr, p) * g / (acc.sqrt() + _w(self._epsilon, p))
         return new_p, {"moment": acc}
 
 
@@ -170,15 +211,18 @@ class RMSProp(Optimizer):
         return slots
 
     def _rule(self, p, g, slots, lr, step):
-        ms = self._rho * slots["mean_square"] + (1 - self._rho) * g.square()
+        rho, rest, eps = (_w(x, p) for x in (self._rho, 1 - self._rho,
+                                             self._epsilon))
+        ms = rho * slots["mean_square"] + rest * g.square()
         out = {"mean_square": ms}
         if self._centered:
-            mg = self._rho * slots["mean_grad"] + (1 - self._rho) * g
-            denom = (ms - mg.square() + self._epsilon).sqrt()
+            mg = rho * slots["mean_grad"] + rest * g
+            denom = (ms - mg.square() + eps).sqrt()
             out["mean_grad"] = mg
         else:
-            denom = (ms + self._epsilon).sqrt()
-        mom = self._momentum * slots["momentum_acc"] + lr * g / denom
+            denom = (ms + eps).sqrt()
+        mom = (_w(self._momentum, p) * slots["momentum_acc"]
+               + _w(lr, p) * g / denom)
         out["momentum_acc"] = mom
         return p - mom, out
 
@@ -199,14 +243,14 @@ class Adadelta(Optimizer):
         return slots
 
     def _rule(self, p, g, slots, lr, step):
-        asg = (self._rho * slots["avg_squared_grad"]
-               + (1 - self._rho) * g.square())
-        update = -(slots["avg_squared_update"] + self._epsilon).sqrt() / (
-            asg + self._epsilon).sqrt() * g
-        asu = (self._rho * slots["avg_squared_update"]
-               + (1 - self._rho) * update.square())
-        return p + lr * update, {"avg_squared_grad": asg,
-                                 "avg_squared_update": asu}
+        rho, rest, eps = (_w(x, p) for x in (self._rho, 1 - self._rho,
+                                             self._epsilon))
+        asg = rho * slots["avg_squared_grad"] + rest * g.square()
+        update = -(slots["avg_squared_update"] + eps).sqrt() / (
+            asg + eps).sqrt() * g
+        asu = rho * slots["avg_squared_update"] + rest * update.square()
+        return p + _w(lr, p) * update, {"avg_squared_grad": asg,
+                                        "avg_squared_update": asu}
 
 
 class Adamax(Optimizer):
@@ -225,10 +269,15 @@ class Adamax(Optimizer):
         return slots
 
     def _rule(self, p, g, slots, lr, step):
-        m = self._beta1 * slots["moment"] + (1 - self._beta1) * g
-        u = torch.maximum(self._beta2 * slots["inf_norm"], g.abs())
+        b1 = self._beta1
+        m1, m2 = _w(b1, p) * slots["moment"], _w(1 - b1, p) * g
+        m = m1 + m2
+        u = torch.maximum(_w(self._beta2, p) * slots["inf_norm"], g.abs())
         step_f = _f32(step, p)
-        new_p = p - lr / (1 - self._beta1 ** step_f) * m / (u + self._epsilon)
+        # lr / (1 - b1^t) is f32, so the rest of the update is too
+        c = _f32(lr, p) / (1 - _f32(b1, p) ** step_f)
+        new_p = p.float() - c * _widened_sum(m1, m2) / _widened_sum(
+            u, _w(self._epsilon, p))
         return new_p, {"moment": m, "inf_norm": u}
 
 
@@ -255,18 +304,17 @@ class Lamb(Optimizer):
 
     def _rule(self, p, g, slots, lr, step):
         b1, b2 = self._beta1, self._beta2
-        m = b1 * slots["moment1"] + (1 - b1) * g
-        v = b2 * slots["moment2"] + (1 - b2) * g.square()
+        (m, v), (mf, vf) = _moments(self, p, g, slots)
         step_f = _f32(step, p)
-        mhat = m / (1 - b1 ** step_f)
-        vhat = v / (1 - b2 ** step_f)
+        mhat = mf / (1 - _f32(b1, p) ** step_f)
+        vhat = vf / (1 - _f32(b2, p) ** step_f)
+        # (lamb_wd * decay) * p, widened: the product in f32
         r = mhat / (vhat.sqrt() + self._epsilon) + (
-            self._lamb_wd * slots["_decay"]) * p
-        w_norm = torch.linalg.vector_norm(p)
-        r_norm = torch.linalg.vector_norm(r)
+            _w(self._lamb_wd * slots["_decay"], p).float() * p.float())
+        w_norm, r_norm = _norm(p), _norm(r)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             _f32(1.0, p))
-        return p - lr * trust * r, {"moment1": m, "moment2": v}
+        return p.float() - lr * trust * r, {"moment1": m, "moment2": v}
 
 
 class NAdam(Adam):
@@ -293,15 +341,15 @@ class NAdam(Adam):
     def _rule(self, p, g, slots, lr, step):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         t = _f32(step, p)
-        mu_t = b1 * (1.0 - 0.5 * 0.96 ** (t * self._psi))
-        mu_t1 = b1 * (1.0 - 0.5 * 0.96 ** ((t + 1.0) * self._psi))
+        decay = _f32(0.96, p)
+        mu_t = b1 * (1.0 - 0.5 * decay ** (t * self._psi))
+        mu_t1 = b1 * (1.0 - 0.5 * decay ** ((t + 1.0) * self._psi))
         mu_prod = slots["mu_product"] * mu_t
-        m = b1 * slots["moment1"] + (1 - b1) * g
-        v = b2 * slots["moment2"] + (1 - b2) * g.square()
-        mhat = mu_t1 * m / (1 - mu_prod * mu_t1) + (1 - mu_t) * g / (
-            1 - mu_prod)
-        vhat = v / (1 - b2 ** t)
-        new_p = p - lr * mhat / (vhat.sqrt() + eps)
+        (m, v), (mf, vf) = _moments(self, p, g, slots)
+        mhat = mu_t1 * mf / (1 - mu_prod * mu_t1) + (
+            1 - mu_t) * g.float() / (1 - mu_prod)
+        vhat = vf / (1 - _f32(b2, p) ** t)
+        new_p = p.float() - lr * mhat / (vhat.sqrt() + eps)
         return new_p, {"moment1": m, "moment2": v, "mu_product": mu_prod}
 
 
@@ -314,18 +362,18 @@ class RAdam(Adam):
     def _rule(self, p, g, slots, lr, step):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         t = _f32(step, p)
-        m = b1 * slots["moment1"] + (1 - b1) * g
-        v = b2 * slots["moment2"] + (1 - b2) * g.square()
-        mhat = m / (1 - b1 ** t)
+        (m, v), (mf, vf) = _moments(self, p, g, slots)
+        b2_t = _f32(b2, p) ** t
+        mhat = mf / (1 - _f32(b1, p) ** t)
         rho_inf = 2.0 / (1.0 - b2) - 1.0
-        rho_t = rho_inf - 2.0 * t * b2 ** t / (1 - b2 ** t)
+        rho_t = rho_inf - 2.0 * t * b2_t / (1 - b2_t)
         r = (torch.clamp_min((rho_t - 4) * (rho_t - 2) * rho_inf, 0.0)
              / torch.clamp_min((rho_inf - 4) * (rho_inf - 2) * rho_t,
                                1e-30)).sqrt()
-        vhat = (v / (1 - b2 ** t)).sqrt() + eps
+        vhat = (vf / (1 - b2_t)).sqrt() + eps
         adam_step = lr * r * mhat / vhat
         sgd_step = lr * mhat
-        new_p = p - torch.where(rho_t > 5.0, adam_step, sgd_step)
+        new_p = p.float() - torch.where(rho_t > 5.0, adam_step, sgd_step)
         return new_p, {"moment1": m, "moment2": v}
 
 
@@ -352,10 +400,11 @@ class Rprop(Optimizer):
     def _rule(self, p, g, slots, lr, step):
         sign = torch.sign(g * slots["prev_grad"])
         size = slots["step_size"]
-        size = torch.clamp(
-            torch.where(sign > 0, size * self._eta_plus,
-                        torch.where(sign < 0, size * self._eta_minus, size)),
-            self._lr_min, self._lr_max)
+        size = torch.minimum(torch.maximum(
+            torch.where(sign > 0, size * _w(self._eta_plus, p),
+                        torch.where(sign < 0, size * _w(self._eta_minus, p),
+                                    size)),
+            _w(self._lr_min, p)), _w(self._lr_max, p))
         # on a sign flip, skip the update and zero the remembered gradient
         g_eff = torch.where(sign < 0, torch.zeros_like(g), g)
         new_p = p - torch.sign(g_eff) * size
@@ -379,7 +428,8 @@ class ASGD(Optimizer):
         return slots
 
     def _rule(self, p, g, slots, lr, step):
-        new_p = p - lr * g
+        step_ = _w(lr, p) * g
+        new_p = p - step_
         avg = slots["averaged_param"]
-        avg = avg + (new_p.float() - avg) / _f32(step, p)
+        avg = avg + (_widened_sum(p, -step_) - avg) / _f32(step, p)
         return new_p, {"averaged_param": avg}

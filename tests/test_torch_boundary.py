@@ -5,8 +5,9 @@ the device or the kernel.
   ``paddle_tpu``, and no module of the package or ``chip_smoke.py``
   imports either, nor reads an environment variable: only
   ``utils/envs.py`` reads one, for the dynamics telemetry's
-  ``PADDLE_DYNAMICS*`` switches alone, so no variable picks a kernel or
-  its plain version (``chip_smoke.py`` may set those switches);
+  ``PADDLE_DYNAMICS*`` switches and the non-finite guard's two variables
+  alone, so no variable picks a kernel or its plain version
+  (``chip_smoke.py`` may set the dynamics' switches);
 - entry points default to the card: without CUDA they raise unless the
   caller asks for the CPU by name;
 - a kernel wrapper given a CUDA tensor launches its kernel or raises: when
@@ -129,8 +130,12 @@ def test_source_reads_no_environment_variable(path):
 
 
 def test_only_the_dynamics_reads_the_environment():
-    """The env readers are called from ``observability/dynamics.py`` alone,
-    with its ``PADDLE_DYNAMICS*`` names."""
+    """The env readers are called from ``observability/dynamics.py``, with
+    its ``PADDLE_DYNAMICS*`` names, and from ``jit_api.py`` for the
+    non-finite guard's two variables, the reference's
+    ``PADDLE_NONFINITE_TOLERANCE`` and ``PADDLE_NONFINITE_CHECK_EVERY``,
+    and from nowhere else: no variable picks a kernel."""
+    from paddle_tpu_torch import jit_api
     from paddle_tpu_torch.observability import dynamics
 
     readers = {"env_int", "env_float", "env_bool"}
@@ -141,10 +146,13 @@ def test_only_the_dynamics_reads_the_environment():
                and getattr(n.func, "id", None) in readers
                for n in ast.walk(tree)):
             callers.add(path.relative_to(PKG).as_posix())
-    assert callers == {"observability/dynamics.py"}
+    assert callers == {"observability/dynamics.py", "jit_api.py"}
     names = [v for k, v in vars(dynamics).items() if k.endswith("_ENV")]
     assert len(names) == 6
     assert all(n.startswith("PADDLE_DYNAMICS") for n in names)
+    guard = sorted(v for k, v in vars(jit_api).items() if k.endswith("_ENV"))
+    assert guard == ["PADDLE_NONFINITE_CHECK_EVERY",
+                     "PADDLE_NONFINITE_TOLERANCE"]
 
 
 @pytest.fixture

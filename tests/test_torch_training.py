@@ -300,11 +300,14 @@ def test_run_steps_is_a_loop_of_steps():
     torch.testing.assert_close(losses[0], losses[1], rtol=0, atol=0)
 
 
-def test_nonfinite_guard_skips_and_counts():
+def test_nonfinite_guard_skips_and_counts(monkeypatch):
+    # the reference's variables: tolerance 3, the counters checked after
+    # every step (tests/test_torch_repairs.py holds the default cadence)
+    monkeypatch.setenv("PADDLE_NONFINITE_TOLERANCE", "3")
+    monkeypatch.setenv("PADDLE_NONFINITE_CHECK_EVERY", "1")
     model = LlamaForCausalLM(llama_tiny(**TRAIN_KW), device="cpu")
     opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
-    step = TrainStep(model, LlamaPretrainingCriterion(), opt, device="cpu",
-                     nonfinite_tolerance=3)
+    step = TrainStep(model, LlamaPretrainingCriterion(), opt, device="cpu")
     x, y = _batch(30)
     step(x, y)
     assert step.nonfinite == {"consec": 0, "total": 0}
