@@ -65,6 +65,17 @@ Phases, one JSON line each (any failed phase exits non-zero):
             the bf16 rows timed (kernel ms, device ms with the L2 flushed,
             the bound, the plain version) beside torch.matmul over the
             bf16 weight;
+6d. moe_dispatch — kernels D and E (the MoE dispatch and combine),
+            forward and backward (E's weight gradient too), against their
+            plain versions (the reference's einsums over the dense
+            routing) at Mixtral's training shape (T 4096, M 4096, E 8, k
+            2, C 1228 as moe_train's gate computes it; timed: kernel ms,
+            device ms with the L2 flushed, the bound, the plain version,
+            the dense torch.einsum and index_select) and decode shape (T 8, C 4), bf16 and f32, and
+            the edges (all first choices on one expert, tokens dropped in
+            both choices, a zero-weight choice, an empty expert, k 1 and
+            4, 21 (token, choice) pairs); the copies and the bf16 k <= 2
+            sums exact, two launches bit for bit, refused operands raise;
 7. codec  — the int8 KV codec on the card against the CPU: codes, scales
             and dequantized values bit-identical (zero, +-absmax and .5-tie
             rows included);
@@ -141,6 +152,14 @@ Phases, one JSON line each (any failed phase exits non-zero):
             lr, skip and scale sequences, clip factors, dynamics sums and
             exact launches (kernel A, kernel B's master-less general
             instance);
+16d. moe_equal — f32, bench.py MOE_RUNG's widths (hidden 1024, 16
+            heads, 8 experts, top-2) at 2 layers: `train_equal`'s two
+            TrainSteps (B 1, S 256) through make_loss_fn, with every
+            layer's slots identical card vs CPU and the aux loss within
+            1e-5; then greedy generate (B 4, prompts of 100, 16 new) and
+            the engine's greedy serve (4 requests of 32-200, 16 new):
+            tokens identical, or the first differing draw at an explained
+            near tie; D and E launch once a layer per forward;
 17. train — the slice: LLaMA-2-7B, full width and depth, bf16, recompute
             "full", fused linear cross-entropy, AdamW; B 2, S 2048, 2
             warm-up and 8 timed steps; tokens/s, MFU, peak memory, losses
@@ -167,7 +186,17 @@ Phases, one JSON line each (any failed phase exits non-zero):
             weights, clip 1.0, warm-up + cosine, StepMetricsBus,
             PADDLE_DYNAMICS=1), 2 warm-up and 5 timed steps each: step ms,
             tokens/s, MFU (the bus's beside), peak memory, exact launches
-            of K1, kernel A and kernel B's master instance.
+            of K1, kernel A and kernel B's master instance;
+22. moe_train — Mixtral-8x7B's widths cut to 4 layers, bf16, B 2 x S
+            2048, fused CE, make_loss_fn, AdamW: 2 warm-up and 5 timed
+            steps; step ms, tokens/s, MFU by the reference's
+            flops_per_token and by the active count (and the E x C slots
+            computed), peak memory under 80 GB, dropped choices per layer,
+            exact launches (K2's entries, D and E per layer, kernel A);
+            two steps profiled;
+23. moe_generate — that model greedy: bench.py run_decode's traffic (B
+            8, 512 + 256), then the engine serving `slice`'s 8 requests
+            with 64 new tokens (K4, K5, D and E launched).
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and the contract's last line. ``--only k1,k2`` runs the named phases alone
@@ -176,7 +205,8 @@ train_packed`` for the packed path, ``--only k6,train_equal_s1024,
 train_cp_equal,train_cp`` for context parallelism, ``--only
 grad_norm,adamw,train_recipe_equal,train_recipe`` for the training
 recipe, ``--only wo_linear,generate_equal,generate`` for generation and
-weight-only quantization): it ends in a
+weight-only quantization, ``--only moe_dispatch,moe_equal,moe_train,
+moe_generate`` for mixture of experts): it ends in a
 ``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
 a run of every phase (no arguments) reads as a passing smoke. Imports no
@@ -196,13 +226,14 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense tensor-core bf16
 TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
              "torch.float32": (1e-4, 1e-4)}   # summation order only
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
-PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear", "codec",
+PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear",
+          "moe_dispatch", "codec",
           "k4", "k5", "k4_int8", "k5_int8", "serve_equal", "slice", "profile",
           "slice_int8", "slice_sampled_prefix", "generate_equal", "generate",
           "train_equal", "train_packed_equal",
           "train_equal_s1024", "train_cp_equal", "train_recipe_equal",
-          "train", "train_profile", "train_packed", "train_cp", "train_gqa",
-          "train_recipe")
+          "moe_equal", "train", "train_profile", "train_packed", "train_cp",
+          "train_gqa", "train_recipe", "moe_train", "moe_generate")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 PAGES_PER_SEQ = MAX_LEN // BS
@@ -1116,6 +1147,11 @@ def _family(name):
             return "flash_attention_" + kind + entry
     if "adamw_kernel" in name:
         return "adamw_update"
+    for kernel, family in (("gather_rows_kernel<", "moe_dispatch"),
+                           ("combine_rows_kernel<", "moe_combine"),
+                           ("combine_dw_kernel<", "moe_combine_dw")):
+        if kernel in name:
+            return family
     if any(s in name.lower()
            for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
@@ -2380,6 +2416,7 @@ def _flash_counts():
     counts["adamw_update"] = adamw_update.launches
     counts["grad_sumsq"] = grad_sumsq.launches
     counts["adamw_dynamics_reduce"] = UpdateNorms.reduces
+    counts.update(_moe_counts())
     return counts
 
 
@@ -2392,10 +2429,31 @@ def _reset_flash_counts():
     adamw_update.launches = 0
     grad_sumsq.launches = 0
     UpdateNorms.reduces = 0
+    _reset_moe_counts()
+
+
+def _moe_wrappers():
+    """{kernel line name: wrapper} of the MoE kernels: D (the dispatch and
+    the combine's gradient to the expert outputs), E (the combine and the
+    dispatch's gradient to the tokens) and E's weight gradient."""
+    from paddle_tpu_torch.ops import moe_dispatch as md
+
+    return {"moe_dispatch": md.dispatch_rows, "moe_combine": md.combine_rows,
+            "moe_combine_dw": md.combine_dw}
+
+
+def _moe_counts():
+    return {name: k.launches for name, k in _moe_wrappers().items()}
+
+
+def _reset_moe_counts():
+    for k in _moe_wrappers().values():
+        k.launches = 0
 
 
 def _expected_counts(layers, steps, n_params, path="k1", sep=1,
-                     updates=None, dyn_skips=None):
+                     updates=None, dyn_skips=None, forwards=2,
+                     moe_layers=0):
     """Exact launches of ``steps`` training steps under recompute "full"
     or "dots": per layer and step two forwards (the forward and its
     recompute) and one backward, through ``path``:
@@ -2411,14 +2469,17 @@ def _expected_counts(layers, steps, n_params, path="k1", sep=1,
     gradient-norm launch a step (the non-finite guard's), one more for
     each of ``dyn_skips`` skipped steps under dynamics (the parameters'
     norms), and one dynamics reduction per update under dynamics
-    (``dyn_skips`` not None)."""
+    (``dyn_skips`` not None). ``forwards``: 1 for a model whose layers
+    skip block recompute (MoE). Each of ``moe_layers`` MoE layers launches
+    per step D and E twice (forward, and the other's backward) and E's
+    weight gradient once; none elsewhere."""
     visits = sep * (sep + 1) // 2
-    k1 = {"flash_attention_fwd": 2, "flash_attention_bwd_delta": 1,
+    k1 = {"flash_attention_fwd": forwards, "flash_attention_bwd_delta": 1,
           "flash_attention_bwd_dkdv": 1, "flash_attention_bwd_dq": 1}
     per = {"k1": k1,
            "k3": {n.replace("attention_", "attention_seg_"): c
                   for n, c in k1.items()},
-           "ring": {"flash_attention_ring_fwd": 2 * visits,
+           "ring": {"flash_attention_ring_fwd": forwards * visits,
                     "flash_attention_bwd_delta": sep,
                     "flash_attention_bwd_dkdv": visits,
                     "flash_attention_bwd_dq": visits},
@@ -2429,6 +2490,9 @@ def _expected_counts(layers, steps, n_params, path="k1", sep=1,
     want["adamw_update"] = n_params * updates
     want["grad_sumsq"] = steps + (dyn_skips or 0)
     want["adamw_dynamics_reduce"] = 0 if dyn_skips is None else updates
+    want.update({"moe_dispatch": 2 * moe_layers * steps,
+                 "moe_combine": 2 * moe_layers * steps,
+                 "moe_combine_dw": moe_layers * steps})
     return want
 
 
@@ -2452,7 +2516,9 @@ def _packed(model):
 def _trainer(cfg, seed, device="cuda", model=None, packed=False, mesh=None):
     """(model, TrainStep) with AdamW lr 1e-4, decay 0.01; ``packed``: the
     step drives ``_packed(model)`` on (ids, segment ids, labels);
-    ``mesh``: a ``DistributedTrainStep`` under it instead."""
+    ``mesh``: a ``DistributedTrainStep`` under it instead. An MoE model
+    trains with its ``make_loss_fn`` (the criterion plus the gates' aux
+    loss)."""
     from paddle_tpu_torch.distributed import DistributedTrainStep
     from paddle_tpu_torch.jit_api import TrainStep
     from paddle_tpu_torch.models.llama import (
@@ -2464,12 +2530,12 @@ def _trainer(cfg, seed, device="cuda", model=None, packed=False, mesh=None):
         model = LlamaForCausalLM(cfg, device=device, seed=seed)
     opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
                 weight_decay=0.01)
+    loss_fn = (model.make_loss_fn() if cfg.num_experts > 1
+               else LlamaPretrainingCriterion(cfg))
     if mesh is not None:
-        return model, DistributedTrainStep(
-            model, LlamaPretrainingCriterion(cfg), opt, mesh=mesh)
-    return model, TrainStep(_packed(model) if packed else model,
-                            LlamaPretrainingCriterion(cfg), opt,
-                            device=device)
+        return model, DistributedTrainStep(model, loss_fn, opt, mesh=mesh)
+    return model, TrainStep(_packed(model) if packed else model, loss_fn,
+                            opt, device=device)
 
 
 # a gradient element within this many times its row's card-vs-CPU noise
@@ -2703,7 +2769,7 @@ def _planted_faults(amp, opt):
 
 def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
                  grad_tol=1e-4, outlier_share=1e-5, context_parallel=False,
-                 sep=1, oracle_tol=1e-5, amplified=False):
+                 sep=1, oracle_tol=1e-5, amplified=False, cfg=None):
     """f32, LLaMA-2-7B widths, 2 layers, fused CE, recompute "full": one
     TrainStep per batch on the card (kernels) and on the CPU (plain
     versions) from the same weights, every gradient handed to the optimizer
@@ -2723,16 +2789,22 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     ``oracle_tol`` relative. ``amplified``: ``_param_report``'s
     amplified rule explains outliers too, the count rule (a) alone leaves
     is reported beside, and every planted fault (``_planted_faults``) must
-    stay unexplained. Returns the row and the card's model."""
+    stay unexplained. ``cfg``: another 2-layer f32 config; an MoE one
+    (``phase_moe_equal``) runs no block recompute, and its routing is held
+    too: every layer's slots identical card vs CPU at every step, the aux
+    loss within ``MOE_AUX_TOL`` relative. Returns the row and the card's
+    model."""
     import torch
 
     from paddle_tpu_torch.distributed import build_mesh
     from paddle_tpu_torch.models.llama import llama2_7b
 
-    cfg = llama2_7b(use_recompute=True, recompute_policy="full",
-                    fuse_linear_cross_entropy=True,
-                    context_parallel=context_parallel)
-    cfg.num_hidden_layers = 2
+    if cfg is None:
+        cfg = llama2_7b(use_recompute=True, recompute_policy="full",
+                        fuse_linear_cross_entropy=True,
+                        context_parallel=context_parallel)
+        cfg.num_hidden_layers = 2
+    moe = cfg.num_experts > 1
     meshes = {d: build_mesh(sep=sep, devices=[d] * sep)
               if context_parallel else None for d in ("cpu", "cuda:0")}
     cpu_model, cpu_step = _trainer(cfg, seed, device="cpu", packed=packed,
@@ -2740,6 +2812,9 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     gpu_model, gpu_step = _trainer(cfg, seed, packed=packed,
                                    model=copy.deepcopy(cpu_model).to("cuda"),
                                    mesh=meshes["cuda:0"])
+    routes = {d: _record_routing(m) for d, m in (("cuda", gpu_model),
+                                                 ("cpu", cpu_model))} \
+        if moe else None
     oracle = {}
     if context_parallel:
         ids, labels = (torch.from_numpy(b).to("cuda") for b in batches[0])
@@ -2757,7 +2832,9 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     path = ("k3" if packed else "ulysses" if context_parallel == "ulysses"
             else "ring" if context_parallel else "k1")
     want = _expected_counts(2, len(batches), len(list(
-        cpu_model.parameters())), path, sep)
+        cpu_model.parameters())), path, sep, forwards=1 if moe else 2,
+        moe_layers=2 if moe else 0)
+    routing = _routing_report(routes) if moe else None
     if context_parallel:
         oracle["cp_loss"] = gpu[0]
         oracle["rel"] = (abs(gpu[0] - oracle["no_mesh_loss"])
@@ -2797,8 +2874,12 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
            "param_median_diff_lr_max": max(r["median_lr"]
                                            for r in per.values()),
            "param_diff": per, "param_diff_worst": worst, "kernels": counts,
-           "expected_kernels": want, "gpu_s": t_gpu, "cpu_s": t_cpu}
+           "expected_kernels": want, "gpu_s": t_gpu, "cpu_s": t_cpu,
+           "routing": routing}
     emit(row)
+    if routing is not None and not routing["ok"]:
+        raise AssertionError(f"{phase}: card and CPU route differently: "
+                             f"{routing}")
     if max(rel) > rel_tol:
         raise AssertionError(f"card and CPU losses differ: {gpu} vs {cpu}")
     if worst_grad[0] > grad_tol:
@@ -2905,7 +2986,8 @@ def _tokens(seed, vocab, shape):
 
 
 def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
-                 packing=None, extra=None, check_trend=True, dyn_skips=None):
+                 packing=None, extra=None, check_trend=True, dyn_skips=None,
+                 on_timed=None):
     """``warmup`` steps, then one timed step per remaining batch with the
     kernels' counts taken over the timed steps alone (``_expected_counts``
     exactly). MFU is ``flops_per_token(cfg, S)`` (the reference's, full
@@ -2916,7 +2998,9 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
     over every token and every segment's pairs
     (``pairs_with_padding``) is kept beside, named as counting padding.
     ``check_trend``: the loss must not rise over the steps. ``dyn_skips``:
-    ``_expected_counts``'s, for a step under dynamics."""
+    ``_expected_counts``'s, for a step under dynamics. An MoE config
+    (no block recompute) expects one forward a layer and the MoE
+    kernels' launches; ``on_timed`` is called once the warm-up is done."""
     import numpy as np
     import torch
 
@@ -2924,6 +3008,8 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
 
     losses = [step(*b) for b in batches[:warmup]]
     torch.cuda.synchronize()
+    if on_timed is not None:
+        on_timed()
     torch.cuda.reset_peak_memory_stats()
     _reset_flash_counts()
     t0 = time.perf_counter()
@@ -2937,8 +3023,11 @@ def _timed_steps(phase, cfg, model, step, batches, warmup, path="k1", sep=1,
     tok_s = B * S * steps / wall
     L = cfg.num_hidden_layers
     flops = LlamaForCausalLM.flops_per_token(cfg, seq_len=S)
+    moe = cfg.num_experts > 1
     want = _expected_counts(L, steps, len(list(model.parameters())), path,
-                            sep, dyn_skips=dyn_skips)
+                            sep, dyn_skips=dyn_skips,
+                            forwards=1 if moe else 2,
+                            moe_layers=L if moe else 0)
     row = {"phase": phase, "layers": L, "hidden": cfg.hidden_size,
            "heads": cfg.num_attention_heads,
            "kv_heads": cfg.num_key_value_heads,
@@ -4097,6 +4186,556 @@ def growing_cache_edges(gen):
     return rows
 
 
+# -- slice 12: mixture of experts (kernels D and E, the MoE LLaMA) -----------
+
+# Mixtral-8x7B's widths (Jiang et al. 2024, "Mixtral of Experts", table 1)
+MIXTRAL = dict(hidden_size=4096, intermediate_size=14336,
+               num_attention_heads=32, num_key_value_heads=8, num_experts=8,
+               moe_top_k=2, rope_theta=1e6, vocab_size=32000,
+               max_position_embeddings=4096)
+# bench.py's MOE_RUNG widths (bench.py:49-50), its only MoE workload
+MOE_RUNG_WIDTHS = dict(hidden_size=1024, intermediate_size=2816,
+                       num_attention_heads=16, num_experts=8, moe_top_k=2,
+                       vocab_size=32000, max_position_embeddings=2048)
+MOE_TRAIN_LAYERS = 4      # depth cut from 32: 1.45 B parameters a layer
+MOE_AUX_TOL = 1e-5        # the aux loss, card vs CPU (f32, relative)
+# kernel D/E token counts: Mixtral's training step (B 2 x S 2048) and
+# its B 8 decode step
+MOE_TRAIN_T, MOE_DECODE_T = 2 * 2048, 8
+
+
+def moe_shape(T):
+    """(T, M, E, k, C) that ``moe_train``'s MoE layers give kernels D and
+    E for T tokens: C as the model's gate computes it (its default
+    capacity factor; 1228 at T 4096, _capacity's floor of 4 at T 8)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.incubate.distributed.models.moe.gate import (
+        _capacity)
+
+    cfg = _moe_cfg(MIXTRAL, MOE_TRAIN_LAYERS)
+    gate = MoELayer(cfg.hidden_size, gate={
+        "type": cfg.moe_gate, "num_expert": cfg.num_experts,
+        "top_k": cfg.moe_top_k}, device="meta").gate
+    E, k = gate.tot_expert, gate.top_k
+    return (T, cfg.hidden_size, E, k,
+            _capacity(T, E, k, gate.capacity_factor))
+
+
+def _record_routing(model):
+    """Per gate forward of ``model``, in order: (layer, slots on the CPU,
+    aux loss); and the hooks' handles."""
+    seen, handles = [], []
+    for i, layer in enumerate(model.llama.layers):
+        def hook(module, args, r, i=i):
+            seen.append((i, r.slot.detach().cpu(), float(r.aux.detach())))
+
+        handles.append(layer.mlp.gate.register_forward_hook(hook))
+    return seen, handles
+
+
+def _routing_report(routes):
+    """Card vs CPU routing over the same forwards: slots identical, aux
+    within MOE_AUX_TOL."""
+    (card, hc), (cpu, hp) = routes["cuda"], routes["cpu"]
+    for h in hc + hp:
+        h.remove()
+    differing = [int((g[1] != c[1]).sum()) for g, c in zip(card, cpu)]
+    aux = [abs(g[2] - c[2]) / abs(c[2]) for g, c in zip(card, cpu)]
+    dropped = [int((c[1] < 0).sum()) for c in cpu]
+    ok = (len(card) == len(cpu) and not any(differing)
+          and max(aux) <= MOE_AUX_TOL)
+    return {"gate_calls": [len(card), len(cpu)],
+            "slots_differing": differing, "aux_rel": aux,
+            "aux_tol": MOE_AUX_TOL, "dropped_choices_cpu": dropped,
+            "ok": ok}
+
+
+def _recorded_draws(fn):
+    """``fn()`` with every sampler ``generation._make_sampler`` makes
+    recording its (logits, tokens) on the CPU, in draw order: (fn's
+    result, draws)."""
+    from paddle_tpu_torch import generation
+    from paddle_tpu_torch.inference import continuous
+
+    draws, make = [], generation._make_sampler
+
+    def recording(*a, **kw):
+        sample = make(*a, **kw)
+
+        def rec(logits, *rest):
+            out = sample(logits, *rest)
+            draws.append((logits.float().cpu(), out.cpu()))
+            return out
+
+        return rec
+
+    generation._make_sampler = continuous._make_sampler = recording
+    try:
+        return fn(), draws
+    finally:
+        generation._make_sampler = continuous._make_sampler = make
+
+
+def explain_moe_divergence(card_draws, cpu_draws):
+    """The first draw at which any row's token differs card vs CPU (an MoE
+    layer routes over the whole batch, so every later draw of every row
+    follows from it): ``explained`` when, at that draw, the differing
+    rows' logits agree within NEAR_TIE and the CPU's logits for its token
+    and the card's are within NEAR_TIE of each other (a near tie)."""
+    if len(card_draws) != len(cpu_draws):
+        return {"draws": [len(card_draws), len(cpu_draws)],
+                "explained": False}
+    for i, ((lg, tg), (lc, tc)) in enumerate(zip(card_draws, cpu_draws)):
+        rows = (tg != tc).nonzero().flatten().tolist()
+        if not rows:
+            continue
+        noise = float((lg[rows] - lc[rows]).abs().max())
+        gaps = [float(lc[r, int(tc[r])] - lc[r, int(tg[r])]) for r in rows]
+        return {"draw": i, "of": len(cpu_draws), "rows": rows,
+                "card": [int(tg[r]) for r in rows],
+                "cpu": [int(tc[r]) for r in rows], "cpu_gaps": gaps,
+                "logits_max_diff": noise,
+                "explained": noise <= NEAR_TIE
+                and max(abs(g) for g in gaps) <= NEAR_TIE}
+    return None
+
+
+def _moe_probs(gen, T, E, kind):
+    """[T, E] f32 routing probabilities of an edge ``kind`` on the card."""
+    import torch
+
+    logits = torch.randn(T, E, generator=gen, device="cuda")
+    if kind == "zero_weight":          # one-hot rows: the 2nd choice is 0
+        return torch.nn.functional.one_hot(logits.argmax(-1), E).float()
+    if kind in ("one_expert", "dropped_both"):
+        logits[:, 0] += 8.0            # every first choice is expert 0
+    if kind == "dropped_both":
+        logits[:, 1] += 4.0            # and every second choice expert 1
+    if kind == "empty_expert":
+        logits[:, E - 1] = -float("inf")
+    return torch.softmax(logits, -1)
+
+
+def _moe_bytes(r, T, M, elt):
+    """The bytes each entry must move on this routing (each input row
+    read once, each output row written once, indices and weights)."""
+    import torch
+
+    R, k = r.num_slots, r.top_k
+    occ = r.occupied_slot >= 0
+    kept = r.slot >= 0
+    n_occ, n_kept = int(occ.sum()), int(kept.sum())
+    tok_occ, tok_kept = int(occ.any(-1).sum()), int(kept.any(-1).sum())
+    row = M * elt
+    return {"dispatch": (tok_occ + R) * row + R * 4,
+            "combine": (n_kept + T) * row + T * k * 8,
+            "dispatch_scaled": (tok_occ + R) * row + R * 8,
+            "combine_unit": (n_occ + T) * row + T * k * 4,
+            "combine_dw": (tok_kept + n_kept) * row + T * k * 8}, {
+                "dispatch": 0, "combine": 2 * n_kept * M,
+                "dispatch_scaled": n_occ * M, "combine_unit": n_occ * M,
+                "combine_dw": 2 * n_kept * M}, {
+                "occupied_slots": n_occ, "kept_choices": n_kept,
+                "dropped_choices": T * k - n_kept,
+                "tokens_fully_dropped": int((~kept.any(-1)).sum()),
+                "empty_experts": int((~(r.dispatch_src.view(
+                    r.num_expert, -1) >= 0).any(-1)).sum())}
+
+
+def _moe_case(gen, shape, dtype, kind="random", timed=False):
+    """Kernels D and E, forward and backward, against their plain versions
+    (the reference's einsums over the dense routing) on one routing.
+    Exact: the dispatched rows and the expert outputs' gradient (a copy,
+    one product), and in bf16 at k <= 2 the combine and the tokens'
+    gradient (two exact f32 products or bf16 values summed and rounded
+    once); else the dtype's TOLERANCE against the plain version run in
+    f64 on the same inputs (at M 4096 the f32 einsum's own summation
+    error passes f32's TOLERANCE; ``plain_err`` is its distance from the
+    f64 run). The weights' gradient (row dot products) likewise. Two
+    launches of each entry give the same bits. ``timed``: each entry's
+    kernel ms, device ms (L2 flushed), bound, plain ms and the library's
+    dense einsum (D: index_select too)."""
+    import torch
+
+    from paddle_tpu_torch.incubate.distributed.models.moe import route
+    from paddle_tpu_torch.ops import moe_dispatch as md
+
+    T, M, E, k, C = shape
+    r = route(_moe_probs(gen, T, E, kind).to(dtype), k, C)
+    R = E * C
+
+    def randn(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(dtype)
+
+    tok, xo, d_disp, dout = (randn(T, M), randn(E, C, M), randn(E, C, M),
+                             randn(T, M))
+
+    def run(dispatch, combine, dt=dtype):
+        t = tok.to(dt, copy=True).requires_grad_()
+        x = xo.to(dt, copy=True).requires_grad_()
+        w = r.weight.detach().to(dt).requires_grad_()
+        rt = md.Routing(r.expert, r.pos, r.slot, w, r.aux, E, C)
+        d, o = dispatch(t, rt), combine(x, rt)
+        torch.autograd.backward((d, o), (d_disp.to(dt), dout.to(dt)))
+        return {"dispatched": d.detach(), "out": o.detach(),
+                "d_tokens": t.grad, "d_expert_out": x.grad,
+                "d_weight": w.grad}
+
+    _reset_moe_counts()
+    got = run(md.moe_dispatch, md.moe_combine)
+    torch.cuda.synchronize()
+    launches = _moe_counts()
+    want = run(md._dispatch_math, md._combine_math)
+    want64 = run(md._dispatch_math, md._combine_math, torch.float64)
+    torch.cuda.synchronize()
+    sums_exact = dtype == torch.bfloat16 and k <= 2
+    exact_keys = ("dispatched", "d_expert_out") + (
+        ("out", "d_tokens") if sums_exact else ())
+    label = f"moe_dispatch {kind} {dtype} T{T} k{k} C{C}"
+    errs, plain_err = {}, {}
+    for key in got:
+        g, w = got[key], want[key]
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{label} {key}: non-finite kernel output")
+        if key in exact_keys:    # equal values (the sign of a 0 aside)
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{label} {key}: {int((g != w).sum())} elements differ "
+                    "from the plain version (exact expected)")
+            errs[key] = 0.0
+        else:
+            g2, w64 = g.reshape(-1, g.shape[-1]), want64[key]
+            errs[key] = compare(f"{label} {key}", g2,
+                                w64.reshape(g2.shape), g2.shape[0])
+            plain_err[key] = float((w.double() - w64).abs().max())
+    if launches != {"moe_dispatch": 2, "moe_combine": 2,
+                    "moe_combine_dw": 1}:
+        raise AssertionError(f"{label}: launches {launches}")
+    x2, d2 = xo.reshape(R, M), d_disp.reshape(R, M)
+    w32 = r.weight.detach().float().contiguous()
+    idx = torch.where(r.slot >= 0, r.slot, R).long().reshape(-1)
+    w_slot = torch.zeros(R + 1, device="cuda").scatter_(
+        0, idx, w32.reshape(-1))[:R].contiguous()
+    entries = {
+        "dispatch": lambda: md.dispatch_rows(tok, r.dispatch_src),
+        "combine": lambda: md.combine_rows(x2, r.slot, w32),
+        "dispatch_scaled": lambda: md.dispatch_rows(dout, r.dispatch_src,
+                                                    w_slot),
+        "combine_unit": lambda: md.combine_rows(d2, r.occupied_slot),
+        "combine_dw": lambda: md.combine_dw(dout, x2, r.slot)}
+    for name, fn in entries.items():
+        same_bits(f"{label} {name}", fn)
+    nbytes, ops, stats = _moe_bytes(r, T, M, tok.element_size())
+    row = {"phase": "moe_dispatch", "kind": kind, "dtype": str(dtype),
+           "T": T, "M": M, "E": E, "k": k, "C": C, "max_abs_err": errs,
+           "plain_err": plain_err, "exact": list(exact_keys),
+           "launches": launches, **stats}
+    if timed:
+        combine_d, dispatch_d = (t.detach() for t in r.dense())
+        tok_pad = torch.cat([torch.zeros_like(tok[:1]), tok])
+        src1 = (r.dispatch_src + 1).long()
+        plain = {
+            "dispatch": lambda: md._dispatch_math(tok, r),
+            "combine": lambda: md._combine_math(xo, r),
+            "dispatch_scaled": lambda: torch.einsum(
+                "tec,tm->ecm", r.dense()[0], dout),
+            "combine_unit": lambda: torch.einsum(
+                "tec,ecm->tm", r.dense()[1], d_disp),
+            "combine_dw": lambda: torch.einsum("tm,ecm->tec", dout, xo)}
+        library = {
+            "dispatch": lambda: torch.einsum("tec,tm->ecm", dispatch_d, tok),
+            "combine": lambda: torch.einsum("tec,ecm->tm", combine_d, xo),
+            "dispatch_scaled": lambda: torch.einsum(
+                "tec,tm->ecm", combine_d, dout),
+            "combine_unit": lambda: torch.einsum(
+                "tec,ecm->tm", dispatch_d, d_disp),
+            "combine_dw": lambda: torch.einsum("tm,ecm->tec", dout, xo)}
+        with torch.no_grad():
+            timing = {}
+            for name, fn in entries.items():
+                b_ms, b_by = bound(nbytes[name], ops[name], str(dtype))
+                timing[name] = {
+                    "kernel_ms": cuda_ms(fn),
+                    "device_ms": device_ms(fn)[0],
+                    "plain_ms": cuda_ms(plain[name]),
+                    "library_ms": cuda_ms(library[name]),
+                    "bytes": nbytes[name], "bound_ms": b_ms,
+                    "bound_by": b_by}
+            timing["dispatch"]["index_select_ms"] = cuda_ms(
+                lambda: torch.index_select(tok_pad, 0, src1))
+        einsum_ms, einsum_by = bound(0, 2 * T * E * C * M, str(dtype))
+        row.update(timing=timing, library="torch.einsum over the dense "
+                   "[T, E, C] routing tensors (built beforehand)",
+                   einsum_bound_ms=einsum_ms, einsum_bound_by=einsum_by)
+    emit(row)
+    return row
+
+
+MOE_EDGES = (  # (kind, T, k, C): drops, dropped twice, a zero weight, an
+    # empty expert, k 1 and 4, and 21 (token, choice) pairs
+    ("one_expert", 64, 2, 20), ("dropped_both", 64, 2, 4),
+    ("zero_weight", 64, 2, 20), ("empty_expert", 256, 2, 80),
+    ("random", 256, 1, 40), ("random", 256, 4, 160), ("random", 7, 3, 4))
+
+
+def phase_moe_dispatch(seed=20):
+    """Kernels D and E, forward and backward, against their plain versions
+    at Mixtral's training shape (timed, bf16; f32 too) and decode shape,
+    then the edges (``MOE_EDGES``) in bf16 and f32; the operands the
+    kernels refuse raise. Matmuls in bf16 run without reduced-precision
+    reductions here, so the plain einsum sums in f32 as the kernels do."""
+    import torch
+
+    from paddle_tpu_torch.ops import moe_dispatch as md
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16, f32 = torch.bfloat16, torch.float32
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        train, decode = moe_shape(MOE_TRAIN_T), moe_shape(MOE_DECODE_T)
+        rows = [_moe_case(gen, train, bf16, timed=True),
+                _moe_case(gen, train, f32),
+                _moe_case(gen, decode, bf16),
+                _moe_case(gen, decode, f32)]
+        M, E = train[1], train[2]
+        for kind, T, k, C in MOE_EDGES:
+            for dtype in (bf16, f32):
+                rows.append(_moe_case(gen, (T, M, E, k, C), dtype, kind))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    src = torch.zeros(4, dtype=torch.int32, device="cuda")
+    refusals = {
+        "M * itemsize not a multiple of 16": lambda: md.dispatch_rows(
+            torch.zeros(4, 12, dtype=bf16, device="cuda"), src),
+        "fp16 rows": lambda: md.dispatch_rows(
+            torch.zeros(4, 16, dtype=torch.float16, device="cuda"), src),
+        "9 choices": lambda: md.combine_rows(
+            torch.zeros(4, 16, device="cuda"),
+            torch.zeros(2, 9, dtype=torch.int32, device="cuda"))}
+    for what, fn in refusals.items():
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError(f"moe_dispatch: {what} was not refused")
+    emit({"phase": "moe_dispatch", "refused": sorted(refusals)})
+    return rows
+
+
+def _moe_cfg(widths, layers, **kw):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(num_hidden_layers=layers, **widths, **kw)
+
+
+def phase_moe_equal(seed=21, steps=2, S=256):
+    """f32, bench.py MOE_RUNG's widths at 2 layers, card vs CPU: two
+    TrainSteps with ``make_loss_fn`` at B 1 x S 256 by ``_train_equal``'s
+    rules, with every layer's slots identical and the aux loss within
+    MOE_AUX_TOL; then greedy ``generate`` (B 4 prompts of 100, 16 new) and
+    the engine's greedy serve (4 requests of 32-200 tokens, 16 new, f32
+    pools): tokens identical, or the first differing draw at an explained
+    near tie (``explain_moe_divergence``). D and E launch exactly once a
+    layer per forward (gate calls), E's weight gradient never."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    cfg = _moe_cfg(MOE_RUNG_WIDTHS, 2, fuse_linear_cross_entropy=True)
+    ids = _tokens(seed, cfg.vocab_size, (steps, 1, S + 1))
+    row, gpu_model = _train_equal("moe_equal", seed,
+                                  [(i[:, :-1], i[:, 1:]) for i in ids],
+                                  cfg=cfg)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cpu_model = LlamaForCausalLM(cfg, device="cpu")  # the card's weights
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in gpu_model.state_dict().items()})
+    for m in (gpu_model, cpu_model):
+        m.eval()
+    rng = np.random.RandomState(seed)
+    prompts = rng.randint(1, cfg.vocab_size, (4, 100)).astype(np.int32)
+    requests = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+                for n in (32, 77, 140, 200)]
+    kw = dict(max_seqs=4, page_size=BS, max_len=512, decode_block=8)
+    runs = {
+        "generate": lambda m, dev: m.generate(prompts, max_new_tokens=16),
+        "engine": lambda m, dev: ContinuousBatchingEngine(
+            m, device=dev, **kw).serve(requests, max_new_tokens=16)}
+    rows = [row]
+    for name, run in runs.items():
+        calls = []
+        hooks = [layer.mlp.gate.register_forward_hook(
+            lambda *a: calls.append(1)) for layer in gpu_model.llama.layers]
+        _reset_moe_counts()
+        _reset_counts()
+        t0 = time.perf_counter()
+        got, card_draws = _recorded_draws(lambda: run(gpu_model, "cuda"))
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        counts = {**_moe_counts(), **_counts()}
+        for h in hooks:
+            h.remove()
+        t0 = time.perf_counter()
+        want, cpu_draws = _recorded_draws(lambda: run(cpu_model, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        same = [bool(np.array_equal(np.asarray(g.cpu() if torch.is_tensor(g)
+                                               else g), np.asarray(w)))
+                for g, w in zip(got, want)]
+        div = explain_moe_divergence(card_draws, cpu_draws)
+        want_moe = {"moe_dispatch": len(calls), "moe_combine": len(calls),
+                    "moe_combine_dw": 0}
+        r = {"phase": "moe_equal", "run": name, "identical": same,
+             "divergence": div, "gate_calls": len(calls), "kernels": counts,
+             "draws": len(card_draws), "gpu_s": gpu_s, "cpu_s": cpu_s}
+        emit(r)
+        rows.append(r)
+        if not all(same) and not (div and div["explained"]):
+            raise AssertionError(f"moe_equal {name}: card and CPU tokens "
+                                 f"differ beyond a near tie: {div}")
+        if {k: counts[k] for k in want_moe} != want_moe or not calls:
+            raise AssertionError(f"moe_equal {name}: launches {counts}, "
+                                 f"expected {want_moe}")
+        if name == "generate" and len(calls) != 2 * 16:
+            raise AssertionError(f"moe_equal generate: {len(calls)} gate "
+                                 "calls, expected 2 layers x 16 forwards")
+        if name == "engine":
+            check_launches(counts, int8=False)
+    del gpu_model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_flops(cfg, S, T, C):
+    """Training FLOPs per token of the MoE model, attention term included:
+    ``active`` counts attention, the gate and k of E experts per token;
+    ``slots`` the experts' products over all E x C capacity slots (what
+    the expert bank computes, empty slots included)."""
+    h, L, E, k = (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_experts,
+                  cfg.moe_top_k)
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    attn_n = 2 * h * h + 2 * h * kv + h * E
+    expert_n = 3 * h * cfg.intermediate_size
+    head = cfg.vocab_size * h * (1 if cfg.tie_word_embeddings else 2)
+    quad = 12.0 * L * h * S * 0.5
+    active = 6 * (head + L * (attn_n + k * expert_n)) + quad
+    slots = 6 * (head + L * (attn_n + expert_n * E * C / T)) + quad
+    return active, slots
+
+
+def phase_moe_train(seed=22, warmup=2, timed=5):
+    """Mixtral-8x7B's widths cut to MOE_TRAIN_LAYERS layers, bf16, B 2 x S
+    2048, fused CE, no block recompute (MoE layers skip it), AdamW lr 1e-4
+    and decay 0.01 through ``make_loss_fn``: 2 warm-up and 5 timed steps;
+    step ms, tokens/s, MFU with the reference's flops_per_token (a dense
+    MLP of intermediate_size a layer) and with the active count (k of E
+    experts) and the slots computed, peak memory under 80 GB, dropped
+    choices per layer, exact launches (K2 fwd and bwd entries, D and E per
+    layer per step, kernel A once a step); then two steps profiled.
+    Returns the row and the model."""
+    import torch
+
+    cfg = _moe_cfg(MIXTRAL, MOE_TRAIN_LAYERS, dtype="bfloat16",
+                   fuse_linear_cross_entropy=True)
+    model, step = _trainer(cfg, seed)
+    batches = _token_batches(seed, cfg.vocab_size, warmup + timed, 2, 2048)
+    L, T = cfg.num_hidden_layers, 2 * 2048
+    slots, caps = [[] for _ in range(L)], []
+    counting = []
+
+    def hook(module, args, r, i):
+        # only a reference in the timed window: counted after it
+        if counting:
+            slots[i].append(r.slot)
+            caps.append(r.capacity)
+
+    hooks = [layer.mlp.gate.register_forward_hook(
+        lambda m, a, r, i=i: hook(m, a, r, i))
+        for i, layer in enumerate(model.llama.layers)]
+    row = _timed_steps("moe_train", cfg, model, step, batches, warmup,
+                       on_timed=lambda: counting.append(1), extra={
+                           "depth_cut": f"{MOE_TRAIN_LAYERS} of 32 layers",
+                           "block_recompute": False,
+                           "experts": cfg.num_experts,
+                           "top_k": cfg.moe_top_k})
+    for h in hooks:
+        h.remove()
+    dropped = [sum(int((s < 0).sum()) for s in layer) for layer in slots]
+    full = [sum(int((s < 0).all(-1).sum()) for s in layer)
+            for layer in slots]
+    C = caps[0]
+    if set(caps) != {moe_shape(T)[4]}:
+        raise AssertionError(f"moe_train: capacities {sorted(set(caps))}, "
+                             f"moe_dispatch timed C {moe_shape(T)[4]}")
+    active, slots = _moe_flops(cfg, 2048, T, C)
+    row.update(
+        capacity=C, slots=cfg.num_experts * C,
+        flops_per_token_active=active, mfu_active=active * row[
+            "tokens_per_s"] / 989e12,
+        flops_per_token_slots=slots, mfu_slots=slots * row[
+            "tokens_per_s"] / 989e12,
+        mfu_of="flops_per_token: the reference's (bench's accounting, one "
+               "dense MLP of intermediate_size a layer); active: attention "
+               "+ gate + k of E experts; slots: the experts over all E x C "
+               "slots",
+        dropped_choices_per_layer=[d / timed for d in dropped],
+        tokens_fully_dropped_per_layer=[f / timed for f in full],
+        choices_per_step=T * cfg.moe_top_k)
+    emit({"phase": "moe_train", **{k: row[k] for k in (
+        "capacity", "slots", "mfu_active", "mfu_slots",
+        "dropped_choices_per_layer", "tokens_fully_dropped_per_layer",
+        "peak_mem_gb")}})
+    if row["peak_mem_gb"] >= 80:
+        raise AssertionError(f"moe_train: peak {row['peak_mem_gb']} GB")
+    row["profile"] = _device_profile("moe_train_profile", lambda: [
+        step(*b) for b in batches[:2]])
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, model
+
+
+def phase_moe_generate(model, seed=23):
+    """``moe_train``'s model, greedy: bench.py run_decode's traffic (B 8,
+    prompts of 512, 256 new), decode ms a step and tokens/s; then the
+    engine serving 8 requests of 32-1024 tokens with 64 new: tokens/s,
+    with K4/K5 and D/E launches."""
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    model.eval()
+    ids = _tokens(seed, model.config.vocab_size, (GEN_B, GEN_PROMPT))
+    _reset_moe_counts()
+    row, _ = _decode_row("moe_generate", model, ids)
+    row["kernels"].update(_moe_counts())
+    emit(row)
+    eng = ContinuousBatchingEngine(model, max_seqs=MAX_SEQS, page_size=BS,
+                                   max_len=MAX_LEN, prefill_chunk=CHUNK,
+                                   device="cuda")
+    prompts = slice_prompts(seed, model.config.vocab_size)
+    _reset_moe_counts()
+    _, wall, ttft, counts = _timed_serve(eng, prompts, 64)
+    counts.update(_moe_counts())
+    serve = {"phase": "moe_generate", "run": "engine",
+             "prompt_lens": [len(p) for p in prompts], "new_tokens": 64,
+             "wall_s": wall, "tokens_per_s": 64 * len(prompts) / wall,
+             "ttft_median_s": ttft, "kernels": counts}
+    emit(serve)
+    check_launches(counts, int8=False)
+    for name in ("moe_dispatch", "moe_combine"):
+        if row["kernels"][name] < 1 or counts[name] < 1:
+            raise AssertionError(f"moe_generate: no {name} launch")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"generate": row, "engine": serve}
+
+
 def kernel_table(rows):
     """The contract's kernel line, from the phases that ran: every entry's
     launches over the main path (serving's `slice`, `slice_int8` for the
@@ -4287,6 +4926,49 @@ def kernel_table(rows):
             "device_ms_by_shape": {
                 f"{p} {w} rows {n}": r["device_ms"]
                 for (p, w, n), r in sorted(timed.items())}})
+    if "moe_dispatch" in rows:
+        # Mixtral's training shape as moe_train's gate gives it, bf16
+        main_row = rows["moe_dispatch"][0]
+        shape = ", ".join(f"{k} {main_row[k]}" for k in "TMEkC")
+        launches = rows.get("moe_train", {}).get("kernels", {})
+        site = "paddle_tpu/incubate/distributed/models/moe/moe_layer.py"
+        for name, entry, bwd, keys, ref in (
+                ("moe_dispatch", "dispatch", "dispatch_scaled",
+                 ("dispatched", "d_expert_out"),
+                 f"{site}:149 (einsum 'tec,tm->ecm' over the dense dispatch, "
+                 "XLA; no Pallas kernel)"),
+                ("moe_combine", "combine", "combine_unit",
+                 ("out", "d_tokens"),
+                 f"{site}:163 (einsum 'tec,ecm->tm' over the dense combine, "
+                 "XLA; no Pallas kernel)"),
+                ("moe_combine_dw", "combine_dw", None, ("d_weight",),
+                 f"{site}:163 (the combine einsum's gradient to the gate "
+                 "values, XLA; no Pallas kernel)")):
+            t = main_row["timing"][entry]
+            row = {"name": name, "route": "cuda",
+                   "source": "paddle_tpu_torch/ops/csrc/moe_dispatch.cu",
+                   "replaces": ref, "launches": launches.get(name),
+                   "max_abs_err": max(r["max_abs_err"][k]
+                                      for r in rows["moe_dispatch"]
+                                      if "max_abs_err" in r for k in keys),
+                   "ms": t["kernel_ms"], "device_ms": t["device_ms"],
+                   "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"],
+                   "library_ms": t["library_ms"],
+                   "library": main_row["library"],
+                   "ms_of": f"{shape}, bf16"}
+            if bwd is not None:
+                b = main_row["timing"][bwd]
+                row.update(bwd_ms=b["kernel_ms"], bwd_device_ms=b["device_ms"],
+                           bwd_bound_ms=b["bound_ms"],
+                           bwd_library_ms=b["library_ms"],
+                           bwd_of=("the combine's gradient to the expert "
+                                   "outputs" if bwd == "dispatch_scaled"
+                                   else "the dispatch's gradient to the "
+                                   "tokens"))
+            if entry == "dispatch":
+                row["index_select_ms"] = t["index_select_ms"]
+            table.append(row)
     if "adamw" in rows:
         main_row = next(r for r in rows["adamw"]
                         if r.get("instance") == "master")
@@ -4380,6 +5062,8 @@ def main(argv=None):
         rows["grad_norm"] = phase_grad_norm()
     if runs("wo_linear"):
         rows["wo_linear"] = phase_wo_linear()
+    if runs("moe_dispatch"):
+        rows["moe_dispatch"] = phase_moe_dispatch()
     if runs("codec"):
         phase_codec()
     if runs("k4"):
@@ -4435,6 +5119,8 @@ def main(argv=None):
         phase_train_cp_equal()
     if runs("train_recipe_equal"):
         rows["train_recipe_equal"] = phase_train_recipe_equal()
+    if runs("moe_equal"):
+        rows["moe_equal"] = phase_moe_equal()
     if runs("train") or runs("train_packed") or runs("train_cp"):
         rows["train"], model, step, batches = phase_train()
         if runs("train_profile"):
@@ -4452,6 +5138,13 @@ def main(argv=None):
     if runs("train_recipe"):
         rows["train_recipe"], rows["train_recipe_plain"] = \
             phase_train_recipe()
+    if runs("moe_train") or runs("moe_generate"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows["moe_train"], model = phase_moe_train()
+        if runs("moe_generate"):
+            rows["moe_generate"] = phase_moe_generate(model)
+        del model
 
     if only is not None:
         # a partial run drove only some phases: no kernel table and no

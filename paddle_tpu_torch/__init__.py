@@ -20,7 +20,11 @@ training recipe: the lr schedulers, clipping, L1/L2 decay, master
 weights and the other optimizer rules (``optimizer``, ``nn.clip``), AMP
 (``amp``), the metrics bus and the dynamics telemetry (``utils``,
 ``observability``), with a multi-tensor gradient-norm kernel
-(``ops.grad_norm``) and AdamW's master-weight instance.
+(``ops.grad_norm``) and AdamW's master-weight instance. Slice 11 ports
+generation on the dense caches and weight-only quantization, with a
+weight-only product kernel (``ops.weight_only``). Slice 12 ports mixture
+of experts on one card (``incubate.distributed.models.moe``, the MoE
+LLaMA), with dispatch and combine kernels (``ops.moe_dispatch``).
 """
 from . import device
 

@@ -10,6 +10,8 @@ the scale and the good and bad step counts are torch scalars there, and
 import numpy as np
 import torch
 
+from ..device import resolve
+
 
 class GradScaler:
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
@@ -89,7 +91,10 @@ class GradScaler:
                 self._good_steps = 0
 
     # -- the state machine of the compiled step, on the device --------------
-    def init_state(self, device="cpu"):
+    def init_state(self, device="cuda"):
+        """The scaler's carry on ``device`` (default the card; raises
+        without CUDA unless given ``device="cpu"``)."""
+        device = resolve(device)
         return {"scale": torch.tensor(self._scale, dtype=torch.float32,
                                       device=device),
                 "good": torch.zeros((), dtype=torch.int32, device=device),

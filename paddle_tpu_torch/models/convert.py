@@ -32,7 +32,11 @@ def load_paddle_tpu_state(model, arrays):
     The reference ``Linear`` stores its weight ``[in, out]``; ``nn.Linear``
     stores ``[out, in]``, so Linear weights are transposed, and so are the
     int8 codes ([K, N] or int4 [ceil(K/2), N] there, a row per output
-    channel here; copied as they are, bit for bit). Raises KeyError on a
+    channel here; copied as they are, bit for bit). The MoE weights keep
+    the reference's layout and are copied as they are: a gate's ``weight``
+    [M, E], ``SwiGLUExpertStack``'s ``w_gate``/``w_up`` [E, M, H] and
+    ``w_down`` [E, H, M], ``ExpertStack``'s ``w1``, ``b1``, ``w2``,
+    ``b2``. Raises KeyError on a
     missing or unknown name and ValueError on a shape mismatch, before any
     tensor is written."""
     params, linear = _state(model)

@@ -20,8 +20,12 @@ Three paths:
   attention runs over the sep ranks' sequence shards: the ring (K6 per
   visit on the card, K1's backward entries) or Ulysses' head regrouping
   around K1/K2.
-MoE and sequence parallelism raise NotImplementedError until a later
-slice of the port (see ROADMAP.md).
+With ``num_experts > 1`` every decoder layer's MLP is a mixture of SwiGLU
+experts behind a gshard/switch gate (``incubate.distributed.models.moe``,
+every expert on the one card; the dispatch and combine are kernels D and E
+on the card), its load-balancing loss added to the labeled forward's loss
+and to ``make_loss_fn``'s. Sequence parallelism raises NotImplementedError
+until a later slice of the port (see ROADMAP.md).
 Parameter names match the reference's ``named_parameters()``, so
 ``models.convert.load_paddle_tpu_state`` maps a reference checkpoint one
 to one.
@@ -32,6 +36,8 @@ from torch import nn
 from ..device import resolve
 from ..distributed.fleet.recompute import recompute
 from ..generation import GenerationMixin
+from ..incubate.distributed.models.moe import MoELayer, SwiGLUExpertStack
+from ..incubate.distributed.models.moe.gate import xavier_uniform_
 from ..distributed.mesh import get_mesh, has_mesh
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional import (
@@ -68,8 +74,11 @@ class LlamaConfig:
     "bfloat16") is the parameter dtype of the port's model.
     ``context_parallel``: False, True or "ring" (ring attention over the
     mesh's sep axis), or "ulysses" (the all-to-all pair); inert without a
-    mesh whose sep axis exceeds 1. MoE and sequence-parallel fields are
-    accepted but raise when set."""
+    mesh whose sep axis exceeds 1. ``num_experts > 1`` makes every MLP a
+    mixture of ``num_experts`` SwiGLU experts (top ``moe_top_k`` behind a
+    ``moe_gate`` gate, "gshard", "naive" or "switch"), whose aux loss
+    joins the loss weighted by ``moe_aux_loss_weight``.
+    ``sequence_parallel`` is accepted but raises when set."""
 
     def __init__(
         self,
@@ -96,13 +105,9 @@ class LlamaConfig:
         moe_aux_loss_weight=0.01,
         context_parallel=False,
     ):
-        later = {
-            "num_experts > 1 (MoE)": num_experts > 1,
-            "sequence_parallel": sequence_parallel,
-        }
-        for field, is_set in later.items():
-            if is_set:
-                raise NotImplementedError(f"LlamaConfig: {field} {_LATER}")
+        if sequence_parallel:
+            raise NotImplementedError(
+                f"LlamaConfig: sequence_parallel {_LATER}")
         if context_parallel not in (False, True, "ring", "ulysses"):
             raise ValueError(
                 f"context_parallel must be False/True/'ring'/'ulysses', "
@@ -431,7 +436,18 @@ class LlamaDecoderLayer(nn.Module):
     def __init__(self, config, **kw):
         super().__init__()
         self.self_attn = LlamaAttention(config, **kw)
-        self.mlp = LlamaMLP(config, **kw)
+        if config.num_experts > 1:
+            # reference :445-461: SwiGLU experts behind the configured gate
+            self.mlp = MoELayer(
+                config.hidden_size,
+                experts=SwiGLUExpertStack(config.num_experts,
+                                          config.hidden_size,
+                                          config.intermediate_size, **kw),
+                gate={"type": config.moe_gate,
+                      "num_expert": config.num_experts,
+                      "top_k": config.moe_top_k}, **kw)
+        else:
+            self.mlp = LlamaMLP(config, **kw)
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        epsilon=config.rms_norm_eps, **kw)
         self.post_attention_layernorm = RMSNorm(
@@ -491,7 +507,10 @@ class LlamaModel(nn.Module):
             if attention_mask is not None:
                 attention_mask = torch.as_tensor(attention_mask,
                                                  device=input_ids.device)
-            remat = self.config.use_recompute and self.training
+            # MoE layers skip block recompute (reference :514-527): the
+            # gate's aux loss is read off the layer after the forward
+            remat = (self.config.use_recompute and self.training
+                     and self.config.num_experts <= 1)
             for layer in self.layers:
                 if remat:
                     h = recompute(layer, h, position_ids,
@@ -534,6 +553,16 @@ class LlamaModel(nn.Module):
             presents.append(present)
         return self.norm(h), presents
 
+    def moe_aux_loss(self):
+        """The sum of the gates' load-balancing losses from the last
+        forward, or None without MoE layers (reference :534-551)."""
+        total = None
+        for layer in self.layers:
+            aux = getattr(layer.mlp, "l_aux", None)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return total
+
 
 class LlamaPretrainingCriterion(nn.Module):
     """The LM loss (reference :578): ``(logits, labels)`` -> f32 cross-
@@ -563,7 +592,9 @@ class LlamaPretrainingCriterion(nn.Module):
 class LlamaForCausalLM(GenerationMixin, nn.Module):
     """Trunk (``llama``) plus LM head; weights drawn from ``seed`` with the
     reference's init (Normal(0, 0.02) for projections and embedding, ones
-    for the norms) on ``device`` (default "cuda") in ``config.dtype``.
+    for the norms, XavierUniform with the reference's fan rule for the MoE
+    gates and experts) on ``device`` (default "cuda") in
+    ``config.dtype``.
     ``generate``, ``generate_speculative`` and beam search come from
     ``GenerationMixin``."""
 
@@ -582,6 +613,8 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             for name, p in self.named_parameters():
                 if "layernorm" in name or name == "llama.norm.weight":
                     p.fill_(1.0)
+                elif ".mlp.gate." in name or ".mlp.experts." in name:
+                    xavier_uniform_(p, gen)
                 else:
                     p.normal_(0.0, 0.02, generator=gen)
         self.eval()
@@ -599,6 +632,29 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             return self.lm_head.weight.t()
         return self.llama.embed_tokens.weight.t()
 
+    def moe_aux_loss(self):
+        return self.llama.moe_aux_loss()
+
+    def _apply_moe_aux(self, loss):
+        """``loss`` plus ``moe_aux_loss_weight`` times the last forward's
+        gate losses (reference :715-722); the loss itself without MoE."""
+        aux = self.llama.moe_aux_loss()
+        if aux is None or not self.config.moe_aux_loss_weight:
+            return loss
+        return loss + self.config.moe_aux_loss_weight * aux
+
+    def make_loss_fn(self):
+        """A ``TrainStep`` loss function that adds the gates' aux loss to
+        the criterion's (reference :724-738): ``loss_fn(logits, labels)``,
+        or ``loss_fn(hidden, lm_weight, labels)`` for the fused form. It
+        reads the aux loss of the forward the step just ran."""
+        crit = LlamaPretrainingCriterion(self.config)
+
+        def loss_fn(*args):
+            return self._apply_moe_aux(crit(*args))
+
+        return loss_fn
+
     def forward(self, input_ids, position_ids=None, past_key_values=None,
                 labels=None, segment_ids=None, attention_mask=None,
                 cache_position=None, use_cache=False):
@@ -609,7 +665,8 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         with ``fuse_linear_cross_entropy`` and labels, the fused loss from
         (hidden, lm weight, labels), never building [B, S, vocab] logits;
         fused and training without labels, (hidden, lm weight) for a loss
-        function; otherwise the logits, or their loss given labels.
+        function; otherwise the logits, or their loss given labels. A
+        loss includes the MoE gates' aux loss (``_apply_moe_aux``).
         ``segment_ids`` [B, S]: SFT-packed rows (``LlamaModel``); refused
         with caches. ``attention_mask``: a padding mask on the training
         path and the dense caches (``LlamaAttention``); the paged and
@@ -627,11 +684,13 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                                                       or self.training):
             w = self.lm_weight()
             if labels is not None:
-                return LlamaPretrainingCriterion(self.config)(h, w, labels)
+                return self._apply_moe_aux(
+                    LlamaPretrainingCriterion(self.config)(h, w, labels))
             return h, w
         logits = self.head(h)
         if labels is not None:
-            return LlamaPretrainingCriterion(self.config)(logits, labels)
+            return self._apply_moe_aux(
+                LlamaPretrainingCriterion(self.config)(logits, labels))
         return logits
 
     def num_parameters(self):

@@ -34,6 +34,7 @@ import time
 
 import torch
 
+from ..device import resolve
 from ..utils.envs import env_bool, env_float, env_int
 from .metrics import registry as _registry
 
@@ -119,8 +120,10 @@ class DynamicsMonitor:
         return cls(named_params)
 
     # ---- device side -------------------------------------------------------
-    def init_state(self, device="cpu"):
-        """The carry: fixed-shape f32/int32 tensors on ``device``."""
+    def init_state(self, device="cuda"):
+        """The carry: fixed-shape f32/int32 tensors on ``device`` (default
+        the card; raises without CUDA unless given ``device="cpu"``)."""
+        device = resolve(device)
         g = len(self.group_names)
 
         def full(shape, value, dtype):

@@ -2,4 +2,5 @@
 step's own (the AdamW update, ``adamw``; the multi-tensor gradient norm,
 ``grad_norm``), each with a hand-written CUDA kernel (``csrc/``, built by
 ``_build``) and its plain PyTorch version; the int8 KV codec of the
-serving pools (``quantization``)."""
+serving pools (``quantization``); the weight-only product
+(``weight_only``); the MoE dispatch and combine (``moe_dispatch``)."""

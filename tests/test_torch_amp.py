@@ -85,7 +85,7 @@ def test_grad_scaler_eager_matches_reference():
 
 def test_scaler_state_machine_matches_reference():
     js, ts = jamp.GradScaler(**SCALER_KW), tamp.GradScaler(**SCALER_KW)
-    jst, tst = js.init_state(), ts.init_state()
+    jst, tst = js.init_state(), ts.init_state("cpu")
     for finite in (True, False, True, True, True, False, False, True):
         jst = js.update_state(jst, jnp.asarray(finite))
         tst = ts.update_state(tst, torch.tensor(finite))

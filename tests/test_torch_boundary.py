@@ -18,10 +18,12 @@ the device or the kernel.
   backward, the flash dispatch itself, K3's segment-masked entries and the
   packed dispatch, K6's ring visit and the ring's backward dispatch, the
   AdamW update (its plain and its general, master-weight instance) and
-  the gradient-norm kernel; a K/V pool pair of one int8 and one float
+  the gradient-norm kernel, and the MoE dispatch and combine (kernels D
+  and E, forward and backward); a K/V pool pair of one int8 and one float
   pool is refused;
 - the training entry points (``LlamaForCausalLM``, ``TrainStep``,
-  ``DistributedTrainStep`` and its default mesh) default to the card too.
+  ``DistributedTrainStep`` and its default mesh) default to the card too,
+  and so do the loss scaler's and the dynamics' device state.
 """
 import ast
 import json
@@ -44,6 +46,7 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import adamw as tadamw
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import grad_norm as tgn
+from paddle_tpu_torch.ops import moe_dispatch as tmd
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
@@ -208,6 +211,8 @@ def library_missing(monkeypatch):
     monkeypatch.setattr(tadamw, "_adamw_math", plain_forbidden)
     monkeypatch.setattr(tadamw, "_adamw_plain", plain_forbidden)
     monkeypatch.setattr(tgn, "_sumsq_math", plain_forbidden)
+    monkeypatch.setattr(tmd, "_dispatch_math", plain_forbidden)
+    monkeypatch.setattr(tmd, "_combine_math", plain_forbidden)
 
 
 def test_ragged_wrapper_raises_without_its_kernel(library_missing):
@@ -402,3 +407,60 @@ def test_distributed_entry_points_default_to_the_card(no_cuda):
         DistributedTrainStep(model, LlamaPretrainingCriterion(cfg),
                              AdamW(parameters=model.parameters()))
     assert not has_mesh()
+
+
+def _moe_routing():
+    from paddle_tpu_torch.incubate.distributed.models.moe import route
+
+    return route(torch.softmax(torch.randn(6, 4), -1), 2, 4)
+
+
+MOE_CALLS = {
+    "dispatch_rows": lambda s, r: tmd.dispatch_rows(s, r.dispatch_src),
+    "combine_rows": lambda s, r: tmd.combine_rows(s, r.slot, r.weight),
+    "combine_dw": lambda s, r: tmd.combine_dw(s, s, r.slot),
+    "moe_dispatch": lambda s, r: tmd._Dispatch.apply(s, r.dispatch_src,
+                                                     r.occupied_slot),
+    "moe_combine": lambda s, r: tmd._Combine.apply(s, r.weight, r.slot,
+                                                   r.dispatch_src),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(MOE_CALLS))
+def test_moe_wrappers_raise_without_their_kernels(library_missing, entry):
+    counts = [tmd.dispatch_rows.launches, tmd.combine_rows.launches,
+              tmd.combine_dw.launches]
+    with pytest.raises(_build.KernelBuildError, match="moe_dispatch"):
+        MOE_CALLS[entry](_CudaStub(24, 64), _moe_routing())
+    assert [tmd.dispatch_rows.launches, tmd.combine_rows.launches,
+            tmd.combine_dw.launches] == counts
+
+
+def test_moe_public_entries_take_the_kernel_for_a_cuda_tensor(
+        library_missing):
+    class Rows(_CudaStub):
+        def contiguous(self):
+            return self
+
+        def reshape(self, *shape):
+            return self
+
+    r = _moe_routing()
+    with pytest.raises(_build.KernelBuildError, match="moe_dispatch"):
+        tmd.moe_dispatch(Rows(6, 64), r)
+    with pytest.raises(_build.KernelBuildError, match="moe_dispatch"):
+        tmd.moe_combine(Rows(4, 4, 64), r)
+
+
+def test_state_initializers_default_to_the_card(no_cuda):
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.observability.dynamics import DynamicsMonitor
+
+    model = LlamaForCausalLM(llama_tiny(num_hidden_layers=1), device="cpu")
+    dyn = DynamicsMonitor(dict(model.named_parameters()))
+    for init in (GradScaler().init_state, dyn.init_state):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init()
+        state = init("cpu")
+        assert all(t.device.type == "cpu" for t in state.values()
+                   if isinstance(t, torch.Tensor))
