@@ -59,12 +59,13 @@ Phases, one JSON line each (any failed phase exits non-zero):
 6c. wo_linear — the weight-only product (kernel C) against its plain
             version at LLaMA-2-7B's projections (4096 -> 4096, 4096 ->
             11008, 11008 -> 4096), int8 and int4 codes, bf16 and f32 x of
-            1, 8, 32 and 64 rows, two launches bit for bit; codes and
-            scales quantized on the card equal the CPU's; the edges (odd
-            K, N no multiple of 32, and 65 rows taking the plain form);
-            the bf16 rows timed (kernel ms, device ms with the L2 flushed,
-            the bound, the plain version) beside torch.matmul over the
-            bf16 weight;
+            1, 8, 24, 32, 40 and 64 rows, two launches bit for bit; codes
+            and scales quantized on the card equal the CPU's; the edges
+            (odd K, N no multiple of the 64-channel tile, and 65 rows
+            taking the plain form); the bf16 rows timed (kernel ms, device
+            ms with the L2 flushed, the bound, the plain version; at 8
+            rows also with the L2 flushed by reads) beside torch.matmul
+            over the bf16 weight, each call one launch of one kernel;
 6d. moe_dispatch — kernels D and E (the MoE dispatch and combine),
             forward and backward (E's weight gradient too), against their
             plain versions (the reference's einsums over the dense
@@ -271,17 +272,21 @@ def cuda_ms(fn, reps=20, warmup=3):
 L2_FLUSH_BYTES = 64 << 20          # > the H100's 50 MB L2
 
 
-def device_ms(fn, calls=20, warmup=2):
+def device_ms(fn, calls=20, warmup=2, clean=False):
     """Device milliseconds of one ``fn()``: the summed durations of every
     kernel it launches once (a split pass and its merge alike), each the
     mean of torch.profiler's CUDA kernel events over ``calls`` calls, with
     the L2 flushed before each by a 64 MB write (a decode step finds a
-    layer's pages cold). Returns (ms, {kernel name: ms per call})."""
+    layer's pages cold). The write leaves the L2 full of dirty lines,
+    which the call's first reads write back to HBM; ``clean`` flushes by
+    reading 64 MB instead (clean lines, as the other layers' weights leave
+    the L2 in a decode step). Returns (ms, {kernel name: ms per call})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
+    sink = torch.empty((), device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -291,12 +296,16 @@ def device_ms(fn, calls=20, warmup=2):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(calls):
-                flush.fill_(float(i))
+                if clean:
+                    torch.sum(flush, dim=0, out=sink)
+                else:
+                    flush.fill_(float(i))
                 fn()
             torch.cuda.synchronize()
         for ev in prof.events():
             if (ev.device_type != torch.autograd.DeviceType.CUDA
-                    or "FillFunctor" in ev.name):
+                    or "FillFunctor" in ev.name
+                    or (clean and "reduce_kernel" in ev.name)):
                 continue
             t = ev.time_range
             us, n = by_name.get(ev.name, (0.0, 0))
@@ -1147,6 +1156,8 @@ def _family(name):
             return "flash_attention_" + kind + entry
     if "adamw_kernel" in name:
         return "adamw_update"
+    if "wo_hopper_kernel<" in name or "wo_f32_kernel<" in name:
+        return "weight_only_linear"
     for kernel, family in (("gather_rows_kernel<", "moe_dispatch"),
                            ("combine_rows_kernel<", "moe_combine"),
                            ("combine_dw_kernel<", "moe_combine_dw")):
@@ -2664,7 +2675,14 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, opt, top=8,
     per, cand, noise, amp = {}, [], {}, []
     cpu_params = dict(cpu_model.named_parameters())
     for name, p in gpu_model.named_parameters():
-        d = (p.detach().cpu() - cpu_params[name].detach()).abs().flatten()
+        # the difference (exact in f32 on either device) and its median on
+        # the card: the median is one of its elements, the same on the
+        # CPU, where sorting 667 M of them took some 20 s a phase
+        d_card = (p.detach()
+                  - cpu_params[name].detach().to(p.device)).abs().flatten()
+        median = float(d_card.median())
+        d = d_card.cpu()
+        del d_card
         out = (d > 0.1 * lr).nonzero().flatten()
         near = torch.zeros(out.numel(), dtype=torch.bool)
         noise[name] = []
@@ -2685,7 +2703,7 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, opt, top=8,
             mc = beta1 * mc + (1 - beta1) * co
             var_m = beta1 ** 2 * var_m + (1 - beta1) ** 2 * nz.square()
             near |= within(go, co, nz) | within(mg, mc, var_m.sqrt())
-        per[name] = {"median_lr": float(d.median()) / lr,
+        per[name] = {"median_lr": median / lr,
                      "max_lr": float(d.max()) / lr,
                      "outliers": int(out.numel()),
                      "explained": int(near.sum())}
@@ -3590,6 +3608,8 @@ def _device_profile(phase, fn):
            "device_busy_s": busy if spans else None,
            "idle_share": 1 - busy / wall if spans else None,
            "device_s": by_family,
+           "copy_kernels_s": sum(dur for name, dur in by_name.items()
+                                 if "copy_kernel" in name) / 1e9,
            "top_other": sorted(other.items(), key=lambda kv: -kv[1])[:6]}
     emit(row)
     return row
@@ -3608,7 +3628,8 @@ def phase_train_profile(step, batches):
 
 WO_SHAPES = (("q_k_v_o", 4096, 4096), ("gate_up", 4096, 11008),
              ("down", 11008, 4096))    # (projection, K, N) of LLaMA-2-7B
-WO_ROWS = (1, 8, 32, 64)     # decode B 1 and 8, beam B 2 x K 4 = 8, verify
+WO_ROWS = (1, 8, 24, 32, 40, 64)   # decode B 1 and 8, beam B 2 x K 4 = 8,
+#                                   verify B 8 x gamma 4 = 32, engine slots
 WO_MAIN = ("gate_up", "int8", 8)   # the kernel line's row: B 8 decode
 
 
@@ -3660,29 +3681,41 @@ def _wo_case(gen, codes, scale, int4, k, rows, dtype, timed, w_bf16=None):
     b_ms, b_by = bound(nbytes, 2 * rows * n * k, str(dtype))
     dev_ms, per = device_ms(lambda: wo.weight_only_matmul(x, codes, scale,
                                                           int4, k))
+    # one call is one launch of the one kernel: the split over K stays
+    # inside it (no second pass, no partial buffer)
+    if len(per) != 1 or "wo_hopper_kernel" not in next(iter(per)):
+        raise AssertionError(f"{label}: one call launched {sorted(per)}")
     row.update(kernel_ms=cuda_ms(lambda: wo.weight_only_matmul(
         x, codes, scale, int4, k)), device_ms=dev_ms, device_kernels=per,
         bound_ms=b_ms, bound_by=b_by,
         plain_ms=cuda_ms(lambda: wo._wo_math(x, codes, scale, int4, k),
-                         reps=5, warmup=1))
+                         reps=5, warmup=1),
+        plan=wo.plan(rows, n, k, int4)._asdict())
     if w_bf16 is not None:
         xb = x.to(torch.bfloat16)
         row["bf16_matmul_ms"] = cuda_ms(lambda: torch.matmul(xb, w_bf16.t()))
-        if rows in (1, 8):
-            row["bf16_matmul_device_ms"] = device_ms(
-                lambda: torch.matmul(xb, w_bf16.t()))[0]
+        row["bf16_matmul_device_ms"] = device_ms(
+            lambda: torch.matmul(xb, w_bf16.t()))[0]
+        if rows == 8:   # the dirty L2's write-back apart (device_ms)
+            row["device_ms_clean"] = device_ms(lambda: wo.weight_only_matmul(
+                x, codes, scale, int4, k), clean=True)[0]
+            row["bf16_matmul_device_ms_clean"] = device_ms(
+                lambda: torch.matmul(xb, w_bf16.t()), clean=True)[0]
     return row
 
 
 def phase_wo_linear(seed=18):
     """Kernel C against its plain version at LLaMA-2-7B's projection
     shapes (4096 -> 4096, 4096 -> 11008, 11008 -> 4096), int8 and int4
-    codes, bf16 and f32 x of 1, 8, 32 and 64 rows; the codes and scales
-    quantized on the card equal the CPU's bit for bit; the bf16 rows
-    timed beside torch.matmul over the bf16 weight. Then the edges: odd K
-    (int4 pairs a padding nibble; int8 rows no multiple of 16 bytes), N no
-    multiple of the 32-column block, and 65 rows, which take the plain
-    form (dequantize, then torch.mm) and no launch."""
+    codes, bf16 and f32 x of 1, 8, 24, 32, 40 and 64 rows, two launches
+    bit for bit; the codes and scales quantized on the card equal the
+    CPU's bit for bit; the bf16 rows timed beside torch.matmul over the
+    bf16 weight (device time with the L2 flushed by writes; at 8 rows
+    also by reads), each call one launch of the one kernel. Then the
+    edges: odd K (int4 pairs a padding nibble; int8 rows no multiple of
+    16 bytes: the producer's copies instead of TMA), N no multiple of the
+    64-channel tile, and 65 rows, which take the plain form (dequantize,
+    then torch.mm) and no launch."""
     import torch
 
     from paddle_tpu_torch.nn.quant import quantize_rows
@@ -4058,7 +4091,9 @@ def phase_generate(seed=0):
     greedy run's; beam search K 4 at B 2; int8 and int4 weight-only with
     the head kept bf16 (bench.py:350): kernel C launches exactly 7 x 32
     per decode forward, the prefill takes the plain form, and one short
-    decode is profiled for the idle share."""
+    decode is profiled for the idle share and kernel C's share of the
+    device time, the prefill alone beside it (each dtype's copy kernels
+    by where they run)."""
     import numpy as np
     import torch
 
@@ -4077,6 +4112,9 @@ def phase_generate(seed=0):
     row, greedy = _decode_row("generate", model, ids)
     row["profile"] = _device_profile(
         "generate_profile", lambda: model.generate(ids, max_new_tokens=8))
+    row["prefill_profile"] = _device_profile(
+        "generate_prefill_profile",
+        lambda: model.generate(ids, max_new_tokens=1))
     emit(row)
     rows["bf16"] = row
     dcfg = llama2_7b(dtype="bfloat16")
@@ -4136,6 +4174,15 @@ def phase_generate(seed=0):
         row["profile"] = _device_profile(
             f"generate_{quant}_profile",
             lambda: model.generate(ids, max_new_tokens=8))
+        # the prefill alone: its plain form (dequantize, then the product)
+        # against the 7 decode steps' kernel C
+        row["prefill_profile"] = _device_profile(
+            f"generate_{quant}_prefill_profile",
+            lambda: model.generate(ids, max_new_tokens=1))
+        row["kernel_c_device_share"] = (
+            row["profile"]["device_s"].get("weight_only_linear", 0.0)
+            / row["profile"]["device_busy_s"])
+        row["decode_ms_per_step_bf16"] = rows["bf16"]["decode_ms_per_step"]
         emit(row)
         rows[quant] = row
         for key, n in want.items():
@@ -4922,6 +4969,9 @@ def kernel_table(rows):
                        "codes with per-channel scales",
             "bf16_matmul_ms": main_row["bf16_matmul_ms"],
             "bf16_matmul_device_ms": main_row["bf16_matmul_device_ms"],
+            "device_ms_clean": main_row["device_ms_clean"],
+            "bf16_matmul_device_ms_clean":
+                main_row["bf16_matmul_device_ms_clean"],
             "ms_of": "x [8, 4096] bf16 @ int8 [11008, 4096]",
             "device_ms_by_shape": {
                 f"{p} {w} rows {n}": r["device_ms"]

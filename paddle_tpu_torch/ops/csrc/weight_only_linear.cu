@@ -14,7 +14,7 @@
 //
 // Rounding points are the reference's (:78-102):
 // - int8, bf16 x: w = bf16(bf16(q) * bf16(s)), then y = bf16(sum x * w),
-//   the sum in f32 (mma.sync on bf16 fragments dequantized in registers);
+//   the sum in f32;
 // - int8, f32 x: w = q * s rounded to f32 (__fmul_rn, so no FMA merges it
 //   into the product), y = sum x * w in f32 (CUDA cores);
 // - int4: two f32 sums, even k against the low nibbles and odd k against
@@ -23,31 +23,60 @@
 //
 // What bounds it on the H100: bytes. A decode step's products are M x N x K
 // multiply-adds for N x K weight bytes, 2M operations a byte (int8), well
-// under the bf16 tensor cores' ~295 a byte; so the bf16 instance runs its
-// products on tensor cores and the f32 one (the f32 parity runs only) on
-// CUDA cores.
+// under the bf16 tensor cores' ~295 a byte; the kernel has to keep the
+// HBM busy and spend few instructions a code byte.
 //
-// Design: block b owns output columns [32 b, 32 b + 32), four warps of
-// eight columns each, and walks its share of K in chunks of 256 code
-// bytes (int4: 128). Four lanes share a column; each copies 16 code
-// bytes of it per 64-byte slab, and x's chunk (all M rows, rounded up to
-// 16) is staged beside them, by cp.async into a ring of stages in shared
-// memory ahead of the products that use them. A lane's 16 codes feed four
-// m16n8k16 products whose k positions are a permutation of the chunk's,
-// the same one for the x fragment, so no code byte is shuffled. Where N
-// gives fewer than two blocks an SM, K is split over blocks too, and a
-// second launch adds the splits' f32 partial sums. Every sum runs in a
-// fixed order (no atomics): two launches give the same bits.
+// Design of the bf16 instance (wo_hopper_kernel), one block a tile of 64
+// or 128 channels of W and a contiguous share of its K:
+// - the operands are swapped: the output channels are wgmma's M (64 per
+//   consumer warpgroup) and x's rows its N, rounded up to 8 (instances n8
+//   .. n64), so no product row is padding. A is the dequantized codes in
+//   registers, B is x, K-major in shared memory;
+// - a producer warp keeps a ring of 2-24 stages full by TMA: a stage is
+//   128 code bytes of each of the tile's rows (one 2-D box, 128-byte
+//   swizzle: 8 or 16 KB) and x's rows over the same k (64-element boxes);
+//   the consumers wait on the stage's mbarrier and free it on another. A
+//   group of tile / 64 consumer warpgroups covers the tile's channels;
+//   where registers allow, the block's 4 (n16-n32 int8, n16-n24 int4) or
+//   6 (n8) warpgroups make several groups that take turns at the stages;
+// - dequantization in registers, the same bits as the reference's: an
+//   int8 code's low 7 bits under the bf16 exponent of 128, less 128 or
+//   256 by its sign bit, is q exactly, and one bf16 multiply by s rounds
+//   q s once (exact in f32, so the reference's bf16(bf16(q) * bf16(s)));
+//   an int4 nibble n xor 8 under the same exponent is 136 + n, less 136.
+//   The scale stays out of the int4 sums, as the reference has it;
+// - the A fragment's k positions (2c, 2c + 1, 2c + 8, 2c + 9 for lane
+//   4g + c, hopper.cuh) are two 4-byte words of a code row a k-step, read
+//   conflict-free from the swizzled rows; for int4 a stage's x is split in
+//   place into its even and odd k, so each code byte's low nibble meets
+//   x[2j] and its high nibble x[2j + 1] in two products a k-step;
+// - K is split over a thread block cluster of 1-8 blocks along K (the
+//   launch plan, ops/weight_only.py: plan, which also picks the tile):
+//   each block sums its share, the others' f32 sums reach block 0 through
+//   distributed shared memory and are added in rank order, and block 0
+//   rounds and stores y. One launch,
+//   no partial buffer in HBM, every sum in a fixed order: two launches give
+//   the same bits. A cluster spans K, so its blocks read different parts
+//   of x and TMA multicast has nothing to share; x (at most 1.4 MB) comes
+//   from the L2;
+// - code rows or x rows that TMA cannot address (a row no multiple of 16
+//   bytes, an unaligned base) are copied by the producer warp's 32 threads
+//   into the same swizzled layout instead: slower, same kernel.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace ptt::hopper;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBlockN = kWarps * 8;   // output columns a block owns
+constexpr int kBlockN = kWarps * 8;   // the f32 kernel's output columns
 constexpr int kChunk = 256;           // the f32 kernel's chunk: code bytes
 constexpr int kSlabs = kChunk / 64;   // a lane's 16-byte loads of a chunk
 constexpr int kMaxRows = 64;
@@ -56,25 +85,11 @@ __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
 __device__ __forceinline__ float lo_nibble(int8_t q) {
   return (float)(int8_t)((int8_t)(q << 4) >> 4);
 }
 __device__ __forceinline__ float hi_nibble(int8_t q) {
   return (float)(int8_t)(q >> 4);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16 code bytes of column n from byte b of its row (zeros past the row or
@@ -141,257 +156,407 @@ __device__ __forceinline__ void stage_x(float* xs, const float* __restrict__ x,
   }
 }
 
-// -- bf16 x: tensor cores ---------------------------------------------------
+// -- bf16 x: TMA ring, register-A wgmma, split K over a cluster -------------
 //
-// A chunk's codes and x rows (raw; int4: even and odd k side by side)
-// land in shared memory by cp.async, two or three chunks deep, so one or
-// two chunks' bytes are in flight while the warps multiply another. Blocks
-// split K over blockIdx.y when N alone gives the card too few of them;
-// each split then writes f32 partial sums, which a second pass adds in
-// split order.
+// A stage is kUnitBytes code bytes of each of the tile's TN rows (a
+// "unit": 128 k of int8, 256 k of int4; TN 64 or 128 channels) and x's NT
+// rows over the same k. The launch plan (ops/weight_only.py: plan, which
+// mirrors the constants and stage_bytes below) picks the tile, the
+// cluster size and the ring's depth.
 
-constexpr int kXC = 256;   // x values a staged row of a chunk
-constexpr int kXR = kXC + 8;   // its padded length
+constexpr int kUnitBytes = 128;        // code bytes a row a stage
+constexpr int kCodeBoxes = kUnitBytes / 128;
+constexpr int kMaxSplits = 8;          // blocks a cluster (portable limit)
+constexpr int kMaxStages = 24;
+constexpr int kSmemLimit = 232448;     // an H100 block's shared memory
+constexpr int kAlignSlack = 1024;      // the 128-byte swizzle's alignment
 
-// A chunk's code bytes of a column (int4 packs kXC values in half as
-// many) and a lane's 16-byte copies of them.
+// x values a stage covers and their 64-element TMA boxes.
 template <bool INT4>
-__host__ __device__ constexpr int chunk_bytes() {
-  return INT4 ? kXC / 2 : kXC;
+__host__ __device__ constexpr int unit_k() {
+  return INT4 ? 2 * kUnitBytes : kUnitBytes;
 }
+
+// A stage's bytes: the codes, then x's boxes, NT rows of 128 bytes each.
 template <bool INT4>
-__host__ __device__ constexpr int slabs() {
-  return chunk_bytes<INT4>() / 64;
+__host__ __device__ constexpr int stage_bytes(int nt, int tn) {
+  return tn * kUnitBytes + unit_k<INT4>() / 64 * nt * 128;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// Consumer warpgroups a block: a group of TN / 64 covers the tile's
+// channels, and where their registers fit 4 or 6 warpgroups make several
+// groups that take turns at the stages (on the card 16 consumer warps beat
+// 8 by some 15%, 24 beat 16 by 3-5% at n8).
+__host__ __device__ constexpr int consumer_wgs(bool int4, int nt) {
+  return nt <= 8 ? 6 : (int4 ? nt <= 24 : nt <= 32) ? 4 : 2;
 }
 
-// Stage chunk `chunk` of x: rows of kXC values x[r][kXC chunk + j], zeros
-// past M or K. vec: 16-byte rows, filled by cp.async (zero-filled past K);
-// else element by element.
-__device__ __forceinline__ void stage_raw(__nv_bfloat16* xs,
-                                          const __nv_bfloat16* __restrict__ x,
-                                          int rows, int M, int K, int chunk,
-                                          bool vec) {
-  const int kx0 = chunk * kXC;
-  if (vec) {
-    for (int i = threadIdx.x; i < rows * (kXC / 8); i += kThreads) {
-      const int r = i / (kXC / 8), j = (i % (kXC / 8)) * 8, k = kx0 + j;
-      const int valid = r < M ? min(max(K - k, 0), 8) : 0;
-      cp_async16(xs + r * kXR + j, valid ? x + (size_t)r * K + k : x,
-                 2 * valid);
+// The block's dynamic shared memory: the ring (2-24 stages, on a 1024-byte
+// boundary) and its full and empty mbarriers. After the main loop the ring
+// holds the f32 sums the groups and the cluster add (weight_only_linear_
+// launch refuses a ring too small for them).
+template <bool INT4>
+__host__ __device__ constexpr int hopper_smem_bytes(int nt, int stages,
+                                                   int tn) {
+  return kAlignSlack + stages * (stage_bytes<INT4>(nt, tn) + 16);
+}
+
+struct WoArgs {
+  const __nv_bfloat16* x;
+  const int8_t* w;
+  const float* scale;
+  __nv_bfloat16* y;
+  int M, N, K, row_bytes;
+  int units;    // kUnitBytes units a code row
+  int splits;   // blocks a cluster: K's split
+  int stages;   // the ring's depth
+  int tma_w, tma_x;   // TMA can address the codes / x (else threads copy)
+};
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts64(uint32_t addr, uint32_t v0,
+                                      uint32_t v1) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v0),
+               "r"(v1)
+               : "memory");
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two int8 codes q (bytes 0 and 2 of p) as the bf16 pair bf16(q s): q's low
+// 7 bits below the exponent of 128 read 128 + (q & 127), and less 128 (q
+// >= 0) or 256 (bit 7 set: q < 0) that is q exactly; one bf16 multiply by
+// s2 = (s, s) rounds q s once, as the reference's bf16(q) * bf16(s) in f32
+// (an 8-bit code times a bf16 scale is exact in f32).
+__device__ __forceinline__ uint32_t dq8_pair(uint32_t p, __nv_bfloat162 s2) {
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (p & 0x00800080u) | 0x43004300u;
+  return as_u32(__hmul2(__hsub2(as_bf162(v), as_bf162(c)), s2));
+}
+
+// Low and high nibbles of bytes 0 and 2 of p as bf16 pairs (n0, n2): each
+// nibble xor 8 is n + 8, below the bf16 136's exponent 0x4300 it reads as
+// 136 + n, and 136 - 136 leaves n exactly.
+__device__ __forceinline__ uint32_t nibbles_bf16(uint32_t p) {
+  return as_u32(__hsub2(as_bf162((p & 0x000F000Fu) ^ 0x43084308u),
+                        as_bf162(0x43084308u)));   // (136, 136)
+}
+
+template <bool INT4, int NT, int TN>
+__global__ void __launch_bounds__(consumer_wgs(INT4, NT) * 128 + 32, 1)
+    wo_hopper_kernel(const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ CUtensorMap x_map, WoArgs a) {
+  constexpr int kConsumers = consumer_wgs(INT4, NT) * 128;
+  constexpr int kGroupThreads = 2 * TN;        // TN / 64 warpgroups
+  constexpr int kGroups = kConsumers / kGroupThreads;
+  constexpr int kCodeBox = TN * 128;           // one code box: 128 B a row
+  constexpr int kCodeBytes = TN * kUnitBytes;  // a stage's codes
+  constexpr int kSB = stage_bytes<INT4>(NT, TN);
+  constexpr int kBox = NT * 128;               // one x box's bytes
+  constexpr int kXBoxes = unit_k<INT4>() / 64;
+  constexpr int kSteps = kUnitBytes / 16;      // k-steps a stage
+  constexpr int kBatch = 4;                    // k-steps a wgmma batch
+  constexpr int kSub = kSteps / kBatch;        // wgmma batches a stage: 2
+  constexpr int kAcc = NT / 2;                 // accumulators a thread
+  static_assert(kSub % 2 == 0, "the fragments alternate within a stage");
+  unsigned char* base = aligned_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + a.stages * kSB);
+  uint64_t* empty = full + a.stages;
+  const int rank = blockIdx.x;   // the cluster spans gridDim.x = splits
+  const int n0 = blockIdx.y * TN;
+  const int u0 = (int)((long long)a.units * rank / a.splits);
+  const int n_it = (int)((long long)a.units * (rank + 1) / a.splits) - u0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);    // the producer's lane 0, with the bytes
+      mbar_init(&empty[s], kGroupThreads / 32);   // the group's warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // -- producer warp: TMA (or copies) into the ring ------------------------
+    const int lane = threadIdx.x & 31;
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % a.stages;
+      mbar_wait_sleep(&empty[st], ((it / a.stages) & 1) ^ 1);
+      unsigned char* stage = base + st * kSB;
+      const int u = u0 + it;
+      if (!a.tma_w) {
+        // 4-byte words of the tile's rows, zeros past N or the row
+        for (int i = lane; i < kCodeBoxes * TN * 32; i += 32) {
+          const int j = i / (TN * 32), r = (i >> 5) % TN;
+          const int wd = i & 31, n = n0 + r;
+          const int b = u * kUnitBytes + 128 * j + 4 * wd;
+          uint32_t v = 0;
+          if (n < a.N) {
+            const unsigned char* p = reinterpret_cast<const unsigned char*>(
+                a.w + (size_t)n * a.row_bytes);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (b + e < a.row_bytes) v |= (uint32_t)p[b + e] << (8 * e);
+          }
+          sts32(smem_addr(stage + j * kCodeBox + r * 128 +
+                          (((wd >> 2) ^ (r & 7)) << 4) + 4 * (wd & 3)),
+                v);
+        }
+      }
+      if (!a.tma_x) {
+        // bf16 pairs of x's rows, zeros past M or K
+        const unsigned short* xs =
+            reinterpret_cast<const unsigned short*>(a.x);
+        for (int i = lane; i < kXBoxes * NT * 32; i += 32) {
+          const int j = i / (NT * 32), r = (i >> 5) % NT, wd = i & 31;
+          const int k = u * unit_k<INT4>() + 64 * j + 2 * wd;
+          uint32_t v = 0;
+          if (r < a.M) {
+            const unsigned short* p = xs + (size_t)r * a.K;
+            if (k < a.K) v = p[k];
+            if (k + 1 < a.K) v |= (uint32_t)p[k + 1] << 16;
+          }
+          sts32(smem_addr(stage + kCodeBytes + j * kBox + r * 128 +
+                          (((wd >> 2) ^ (r & 7)) << 4) + 4 * (wd & 3)),
+                v);
+        }
+      }
+      if (!a.tma_w || !a.tma_x) fence_proxy_async();
+      __syncwarp();   // the lanes' copies before lane 0's arrival
+      if (lane == 0) {
+        const uint32_t tx = (a.tma_w ? kCodeBytes : 0) +
+                            (a.tma_x ? kSB - kCodeBytes : 0);
+        mbar_arrive_expect_tx(&full[st], tx);
+        if (a.tma_w)
+#pragma unroll
+          for (int j = 0; j < kCodeBoxes; ++j)
+            tma_load_2d(smem_addr(stage + j * kCodeBox), &w_map,
+                        smem_addr(&full[st]), u * kUnitBytes + 128 * j, n0);
+        if (a.tma_x)
+#pragma unroll
+          for (int j = 0; j < kXBoxes; ++j)
+            tma_load_2d(smem_addr(stage + kCodeBytes + j * kBox), &x_map,
+                        smem_addr(&full[st]), u * unit_k<INT4>() + 64 * j, 0);
+      }
+    }
+    if (a.splits > 1) {
+      cluster_sync();   // the consumers' sums are in shared memory
+      cluster_sync();   // block 0 has read them
     }
     return;
   }
-  for (int i = threadIdx.x; i < rows * kXC; i += kThreads) {
-    const int r = i / kXC, j = i % kXC, k = kx0 + j;
-    xs[r * kXR + j] = r < M && k < K ? x[(size_t)r * K + k]
-                                     : __float2bfloat16_rn(0.f);
-  }
-}
 
-// Issue one chunk's copies into a pipeline stage: x's rows (stage_raw) and
-// this lane's 16 code bytes of each 64-byte slab of its column, which the
-// lane alone reads back (slab i at ws[i * kThreads + thread]).
-template <bool INT4>
-__device__ __forceinline__ void issue_stage(
-    __nv_bfloat16* xs, uint4* ws, const __nv_bfloat16* __restrict__ x,
-    const int8_t* __restrict__ w, int rows, int M, int N, int K,
-    int row_bytes, int chunk, int n, int c, bool vec, bool vec_x) {
-  stage_raw(xs, x, rows, M, K, chunk, vec_x);
+  // -- consumers: dequantize into A fragments, wgmma against x -------------
+  // group p takes stages p, p + kGroups, ...; a group's thread t owns the
+  // same channels in every group
+  const int group = threadIdx.x / kGroupThreads;
+  const int tid = threadIdx.x % kGroupThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  // this thread's two code rows (channels): r_local and r_local + 8
+  const int r_local = 16 * warp + g;   // warp 4..7 is warpgroup 1: + 64
+  const int ch[2] = {n0 + r_local, n0 + r_local + 8};
+  float s_bf[2];
+  __nv_bfloat162 s2[2];
 #pragma unroll
-  for (int i = 0; i < slabs<INT4>(); ++i) {
-    const int b = chunk * chunk_bytes<INT4>() + 64 * i + 16 * c;
-    uint4* dst = ws + i * kThreads + threadIdx.x;
-    if (vec) {
-      const int valid = n < N ? min(max(row_bytes - b, 0), 16) : 0;
-      cp_async16(dst, valid ? w + (size_t)n * row_bytes + b : w, valid);
-    } else {
-      *dst = load_codes(w, n, N, row_bytes, b, false);
-    }
+  for (int h = 0; h < 2; ++h) {
+    s_bf[h] = bf(ch[h] < a.N ? a.scale[ch[h]] : 0.f);
+    s2[h] = __floats2bfloat162_rn(s_bf[h], s_bf[h]);
   }
-}
+  // the lane's codes at k = 2c, 2c + 1 are bytes 2 (c & 1), + 1 of word
+  // c >> 1 of a k-step's 16 bytes (k = 2c + 8, + 9: of word 2 + (c >> 1));
+  // the byte permute puts them in bytes 0 and 2 (16-bit lanes)
+  const uint32_t sel = 0x1100u * (2u * (c & 1) + 1) + 0x11u * (2u * (c & 1));
 
-// One staged chunk into the tiles' sums. Codes e[4s .. 4s + 3] of slab i
-// sit at chunk positions jb .. jb + 3 and play k = 2c, 2c + 1, 2c + 8,
-// 2c + 9 of one m16n8k16 product, and so do the x values at the same
-// positions (int4: the even k against the low nibbles, the odd k against
-// the high ones, each pair picked out of one 16-byte row load).
-template <bool INT4>
-__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* xs,
-                                          const uint4 (&q)[slabs<INT4>()],
-                                          int mt, int g, int c, float s_bf,
-                                          float (&acc)[4][4],
-                                          float (&acc_hi)[4][4]) {
-  constexpr int XR = kXR;
+  float acc[kAcc], acc_hi[INT4 ? kAcc : 1];
 #pragma unroll
-  for (int i = 0; i < slabs<INT4>(); ++i) {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&q[i]);
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int jb = 64 * i + 16 * c + 4 * s;
-      uint32_t b0r, b1r, h0r = 0, h1r = 0;
-      if constexpr (INT4) {
-        b0r = pack2(lo_nibble(e[4 * s]), lo_nibble(e[4 * s + 1]));
-        b1r = pack2(lo_nibble(e[4 * s + 2]), lo_nibble(e[4 * s + 3]));
-        h0r = pack2(hi_nibble(e[4 * s]), hi_nibble(e[4 * s + 1]));
-        h1r = pack2(hi_nibble(e[4 * s + 2]), hi_nibble(e[4 * s + 3]));
-      } else {
-        // w = bf16(bf16(q) * bf16(s)): the product of two bf16 is exact in
-        // f32, so one rounding
-        b0r = pack2(__fmul_rn((float)e[4 * s], s_bf),
-                    __fmul_rn((float)e[4 * s + 1], s_bf));
-        b1r = pack2(__fmul_rn((float)e[4 * s + 2], s_bf),
-                    __fmul_rn((float)e[4 * s + 3], s_bf));
+  for (int i = 0; i < (INT4 ? kAcc : 1); ++i) acc_hi[i] = 0.f;
+
+  // Batches of kBatch k-steps alternate between two fragment sets: a batch
+  // is dequantized while the one before it runs on the tensor cores, and
+  // a stage is freed once its last batch has run (the next stage's first
+  // wait).
+  uint32_t frag[2][kBatch][4], frag_hi[2][INT4 ? kBatch : 1][4];
+  int prev_st = -1;
+  for (int it = group; it < n_it; it += kGroups) {
+    const int st = it % a.stages;
+    mbar_wait_sleep(&full[st], (it / a.stages) & 1);
+    const uint32_t codes = smem_addr(base + st * kSB) + r_local * 128;
+    const uint32_t xs = smem_addr(base + st * kSB + kCodeBytes);
+    if constexpr (INT4) {
+      // x's even k to boxes 0 and 1, its odd k to 2 and 3, in place: the
+      // group's threads read their 16-byte chunks (8 values), wait for
+      // each other, write them split and fence them for wgmma
+      constexpr int kChunks = NT * 32 / kGroupThreads;   // of NT rows x 32
+      uint4 v[kChunks];
+#pragma unroll
+      for (int t = 0; t < kChunks; ++t) {
+        const int i = tid + kGroupThreads * t, r = i >> 5, q = i & 31;
+        v[t] = lds128(xs + (q >> 3) * kBox + r * 128 +
+                      (((q & 7) ^ (r & 7)) << 4));
       }
+      named_bar_sync(2 + group, kGroupThreads);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (t >= mt) continue;
-        const __nv_bfloat16* r0 = xs + (16 * t + g) * XR;
-        const __nv_bfloat16* r1 = r0 + 8 * XR;
-        if constexpr (INT4) {
-          const uint4 u0 = *reinterpret_cast<const uint4*>(r0 + 2 * jb);
-          const uint4 u1 = *reinterpret_cast<const uint4*>(r1 + 2 * jb);
-          const uint32_t a[4] = {__byte_perm(u0.x, u0.y, 0x5410),
-                                 __byte_perm(u1.x, u1.y, 0x5410),
-                                 __byte_perm(u0.z, u0.w, 0x5410),
-                                 __byte_perm(u1.z, u1.w, 0x5410)};
-          const uint32_t ah[4] = {__byte_perm(u0.x, u0.y, 0x7632),
-                                  __byte_perm(u1.x, u1.y, 0x7632),
-                                  __byte_perm(u0.z, u0.w, 0x7632),
-                                  __byte_perm(u1.z, u1.w, 0x7632)};
-          mma_bf16(acc[t], a, b0r, b1r);
-          mma_bf16(acc_hi[t], ah, h0r, h1r);
-        } else {
-          const uint2 v0 = *reinterpret_cast<const uint2*>(r0 + jb);
-          const uint2 v1 = *reinterpret_cast<const uint2*>(r1 + jb);
-          const uint32_t a[4] = {v0.x, v1.x, v0.y, v1.y};
-          mma_bf16(acc[t], a, b0r, b1r);
+      for (int t = 0; t < kChunks; ++t) {
+        // pairs 4q .. 4q + 3: box q / 16, 8 bytes at 8 (q % 16) of row r
+        const int i = tid + kGroupThreads * t, r = i >> 5, q = i & 31;
+        const uint32_t at = xs + (q >> 4) * kBox + r * 128 +
+                            ((((q & 15) >> 1) ^ (r & 7)) << 4) + 8 * (q & 1);
+        sts64(at, __byte_perm(v[t].x, v[t].y, 0x5410),
+              __byte_perm(v[t].z, v[t].w, 0x5410));
+        sts64(at + 2 * kBox, __byte_perm(v[t].x, v[t].y, 0x7632),
+              __byte_perm(v[t].z, v[t].w, 0x7632));
+      }
+      fence_proxy_async();
+      named_bar_sync(2 + group, kGroupThreads);
+    }
+#pragma unroll
+    for (int sb = 0; sb < kSub; ++sb) {
+      uint32_t(&f)[kBatch][4] = frag[sb & 1];
+      uint32_t(&fh)[INT4 ? kBatch : 1][4] = frag_hi[sb & 1];
+#pragma unroll
+      for (int s4 = 0; s4 < kBatch; ++s4) {
+        const int s = kBatch * sb + s4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // row r_local + 8 h: the same swizzle (r & 7 == g)
+          const uint32_t row = codes + h * 1024;
+          // 16 code bytes a k-step: box s / 8, chunk s % 8
+          const uint32_t at = row + (s >> 3) * kCodeBox +
+                              (((s & 7) ^ g) << 4) + 4 * (c >> 1);
+          const uint32_t p0 = __byte_perm(lds32(at), 0u, sel);
+          const uint32_t p1 = __byte_perm(lds32(at + 8), 0u, sel);
+          if constexpr (INT4) {
+            // the low nibbles against x's even k, the high ones the odd
+            f[s4][h] = nibbles_bf16(p0);
+            f[s4][2 + h] = nibbles_bf16(p1);
+            fh[s4][h] = nibbles_bf16(p0 >> 4);
+            fh[s4][2 + h] = nibbles_bf16(p1 >> 4);
+          } else {
+            f[s4][h] = dq8_pair(p0, s2[h]);
+            f[s4][2 + h] = dq8_pair(p1, s2[h]);
+          }
         }
       }
-    }
-  }
-}
-
-// y (or, split over K, the f32 partials) of one element of the D fragment.
-template <bool INT4>
-__device__ __forceinline__ float finish_value(float lo, float hi, float s) {
-  if constexpr (INT4) return __fmul_rn(bf(bf(lo) + bf(hi)), bf(s));
-  return lo;
-}
-
-template <bool INT4, int STAGES>
-__global__ void __launch_bounds__(kThreads)
-    wo_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ w, const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ y, float* __restrict__ part,
-                  int M, int N, int K, int row_bytes, bool vec, bool vec_x) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int XR = kXR, kSlabs = slabs<INT4>();
-  const int mt = (M + 15) / 16, rows = mt * 16;
-  // STAGES stages of (codes, x): codes first, 16-byte aligned
-  uint4* ws = reinterpret_cast<uint4*>(smem_raw);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
-      ws + STAGES * kSlabs * kThreads);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;
-  const int n0 = blockIdx.x * kBlockN + warp * 8;
-  const int n_col = n0 + g;   // the column this lane's codes belong to
-  const float s_bf = bf(n_col < N ? scale[n_col] : 0.f);
-  // this split's chunks
-  const int chunks =
-      (row_bytes + chunk_bytes<INT4>() - 1) / chunk_bytes<INT4>();
-  const int c_begin = (int)((long long)chunks * blockIdx.y / gridDim.y);
-  const int n_chunks =
-      (int)((long long)chunks * (blockIdx.y + 1) / gridDim.y) - c_begin;
-  float acc[4][4], acc_hi[4][4];
+      wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[t][i] = acc_hi[t][i] = 0.f;
-
-  // a ring of STAGES: chunk i lands in stage i % STAGES, issued
-  // STAGES - 1 chunks ahead of its products
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_chunks)
-      issue_stage<INT4>(xs + st * rows * XR, ws + st * kSlabs * kThreads, x, w,
-                        rows, M, N, K, row_bytes, c_begin + st, n_col, c, vec,
-                        vec_x);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_chunks; ++it) {
-    const int ahead = it + STAGES - 1;
-    if (ahead < n_chunks) {
-      // the stage the previous iteration read, freed by its last barrier
-      const int st = ahead % STAGES;
-      issue_stage<INT4>(xs + st * rows * XR, ws + st * kSlabs * kThreads, x,
-                        w, rows, M, N, K, row_bytes, c_begin + ahead, n_col, c,
-                        vec, vec_x);
-    }
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();   // chunk it has landed (this thread's)
-    __syncthreads();               // ... and every thread's x
-    const int st = it % STAGES;
-    uint4 q[kSlabs];
-#pragma unroll
-    for (int i = 0; i < kSlabs; ++i)
-      q[i] = ws[(st * kSlabs + i) * kThreads + threadIdx.x];
-    mma_chunk<INT4>(xs + st * rows * XR, q, mt, g, c, s_bf, acc, acc_hi);
-    __syncthreads();   // every warp is done with stage st
-  }
-  // D fragment: acc[t][0..1] at row 16 t + g, columns n0 + 2c, + 1;
-  // acc[t][2..3] at row + 8
-  const size_t plane = (size_t)M * N;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (t >= mt) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 16 * t + g + (i >= 2 ? 8 : 0);
-      const int n = n0 + 2 * c + (i & 1);
-      if (r >= M || n >= N) continue;
-      const size_t at = (size_t)r * N + n;
-      if (gridDim.y == 1) {
-        y[at] = __float2bfloat16_rn(
-            finish_value<INT4>(acc[t][i], acc_hi[t][i], scale[n]));
-      } else {
-        float* p = part + (size_t)blockIdx.y * (INT4 ? 2 : 1) * plane;
-        p[at] = acc[t][i];
-        if constexpr (INT4) p[plane + at] = acc_hi[t][i];
+      for (int s4 = 0; s4 < kBatch; ++s4) {
+        const int s = kBatch * sb + s4;
+        const uint64_t desc =
+            sw128_desc(xs + (s >> 2) * kBox + (s & 3) * 32, 16, 1024);
+        wgmma_rs_kb<NT>(acc, f[s4], desc);
+        if constexpr (INT4)   // the odd k's boxes follow the even ones'
+          wgmma_rs_kb<NT>(acc_hi, fh[s4], desc + 2 * kBox / 16);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // the batch before this one has run
+      if (sb == 0 && prev_st >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev_st]);
       }
     }
+    prev_st = st;
   }
-}
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if constexpr (INT4) fence_regs(acc_hi);
 
-// The splits' partial sums added in split order, then y's rounding.
-template <bool INT4>
-__global__ void wo_split_finish(const float* __restrict__ part,
-                                const float* __restrict__ scale,
-                                __nv_bfloat16* __restrict__ y, int M, int N,
-                                int splits) {
-  const size_t plane = (size_t)M * N;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= plane) return;
-  constexpr int kPlanes = INT4 ? 2 : 1;
-  float lo = 0.f, hi = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    lo += part[s * kPlanes * plane + i];
-    if constexpr (INT4) hi += part[(s * kPlanes + 1) * plane + i];
+  // the groups' sums, then the cluster's: f32 sums in the ring (register
+  // i of thread t at [i][t], a region for each source), added in a fixed
+  // order: group 0's plus group 1's, 2's..., then block 0's plus the other
+  // blocks' in rank order through distributed shared memory
+  constexpr int kSumBytes = (INT4 ? 2 : 1) * kAcc * kGroupThreads * 4;
+  auto sum_at = [&](int region, int i) {
+    return smem_addr(base) + region * kSumBytes +
+           4 * (i * kGroupThreads + tid);
+  };
+  auto store_sums = [&](int region) {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(sum_at(region, i)),
+                   "f"(acc[i])
+                   : "memory");
+      if constexpr (INT4)
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(
+                         sum_at(region, kAcc + i)),
+                     "f"(acc_hi[i])
+                     : "memory");
+    }
+  };
+  // a source's sums are loaded before any is added: the loads' latencies
+  // overlap
+  auto add_sums = [&](int region, auto load) {
+    float lo[kAcc], hi[INT4 ? kAcc : 1];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      lo[i] = load(sum_at(region, i));
+      if constexpr (INT4) hi[i] = load(sum_at(region, kAcc + i));
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      acc[i] += lo[i];
+      if constexpr (INT4) acc_hi[i] += hi[i];
+    }
+  };
+  if (kGroups > 1 || a.splits > 1)   // every consumer is done with the ring
+    named_bar_sync(1, kConsumers);
+  if constexpr (kGroups > 1) {
+    if (group > 0) store_sums(group - 1);
+    named_bar_sync(1, kConsumers);
+    if (group == 0)
+      for (int q = 1; q < kGroups; ++q)
+        add_sums(q - 1, [](uint32_t at) { return lds_f32(at); });
   }
-  y[i] = __float2bfloat16_rn(finish_value<INT4>(lo, hi, scale[i % N]));
+  if (a.splits > 1) {
+    if (rank != 0 && group == 0) store_sums(0);
+    cluster_sync();
+    if (rank == 0 && group == 0)
+      for (int r = 1; r < a.splits; ++r)
+        add_sums(0, [r](uint32_t at) { return ld_cluster_f32(at, r); });
+    cluster_sync();
+  }
+  if (rank != 0 || group != 0) return;
+
+  // D fragment: register i is channel r_local + 8 ((i >> 1) & 1), x row
+  // 8 (i >> 2) + 2c + (i & 1)
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int h = (i >> 1) & 1;
+    const int m = 8 * (i >> 2) + 2 * c + (i & 1);
+    if (m >= a.M || ch[h] >= a.N) continue;
+    float v = acc[i];
+    if constexpr (INT4) v = __fmul_rn(bf(bf(acc[i]) + bf(acc_hi[i])), s_bf[h]);
+    a.y[(size_t)m * a.N + ch[h]] = __float2bfloat16_rn(v);
+  }
 }
 
 // f32 x: CUDA cores. Each column's partial dot products over a chunk go to
@@ -401,9 +566,9 @@ __global__ void __launch_bounds__(kThreads)
     wo_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                   const float* __restrict__ scale, float* __restrict__ y,
                   int M, int N, int K, int row_bytes, bool vec, bool vec_x) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_f32[];
   constexpr int kPlanes = INT4 ? 2 : 1;
-  float* xs = reinterpret_cast<float*>(smem_raw);  // [planes][M][kChunk]
+  float* xs = reinterpret_cast<float*>(smem_f32);  // [planes][M][kChunk]
   float* sums = xs + kPlanes * M * kChunk;         // [planes][M][kBlockN]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -462,75 +627,85 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The tensor-core kernel's stages, three up to 32 rows of x (two chunks
-// in flight), two above (one; the rows' staging would otherwise leave one
-// block an SM), each the codes (16 bytes a thread a slab) and x's rows.
-int mma_stages(int rows) { return rows <= 32 ? 3 : 2; }
 
-template <bool INT4>
-size_t mma_smem_bytes(int rows) {
-  return (size_t)mma_stages(rows) *
-         (slabs<INT4>() * kThreads * sizeof(uint4) +
-          rows * kXR * sizeof(__nv_bfloat16));
-}
-
-// The kernels' dynamic shared memory at its largest (64 rows), allowed
-// once per instance.
-template <bool INT4>
-cudaError_t allow_smem() {
-  static cudaError_t status = [] {
-    constexpr int kPlanes = INT4 ? 2 : 1;
-    cudaError_t err = cudaFuncSetAttribute(
-        wo_mma_kernel<INT4, 3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)mma_smem_bytes<INT4>(32));
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(
-        wo_mma_kernel<INT4, 2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)mma_smem_bytes<INT4>(kMaxRows));
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(
-        wo_f32_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kPlanes * kMaxRows * (kChunk + kBlockN) * sizeof(float)));
-  }();
+// The instances' dynamic shared memory ceiling, allowed once each.
+template <bool INT4, int NT, int TN>
+cudaError_t allow_hopper_smem() {
+  static const cudaError_t status = cudaFuncSetAttribute(
+      wo_hopper_kernel<INT4, NT, TN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   return status;
 }
 
 template <bool INT4>
-cudaError_t launch(const void* x, const int8_t* w, const float* scale, void* y,
-                   int M, int N, int K, int dtype, int splits, float* part,
-                   cudaStream_t s) {
+cudaError_t allow_f32_smem() {
+  static const cudaError_t status = cudaFuncSetAttribute(
+      wo_f32_kernel<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)((INT4 ? 2 : 1) * kMaxRows * (kChunk + kBlockN) * sizeof(float)));
+  return status;
+}
+
+template <bool INT4, int NT, int TN>
+cudaError_t launch_hopper(const WoArgs& a, cudaStream_t s) {
+  CUtensorMap w_map = {}, x_map = {};
+  cudaError_t err = cudaSuccess;
+  if (a.tma_w)
+    err = swizzled_2d_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w,
+                          a.row_bytes, a.N, a.row_bytes, 128, TN);
+  if (err == cudaSuccess && a.tma_x)
+    err = swizzled_2d_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K,
+                          a.M, (size_t)a.K * 2, 64, NT);
+  if (err == cudaSuccess) err = allow_hopper_smem<INT4, NT, TN>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, (a.N + TN - 1) / TN, 1);
+  cfg.blockDim = dim3(consumer_wgs(INT4, NT) * 128 + 32, 1, 1);
+  cfg.dynamicSmemBytes = hopper_smem_bytes<INT4>(NT, a.stages, TN);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, wo_hopper_kernel<INT4, NT, TN>, w_map,
+                            x_map, a);
+}
+
+template <bool INT4, int NT>
+cudaError_t launch_tile(const WoArgs& a, int tile_n, cudaStream_t s) {
+  return tile_n == 64 ? launch_hopper<INT4, NT, 64>(a, s)
+                      : launch_hopper<INT4, NT, 128>(a, s);
+}
+
+template <bool INT4>
+cudaError_t launch_bf16(const WoArgs& a, int tile_n, cudaStream_t s) {
+  switch ((a.M + 7) / 8) {
+    case 1: return launch_tile<INT4, 8>(a, tile_n, s);
+    case 2: return launch_tile<INT4, 16>(a, tile_n, s);
+    case 3: return launch_tile<INT4, 24>(a, tile_n, s);
+    case 4: return launch_tile<INT4, 32>(a, tile_n, s);
+    case 5: return launch_tile<INT4, 40>(a, tile_n, s);
+    case 6: return launch_tile<INT4, 48>(a, tile_n, s);
+    case 7: return launch_tile<INT4, 56>(a, tile_n, s);
+    default: return launch_tile<INT4, 64>(a, tile_n, s);
+  }
+}
+
+template <bool INT4>
+cudaError_t launch_f32(const float* x, const int8_t* w, const float* scale,
+                       float* y, int M, int N, int K, cudaStream_t s) {
   const int row_bytes = INT4 ? (K + 1) / 2 : K;
   const bool vec =
       row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  // x rows start 16-byte aligned: K a multiple of 16 bytes' elements
-  const bool vec_x = K % (dtype == 1 ? 8 : 4) == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int blocks = (N + kBlockN - 1) / kBlockN;
-  constexpr int kPlanes = INT4 ? 2 : 1;
-  const cudaError_t err = allow_smem<INT4>();
+  const bool vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaError_t err = allow_f32_smem<INT4>();
   if (err != cudaSuccess) return err;
-  if (dtype == 1) {
-    const int rows = (M + 15) / 16 * 16;
-    const size_t bytes = mma_smem_bytes<INT4>(rows);
-    auto kernel = mma_stages(rows) == 3 ? wo_mma_kernel<INT4, 3>
-                                        : wo_mma_kernel<INT4, 2>;
-    kernel<<<dim3(blocks, splits), kThreads, bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, scale,
-        static_cast<__nv_bfloat16*>(y), part, M, N, K, row_bytes, vec, vec_x);
-    if (splits > 1) {
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return e;
-      const int threads = 256;
-      wo_split_finish<INT4><<<(M * N + threads - 1) / threads, threads, 0, s>>>(
-          part, scale, static_cast<__nv_bfloat16*>(y), M, N, splits);
-    }
-  } else {
-    const size_t bytes =
-        (size_t)kPlanes * M * (kChunk + kBlockN) * sizeof(float);
-    wo_f32_kernel<INT4><<<blocks, kThreads, bytes, s>>>(
-        static_cast<const float*>(x), w, scale, static_cast<float*>(y), M, N,
-        K, row_bytes, vec, vec_x);
-  }
+  const size_t bytes =
+      (size_t)(INT4 ? 2 : 1) * M * (kChunk + kBlockN) * sizeof(float);
+  wo_f32_kernel<INT4><<<(N + kBlockN - 1) / kBlockN, kThreads, bytes, s>>>(
+      x, w, scale, y, M, N, K, row_bytes, vec, vec_x);
   return cudaGetLastError();
 }
 
@@ -538,20 +713,61 @@ cudaError_t launch(const void* x, const int8_t* w, const float* scale, void* y,
 
 // y [M, N] = x [M, K] @ dequant(w)^T. int4: w is [N, ceil(K/2)] packed;
 // else [N, K]. dtype: 0 f32, 1 bf16 (attention_common.cuh: ptt::DType).
-// splits: the bf16 kernel's split of K over blocks (1 for f32); past 1,
-// part holds splits x (int4 ? 2 : 1) x M x N f32 partial sums.
+// splits, stages and tile_n: the bf16 kernel's launch plan
+// (ops/weight_only.py: plan): blocks a cluster along K (1..8, at most one
+// a 128-byte unit of a code row), the ring's depth (2..12, within the
+// block's shared memory) and a block's channels (64 or 128); the f32
+// kernel takes none of them.
 extern "C" int weight_only_linear_launch(const void* x, const int8_t* w,
                                          const float* scale, void* y, int M,
                                          int N, int K, int int4, int dtype,
-                                         int splits, float* part,
+                                         int splits, int stages, int tile_n,
                                          void* stream) {
   const int row_bytes = int4 ? (K + 1) / 2 : K;
-  const int per_chunk = int4 ? chunk_bytes<true>() : chunk_bytes<false>();
-  const int chunks = (row_bytes + per_chunk - 1) / per_chunk;
-  if (M < 1 || M > kMaxRows || N < 1 || K < 1 || (dtype != 0 && dtype != 1) ||
-      splits < 1 || splits > chunks || (splits > 1 && (dtype != 1 || !part)))
+  const int units = (row_bytes + kUnitBytes - 1) / kUnitBytes;
+  if (M < 1 || M > kMaxRows || N < 1 || K < 1 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int4 ? launch<true>(x, w, scale, y, M, N, K, dtype, splits, part, s)
-              : launch<false>(x, w, scale, y, M, N, K, dtype, splits, part, s);
+  if (dtype == 0)
+    return int4 ? launch_f32<true>(static_cast<const float*>(x), w, scale,
+                                   static_cast<float*>(y), M, N, K, s)
+                : launch_f32<false>(static_cast<const float*>(x), w, scale,
+                                    static_cast<float*>(y), M, N, K, s);
+  const int nt = (M + 7) / 8 * 8;
+  const int smem = int4 ? hopper_smem_bytes<true>(nt, stages, tile_n)
+                        : hopper_smem_bytes<false>(nt, stages, tile_n);
+  // a group keeps its last stage until its next one lands: the ring holds
+  // a stage beyond the groups' unless a block's stages all fit at once
+  const int groups = consumer_wgs(int4, nt) / (tile_n / 64);
+  const int most = (units + splits - 1) / splits;   // a block's stages
+  // the other groups' sums, or the cluster's, a region each (the kernel's
+  // kSumBytes: f32 accumulators of a group's 2 tile_n threads)
+  const int regions = groups > 2 ? groups - 1 : 1;
+  const long long sums = (long long)regions * (int4 ? 2 : 1) * (nt / 2) *
+                         (2 * tile_n) * 4;
+  const long long ring =
+      (long long)stages * (int4 ? stage_bytes<true>(nt, tile_n)
+                                : stage_bytes<false>(nt, tile_n));
+  if (splits < 1 || splits > kMaxSplits || splits > units || stages < 2 ||
+      stages > kMaxStages || (tile_n != 64 && tile_n != 128) ||
+      stages < (most < groups + 1 ? most : groups + 1) || sums > ring ||
+      smem > kSmemLimit)
+    return cudaErrorInvalidValue;
+  WoArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = w;
+  a.scale = scale;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.row_bytes = row_bytes;
+  a.units = units;
+  a.splits = splits;
+  a.stages = stages;
+  // TMA's global rows are 16-byte multiples from a 16-byte aligned base
+  a.tma_w = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  a.tma_x = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  return int4 ? launch_bf16<true>(a, tile_n, s)
+              : launch_bf16<false>(a, tile_n, s);
 }

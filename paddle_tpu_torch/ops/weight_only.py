@@ -23,6 +23,7 @@ weight then ``torch.mm``, a product the reference also computes outside
 any Pallas kernel (counted in ``weight_only_matmul.plain_calls``). There
 is no fallback: a CUDA call in the kernel's range launches it or raises.
 """
+import collections
 import ctypes
 import functools
 
@@ -32,18 +33,77 @@ from ..incubate.nn.functional import _mm_f32
 from . import _build
 
 MAX_ROWS = 64    # csrc/weight_only_linear.cu: kMaxRows
-_BLOCK_N = 32                # its kBlockN
-_TARGET_BLOCKS = 264         # two blocks on each of the H100's 132 SMs
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-             + [ctypes.c_void_p] * 2)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p])
+
+# The bf16 kernel's launch plan, mirroring csrc/weight_only_linear.cu's
+# constants: a block owns 64 or 128 output channels (TN) and walks its
+# share of K in UNIT_BYTES code bytes a row at a time (one stage of its
+# ring).
+TILE_N = 128           # a block's channels, at most
+TILE_SIZES = (128, 64)
+UNIT_BYTES = 128       # kUnitBytes
+MAX_SPLITS = 8         # kMaxSplits: a portable thread block cluster
+MAX_STAGES = 24        # kMaxStages
+SMEM_LIMIT = 232448    # kSmemLimit: an H100 block's shared memory
+# clusters of each size an H100 holds at once, one block an SM (its shared
+# memory): cudaOccupancyMaxActiveClusters on the card; the GPCs' SM counts
+# leave some SMs out of the larger clusters
+ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+_RAMP_UNITS = 4        # a wave's fill and drain, in units of one block
+_REDUCE_UNITS = 1      # the cluster's sum through distributed memory
+
+Plan = collections.namedtuple(
+    "Plan", "nt tile_n tiles units splits stages stage_bytes smem_bytes "
+    "warpgroups")
 
 
-def _splits(n, k):
-    """How many blocks share each column block's K (the bf16 kernel): as
-    many as bring the grid to two blocks an SM, at most eight and at most
-    one a chunk of 256 x values (its chunk_bytes)."""
-    blocks = -(-n // _BLOCK_N)
-    return max(1, min(-(-k // 256), 8, -(-_TARGET_BLOCKS // blocks)))
+def unit_k(int4):
+    """x values (k) one unit of a code row covers: 128 int8 codes, or 256
+    int4 codes packed in 128 bytes."""
+    return 2 * UNIT_BYTES if int4 else UNIT_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows, n, k, int4):
+    """The bf16 kernel's launch for x [rows, k] against N = ``n`` channels,
+    from the shapes alone:
+    - ``nt``: x's rows rounded up to 8, wgmma's N (the instance);
+    - ``tile_n`` and ``tiles``: a block's channels (64 or 128) and the
+      blocks along N;
+    - ``units``: UNIT_BYTES pieces of a code row;
+    - ``splits``: blocks of a cluster along K, block r summing units
+      [units r / splits, units (r + 1) / splits). The tile and the split
+      are the pair that minimises the waves of clusters (ACTIVE_CLUSTERS
+      at a time) times a block's work, its units times tile_n / 128, plus
+      a wave's ramp and the cluster's sum; the wider tile and then the
+      fewer blocks on a tie;
+    - ``stages``: the ring's depth, as many as fit the block's shared
+      memory, at most MAX_STAGES and at most a block's units (at least 2);
+    - ``stage_bytes`` and ``smem_bytes``: csrc's stage_bytes and
+      hopper_smem_bytes;
+    - ``warpgroups``: the block's consumer warpgroups (csrc's
+      consumer_wgs: 6 at nt 8, 4 up to nt 32 int8 or 24 int4, else 2), in
+      groups of tile_n / 64 that take turns at the stages."""
+    nt = 8 * -(-rows // 8)
+    row_bytes = (k + 1) // 2 if int4 else k
+    units = -(-row_bytes // UNIT_BYTES)
+
+    def cost(tile_n, splits):
+        tiles = -(-n // tile_n)
+        waves = -(-tiles // ACTIVE_CLUSTERS[splits])
+        return (waves * (-(-units // splits) * tile_n / TILE_N + _RAMP_UNITS)
+                + (_REDUCE_UNITS if splits > 1 else 0))
+
+    tile_n, splits = min(((t, s) for t in TILE_SIZES
+                          for s in range(1, min(MAX_SPLITS, units) + 1)),
+                         key=lambda ts: (cost(*ts), -ts[0], ts[1]))
+    stage = tile_n * UNIT_BYTES + unit_k(int4) // 64 * nt * 128
+    fit = (SMEM_LIMIT - 1024) // (stage + 16)
+    stages = max(2, min(MAX_STAGES, -(-units // splits), fit))
+    warpgroups = 6 if nt <= 8 else 4 if nt <= (24 if int4 else 32) else 2
+    return Plan(nt, tile_n, -(-n // tile_n), units, splits, stages, stage,
+                1024 + stages * (stage + 16), warpgroups)
 
 
 def int4_planes(codes):
@@ -69,7 +129,9 @@ def _wo_math(x, codes, scale, int4, k):
              + _mm(x_hi, hi[:, :x_hi.shape[1]].to(dt), dt))
         y = y * scale.to(dt)
     else:
-        y = _mm(x2, codes.to(dt) * scale.to(dt)[:, None], dt)
+        # one kernel: the int8 codes meet the scale in x's dtype (exact, as
+        # codes.to(dt)), so no dequantized copy of the codes is made first
+        y = _mm(x2, codes * scale.to(dt)[:, None], dt)
     return y.reshape(*x.shape[:-1], codes.shape[0])
 
 
@@ -99,11 +161,14 @@ def _check_operands(x, x2, codes, scale, int4, k):
         chk(t.is_contiguous(), name, "operands must be contiguous")
 
 
+_BF16 = _build.DTYPE_CODES["torch.bfloat16"]
+
+
 def _wo_cuda(x, codes, scale, int4, k):
-    """Launch kernel C on the current stream. The operands are validated
-    in one expression (a decode step launches it hundreds of times, and
-    the launch's host time is the step's), and on a refusal once more,
-    operand by operand, for the error."""
+    """Launch kernel C on the current stream (bf16 x: by ``plan``). The
+    operands are validated in one expression (a decode step launches it
+    hundreds of times, and the launch's host time is the step's), and on a
+    refusal once more, operand by operand, for the error."""
     fn = _kernel()
     x2 = x.reshape(-1, k)
     rows, n = x2.shape[0], codes.shape[0]
@@ -117,14 +182,10 @@ def _wo_cuda(x, codes, scale, int4, k):
             and scale.is_contiguous()):
         _check_operands(x, x2, codes, scale, int4, k)
     y = torch.empty(rows, n, dtype=x.dtype, device=x.device)
-    splits = _splits(n, k) if dt == _build.DTYPE_CODES["torch.bfloat16"] \
-        else 1
-    part = (torch.empty(splits * (2 if int4 else 1) * rows * n,
-                        dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    p = plan(rows, n, k, int4) if dt == _BF16 else None
     rc = fn(x2.data_ptr(), codes.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            rows, n, k, int(int4), dt, splits,
-            part.data_ptr() if part is not None else None,
+            rows, n, k, int(int4), dt, p.splits if p else 1,
+            p.stages if p else 0, p.tile_n if p else 0,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_status(rc, "weight_only_linear")
     weight_only_matmul.launches += 1
