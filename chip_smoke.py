@@ -101,6 +101,15 @@ Phases, one JSON line each (any failed phase exits non-zero):
             card (kernels) equal those served on the CPU (plain versions),
             in four runs: float pools greedy, int8 pools greedy, float
             pools sampled, float pools with the prefix cache;
+10a. serve_surface_equal — the same setting, the engine's surface card
+            vs CPU: the legacy ladder (ragged=False) greedy over float and
+            int8 pools (the insert's int8 codes bit for bit), with the
+            prefix cache and prefill_chunk, rank-8 LoRA adapters beside
+            base rows (ragged and legacy), sampling_overrides; then on the
+            card a zero-weight adapter against the base serve, a request
+            exported, detached and adopted by a second engine, and a
+            legacy engine after warmup. The legacy runs launch K5 and no
+            K4;
 11. slice — LLaMA-2-7B, full width and depth, bf16, seeded weights: 8
             requests through the ragged continuous-batching engine, with
             both kernels' launch counts taken over that run alone;
@@ -114,14 +123,21 @@ Phases, one JSON line each (any failed phase exits non-zero):
             and sampling: one request carrying a 512-token system prompt,
             then 8 that share it; prefix_hit_pages must be > 0; then the 8
             once more with 16 new tokens under torch.profiler;
-14a. generate_equal — f32, LLaMA-2-7B widths, 2 layers: generate on the
+14b. slice_surface — `slice`'s model and requests through the legacy
+            ladder (prefill_chunk 256, with the dense prefill's share of
+            the wall), a legacy engine after warmup (its seconds, and the
+            first request's TTFT beside a cold engine's), and the ragged
+            plane with 4 rank-16 adapters on 6 of the 8 requests:
+            tokens/s, TTFT, decode steps, peak memory, K4/K5 launches and
+            the share of tokens equal to `slice`'s;
+14c. generate_equal — f32, LLaMA-2-7B widths, 2 layers: generate on the
             card and on the CPU gives the same tokens: greedy (B 4,
             prompts of 100, 32 new), an attention_mask batch, sampled,
             beam K 4, speculative with a 1-layer draft (equal to each
             device's greedy), and int8 and int4 weight-only greedy with
             kernel C's exact launches; then a growing-cache decode on K1
             (exact launches, logits against the CPU and the fixed cache);
-14b. generate — LLaMA-2-7B bf16, 32 layers, bench.py run_decode's
+14d. generate — LLaMA-2-7B bf16, 32 layers, bench.py run_decode's
             traffic (B 8, prompts of 512, 256 new): tokens/s, decode ms a
             step, HBM share, peak memory and a profiled decode; then
             speculative with an 8-layer draft (gamma 4), beam K 4 at B 2,
@@ -207,7 +223,9 @@ train_cp_equal,train_cp`` for context parallelism, ``--only
 grad_norm,adamw,train_recipe_equal,train_recipe`` for the training
 recipe, ``--only wo_linear,generate_equal,generate`` for generation and
 weight-only quantization, ``--only moe_dispatch,moe_equal,moe_train,
-moe_generate`` for mixture of experts): it ends in a
+moe_generate`` for mixture of experts, ``--only serve_surface_equal,
+slice_surface`` for the engine's surface, with `slice` run for it): it
+ends in a
 ``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
 a run of every phase (no arguments) reads as a passing smoke. Imports no
@@ -229,8 +247,10 @@ TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
 PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear",
           "moe_dispatch", "codec",
-          "k4", "k5", "k4_int8", "k5_int8", "serve_equal", "slice", "profile",
-          "slice_int8", "slice_sampled_prefix", "generate_equal", "generate",
+          "k4", "k5", "k4_int8", "k5_int8", "serve_equal",
+          "serve_surface_equal", "slice", "profile", "slice_int8",
+          "slice_sampled_prefix", "slice_surface", "generate_equal",
+          "generate",
           "train_equal", "train_packed_equal",
           "train_equal_s1024", "train_cp_equal", "train_recipe_equal",
           "moe_equal", "train", "train_profile", "train_packed", "train_cp",
@@ -974,9 +994,10 @@ def slice_prompts(seed, vocab):
             for n in rng.randint(32, 1025, MAX_SEQS)]
 
 
-def _timed_serve(eng, prompts, new_tokens, **serve_kw):
+def _timed_serve(eng, prompts, new_tokens, ttfts=None, **serve_kw):
     """One serve() on the card with launch counts reset just before and
-    read just after: (outputs, wall seconds, TTFT median, counts)."""
+    read just after: (outputs, wall seconds, TTFT median, counts);
+    ``ttfts`` (a list) receives every request's TTFT in rid order."""
     import torch
 
     first = {}
@@ -1000,7 +1021,9 @@ def _timed_serve(eng, prompts, new_tokens, **serve_kw):
                 f"expected {len(p) + new_tokens}")
         if not ((o >= 0) & (o < vocab)).all():
             raise AssertionError("token id out of range")
-    ttft = sorted(first[r] - t0 for r in range(len(prompts)))
+    ttft = [first[r] - t0 for r in range(len(prompts))]
+    if ttfts is not None:
+        ttfts.extend(ttft)
     return out, wall, statistics.median(ttft), counts
 
 
@@ -1117,6 +1140,416 @@ def phase_slice_sampled_prefix(model, seed=0, new_tokens=64):
         lambda: eng.serve(prompts, max_new_tokens=PROFILE_NEW_TOKENS,
                           **sampled))
     return row
+
+
+def check_plane_launches(counts, ragged, int8=False):
+    """A ragged serve launched both of its pool type's kernels and none of
+    the other's (``check_launches``); a legacy (``ragged=False``) serve
+    launched K5 of its pool type and never K4 (its prefill is the dense
+    masked plain tier)."""
+    if ragged:
+        return check_launches(counts, int8)
+    sfx = "_int8" if int8 else ""
+    k5 = counts["paged_decode_attention" + sfx]
+    idle = [n for n in (FLOAT_KERNELS + INT8_KERNELS)
+            if n != "paged_decode_attention" + sfx]
+    if k5 < 1 or any(counts[n] for n in idle):
+        raise AssertionError(f"legacy serve: expected launches of "
+                             f"paged_decode_attention{sfx} alone: {counts}")
+
+
+SURFACE_SAMPLED = dict(do_sample=True, temperature=0.8, top_p=0.9)
+
+
+def _surface_adapter(rng, name, rank, hidden, vocab, scale=1.0):
+    """A seeded f32 LoRA adapter: A [hidden, rank], B [rank, vocab] drawn
+    Normal(0, 0.05), so the delta moves some greedy tokens."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import LoRAAdapter
+
+    return LoRAAdapter(name,
+                       (rng.randn(hidden, rank) * 0.05).astype(np.float32),
+                       (rng.randn(rank, vocab) * 0.05).astype(np.float32),
+                       scale=scale)
+
+
+def phase_serve_surface_equal(seed=3):
+    """f32, LLaMA-2-7B widths, 2 layers, ``serve_equal``'s prompt draw: the
+    engine's surface card vs CPU. Token ids identical (int8 pools: or the
+    first differing token at an explained near tie) in: the legacy ladder
+    (``ragged=False``) greedy over float and int8 pools; the legacy ladder
+    with the prefix cache and ``prefill_chunk`` 64 (two serves, a
+    three-chunk prompt); rank-8 LoRA adapters beside base rows, ragged and
+    legacy; ``sampling_overrides`` mixing greedy and sampled. Launches:
+    K5 and no K4 on the legacy plane, both on the ragged. Then, on the
+    card: the legacy insert's int8 codes and scales on the CPU's dense
+    K/V bit for bit with the CPU's; a zero-weight adapter's tokens equal
+    the base serve's on both planes (and the base serve does no LoRA
+    work); a request exported, detached and adopted by a second engine
+    ends with one engine's tokens (and the CPU's); a legacy engine after
+    ``warmup`` (greedy and sampled) keeps its ``stats`` and serves the
+    tokens the unwarmed run served."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine, EngineRequest, canonical_sampling,
+    )
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.serving import LoRAAdapter
+
+    cfg = llama2_7b()
+    cfg.num_hidden_layers = 2
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.RandomState(seed)
+
+    def draw(n):
+        return rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+
+    prompts = [draw(n) for n in (7, 33, 70, 130)]
+    system = draw(64)
+    shared = [[np.concatenate([system, draw(n)]) for n in lens]
+              for lens in ((9, 40), (3, 25, 60))]
+    arng = np.random.RandomState(seed + 100)
+    ad_a = _surface_adapter(arng, "a", 8, cfg.hidden_size, cfg.vocab_size)
+    ad_b = _surface_adapter(arng, "b", 8, cfg.hidden_size, cfg.vocab_size,
+                            scale=-1.0)
+    mixed = [ad_a, None, ad_b, None]
+    base = dict(max_seqs=4, page_size=BS, max_len=256, decode_block=8)
+    runs = (
+        ("legacy_float_greedy", dict(ragged=False), [prompts], {}),
+        ("legacy_int8_greedy", dict(ragged=False, kv_cache_dtype="int8"),
+         [prompts], {}),
+        ("legacy_prefix_chunk", dict(ragged=False, prefill_chunk=64,
+                                     enable_prefix_cache=True),
+         [shared[0], shared[1] + [prompts[3]]], {}),
+        ("lora_ragged", dict(prefill_chunk=64), [prompts],
+         dict(adapters=mixed)),
+        ("lora_legacy", dict(ragged=False), [prompts], dict(adapters=mixed)),
+        ("sampling_overrides", dict(prefill_chunk=64), [prompts],
+         dict(seed=0, sampling_overrides=[None, SURFACE_SAMPLED, {},
+                                          SURFACE_SAMPLED])),
+    )
+    rows, card_out = [], {}
+    for name, kw, batches, serve_kw in runs:
+        int8 = kw.get("kv_cache_dtype") == "int8"
+        ragged = kw.get("ragged", True)
+        engines = (ContinuousBatchingEngine(gpu_model, device="cuda",
+                                            **base, **kw),
+                   ContinuousBatchingEngine(cpu_model, device="cpu",
+                                            **base, **kw))
+        outs, secs = [], []
+        for i, eng in enumerate(engines):
+            if i == 0:
+                _reset_counts()
+            t0 = time.perf_counter()
+            outs.append([o for batch in batches
+                         for o in eng.serve(batch, max_new_tokens=16,
+                                            **serve_kw)])
+            if i == 0:
+                torch.cuda.synchronize()
+                counts = _counts()
+            secs.append(time.perf_counter() - t0)
+        got, want = outs
+        card_out[name] = got
+        same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+        row = {"phase": "serve_surface_equal", "run": name, "layers": 2,
+               "dtype": "float32", "ragged": ragged,
+               "prompt_lens": [len(p) for b in batches for p in b],
+               "new_tokens": 16, "identical": same, "kernels": counts,
+               "gpu_s": secs[0], "cpu_s": secs[1]}
+        if "adapters" in serve_kw:
+            row["lora_dispatches"] = [e.lora_dispatches for e in engines]
+        if int8:
+            row["codes_differing"], row["scales_differing"] = (
+                _pool_codes_differing(*engines))
+            row["divergences"] = explain_divergences(
+                gpu_model, cpu_model, got, want, "int8")
+            same = [s or any(d["request"] == i and d["explained"]
+                             for d in row["divergences"])
+                    for i, s in enumerate(same)]
+            row["identical_or_near_tie"] = same
+            # the insert itself on the same dense K/V (the CPU prefill's),
+            # card vs CPU: the codec's bit-for-bit contract
+            ids = np.zeros((1, 64), np.int32)
+            ids[0, :33] = prompts[1]
+            with torch.no_grad():
+                _, ks, vs = engines[1]._prefill(torch.from_numpy(ids), 33,
+                                                canonical_sampling(False),
+                                                None)
+            pages = [1, 2, 3, 4]
+            for eng in engines:
+                eng._insert(ks.to(eng.device), vs.to(eng.device), pages)
+            row["insert_codes_differing"] = row["insert_scales_differing"] = 0
+            for gp, cp in zip(engines[0].pools, engines[1].pools):
+                for g, c in zip(gp, cp):
+                    row["insert_codes_differing"] += int(
+                        (g.weight[:, pages].cpu() != c.weight[:, pages])
+                        .sum())
+                    row["insert_scales_differing"] += int(
+                        (g.scales[:, pages].cpu().view(torch.int32)
+                         != c.scales[:, pages].view(torch.int32)).sum())
+        if kw.get("enable_prefix_cache"):
+            row["prefix_hit_pages"] = [e.stats["prefix_hit_pages"]
+                                       for e in engines]
+            row["prefill_chunks"] = kw["prefill_chunk"]
+        emit(row)
+        rows.append(row)
+        if not all(same):
+            raise AssertionError(
+                f"serve_surface_equal {name}: card and CPU served different "
+                "tokens" + (f" beyond near ties {row['divergences']}"
+                            if int8 else "") + ": "
+                + json.dumps([[g.tolist(), w.tolist()]
+                              for g, w, s in zip(got, want, same) if not s]))
+        check_plane_launches(counts, ragged, int8)
+        if int8 and (row["insert_codes_differing"]
+                     or row["insert_scales_differing"]):
+            raise AssertionError(f"serve_surface_equal {name}: the insert's "
+                                 f"codes differ card vs CPU: {row}")
+        if kw.get("enable_prefix_cache"):
+            hits = row["prefix_hit_pages"]
+            if hits[0] != hits[1] or hits[0] < 1:
+                raise AssertionError(f"serve_surface_equal {name}: prefix "
+                                     f"hits card/CPU {hits}")
+        del engines
+    # ---- on the card: a zero adapter is the base model, on both planes
+    zero = LoRAAdapter("zero", np.zeros((cfg.hidden_size, 8), np.float32),
+                       np.zeros((8, cfg.vocab_size), np.float32))
+    zrow = {"phase": "serve_surface_equal", "run": "zero_adapter"}
+    for plane, ragged in (("ragged", True), ("legacy", False)):
+        eng = ContinuousBatchingEngine(gpu_model, device="cuda", **base,
+                                       ragged=ragged)
+        _reset_counts()
+        b = eng.serve(prompts, max_new_tokens=16)
+        n_base = eng.lora_dispatches
+        z = eng.serve(prompts, max_new_tokens=16, adapters=zero)
+        torch.cuda.synchronize()
+        zrow[plane] = {"identical": [bool(np.array_equal(x, y))
+                                     for x, y in zip(b, z)],
+                       "base_lora_dispatches": n_base,
+                       "zero_lora_dispatches": eng.lora_dispatches - n_base,
+                       "kernels": _counts()}
+        check_plane_launches(zrow[plane]["kernels"], ragged)
+        if not all(zrow[plane]["identical"]) or n_base \
+                or eng.lora_dispatches == n_base:
+            raise AssertionError(f"serve_surface_equal zero_adapter: {zrow}")
+        del eng
+    emit(zrow)
+    rows.append(zrow)
+    # ---- on the card: export, detach, adopt
+    p = prompts[2]
+    one = ContinuousBatchingEngine(gpu_model, device="cuda", **base,
+                                   prefill_chunk=64)
+    want_one = one.serve([p], max_new_tokens=32)[0]
+    want_cpu = ContinuousBatchingEngine(
+        cpu_model, device="cpu", **base, prefill_chunk=64).serve(
+            [p], max_new_tokens=32)[0]
+    # the prefill side reads back each block: export after its first
+    a = ContinuousBatchingEngine(gpu_model, device="cuda", **base,
+                                 prefill_chunk=64, async_decode=False)
+    b = ContinuousBatchingEngine(gpu_model, device="cuda", **base,
+                                 prefill_chunk=64)
+    req = EngineRequest(0, p, 32)
+    _reset_counts()
+    if a.try_admit_one(req) != "admitted":
+        raise AssertionError("serve_surface_equal handoff: not admitted")
+    while req.n_generated == 0:
+        a.step()
+    payload = a.export_pages(req.slot)
+    if payload is None:
+        raise AssertionError("serve_surface_equal handoff: the request "
+                             "finished before its export")
+    moved_at = req.n_generated
+    a.detach_request(req.slot)
+    status = b.adopt_request(req, payload)
+    b.drain()
+    torch.cuda.synchronize()
+    hrow = {"phase": "serve_surface_equal", "run": "handoff",
+            "prompt_len": len(p), "moved_after_tokens": moved_at,
+            "payload_pages": payload["n_pages"], "adopt": status,
+            "identical_to_one_engine": bool(np.array_equal(req.result,
+                                                           want_one)),
+            "identical_to_cpu": bool(np.array_equal(req.result, want_cpu)),
+            "kernels": _counts()}
+    emit(hrow)
+    rows.append(hrow)
+    if status != "admitted" or not (hrow["identical_to_one_engine"]
+                                    and hrow["identical_to_cpu"]):
+        raise AssertionError(f"serve_surface_equal handoff: {hrow}")
+    del one, a, b
+    # ---- on the card: warmup keeps stats and streams
+    warm = ContinuousBatchingEngine(gpu_model, device="cuda", **base,
+                                    ragged=False)
+    stats = dict(warm.stats)
+    t0 = time.perf_counter()
+    warm.warmup(buckets=[len(q) for q in prompts],
+                sampling=[canonical_sampling(False),
+                          canonical_sampling(**SURFACE_SAMPLED)])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats_after = dict(warm.stats)
+    _reset_counts()
+    out = warm.serve(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    wrow = {"phase": "serve_surface_equal", "run": "warmup",
+            "warmup_s": warm_s, "warmup_build_s": warm.warmup_build_s,
+            "programs": len(warm._warm),
+            "stats_unchanged": stats_after == stats,
+            "identical": [bool(np.array_equal(x, y)) for x, y in zip(
+                out, card_out["legacy_float_greedy"])],
+            "kernels": _counts()}
+    emit(wrow)
+    rows.append(wrow)
+    check_plane_launches(wrow["kernels"], ragged=False)
+    if not (wrow["stats_unchanged"] and all(wrow["identical"])):
+        raise AssertionError(f"serve_surface_equal warmup: {wrow}")
+    del warm, gpu_model
+    torch.cuda.empty_cache()
+    return rows
+
+
+SURFACE_RANK = 16      # slice_surface's adapters: rank 16, f32
+
+
+def _surface_row(run, eng, prompts, out, wall, ttft, counts, reference,
+                 new_tokens):
+    """slice_surface's report of one serve, beside `slice`'s outputs."""
+    import numpy as np
+    import torch
+
+    ref_row, ref_out = reference
+    gen = [(o[len(p):], r[len(p):]) for p, o, r in zip(prompts, out, ref_out)]
+    return {"phase": "slice_surface", "run": run, "model": "llama2_7b",
+            "layers": 32, "dtype": "bfloat16", "ragged": eng._ragged,
+            "prefill_chunk": eng.prefill_chunk, "decode_block": 8,
+            "prompt_lens": [len(p) for p in prompts],
+            "new_tokens": new_tokens, "wall_s": wall,
+            "generated_tok_per_s": len(prompts) * new_tokens / wall,
+            "ttft_median_s": ttft, "decode_steps": eng.stats["decode_steps"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kernels": counts,
+            "tokens_equal_to_slice_share": (
+                sum(int((a == b).sum()) for a, b in gen)
+                / sum(len(a) for a, _ in gen)),
+            "requests_equal_to_slice": sum(
+                bool(np.array_equal(a, b)) for a, b in gen),
+            "slice_tok_per_s": ref_row["generated_tok_per_s"]}
+
+
+def phase_slice_surface(model, reference, seed=0, new_tokens=64):
+    """`slice`'s model (LLaMA-2-7B bf16, 32 layers, nothing cut) and
+    prompts (8 requests of 32-1024 tokens, 64 new) through the engine's
+    surface: ``legacy`` (``ragged=False``, ``prefill_chunk`` 256, bf16
+    pools; the share of the serve's wall in the dense prefill, the masked
+    plain tier, synchronised at each prefill's end as its own readback
+    is), ``warmup`` (a legacy engine's warmup seconds, then its serve and
+    the first request's TTFT beside a cold legacy engine's) and ``lora``
+    (the ragged plane with 4 rank-16 f32 adapters on 6 of the 8
+    requests). Each run: tokens/s, TTFT median, decode steps, peak
+    memory, K4/K5 launches (the legacy plane launches K5 and never K4),
+    and the share of tokens equal to `slice`'s (reported, not held: cuBLAS
+    may round another batch shape differently)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    prompts = slice_prompts(seed, model.config.vocab_size)
+    kw = dict(max_seqs=MAX_SEQS, page_size=BS, max_len=MAX_LEN,
+              decode_block=8, prefill_chunk=CHUNK, device="cuda")
+    rows = []
+    # ---- legacy, with the dense prefill's share of the wall
+    eng = ContinuousBatchingEngine(model, ragged=False, **kw)
+    eng.serve([prompts[0][:16]], max_new_tokens=2)   # warm-up, as slice's
+    prefill = {"s": 0.0, "calls": 0}
+    inner = eng._prefill
+
+    def timed_prefill(*a, **k):
+        t0 = time.perf_counter()
+        res = inner(*a, **k)
+        torch.cuda.synchronize()
+        prefill["s"] += time.perf_counter() - t0
+        prefill["calls"] += 1
+        return res
+
+    eng._prefill = timed_prefill
+    out, wall, ttft, counts = _timed_serve(eng, prompts, new_tokens)
+    # drop the timer and the bound method it holds, or the engine's pools
+    # outlive it into the next runs' peak memory
+    del eng._prefill, inner
+    check_plane_launches(counts, ragged=False)
+    row = _surface_row("legacy", eng, prompts, out, wall, ttft, counts,
+                       reference, new_tokens)
+    row.update(prefill_s=prefill["s"], prefill_calls=prefill["calls"],
+               prefill_share=prefill["s"] / wall)
+    emit(row)
+    rows.append(row)
+
+    def free():
+        # each run's peak memory holds its own engine's pools alone
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    del eng
+    free()
+    # ---- warmup against a cold engine
+    cold = ContinuousBatchingEngine(model, ragged=False, **kw)
+    cold_ttfts = []
+    _, cold_wall, _, _ = _timed_serve(cold, prompts, new_tokens,
+                                      ttfts=cold_ttfts)
+    del cold
+    free()
+    warm = ContinuousBatchingEngine(model, ragged=False, **kw)
+    stats = dict(warm.stats)
+    t0 = time.perf_counter()
+    warm.warmup(buckets=[len(p) for p in prompts])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    unchanged = warm.stats == stats
+    ttfts = []
+    out, wall, ttft, counts = _timed_serve(warm, prompts, new_tokens,
+                                           ttfts=ttfts)
+    check_plane_launches(counts, ragged=False)
+    row = _surface_row("warmup", warm, prompts, out, wall, ttft, counts,
+                       reference, new_tokens)
+    row.update(warmup_s=warm_s, warmup_build_s=warm.warmup_build_s,
+               programs=len(warm._warm), stats_unchanged=unchanged,
+               first_ttft_s=ttfts[0], cold_first_ttft_s=cold_ttfts[0],
+               cold_wall_s=cold_wall)
+    emit(row)
+    rows.append(row)
+    if not unchanged:
+        raise AssertionError(f"slice_surface warmup changed stats: {row}")
+    del warm
+    free()
+    # ---- LoRA: 4 rank-16 adapters on 6 of the 8 requests
+    arng = np.random.RandomState(seed + 200)
+    ads = [_surface_adapter(arng, f"tenant{i}", SURFACE_RANK,
+                            model.config.hidden_size,
+                            model.config.vocab_size) for i in range(4)]
+    per_request = ads + ads[:2] + [None, None]
+    eng = ContinuousBatchingEngine(model, **kw)
+    eng.serve([prompts[0][:16]], max_new_tokens=2)   # warm-up, as slice's
+    out, wall, ttft, counts = _timed_serve(eng, prompts, new_tokens,
+                                           adapters=per_request)
+    check_launches(counts, int8=False)
+    row = _surface_row("lora", eng, prompts, out, wall, ttft, counts,
+                       reference, new_tokens)
+    base_rows = [i for i, a in enumerate(per_request) if a is None]
+    row.update(adapters=len(ads), rank=SURFACE_RANK,
+               adapter_requests=len(prompts) - len(base_rows),
+               lora_dispatches=eng.lora_dispatches,
+               base_requests_equal_to_slice=sum(
+                   bool(np.array_equal(out[i], reference[1][i]))
+                   for i in base_rows))
+    emit(row)
+    rows.append(row)
+    del eng
+    free()
+    return rows
 
 
 PAGED_KERNELS = (("ragged_tile_kernel<", "ragged_paged_attention"),
@@ -2556,10 +2989,11 @@ NOISE_MULT = 10
 
 
 def _record_gradients(step):
-    """Keep, on the CPU, the gradients ``step`` hands its optimizer, as the
-    update takes them (unscaled and clipped where the step gives a scale
-    and a factor, ``transform_grad``): one {name: gradient} per update; a
-    skipped step records nothing."""
+    """Keep, on the card (the parameter reports run there), the gradients
+    ``step`` hands its optimizer, as the update takes them (unscaled and
+    clipped where the step gives a scale and a factor,
+    ``transform_grad``): one {name: gradient} per update; a skipped step
+    records nothing."""
     from paddle_tpu_torch.ops.adamw import transform_grad
 
     names = {id(p): n for n, p in step.model.named_parameters()}
@@ -2570,7 +3004,7 @@ def _record_gradients(step):
         params_grads = list(params_grads)
         if not skip_update:
             record.append({names[id(p)]: transform_grad(
-                g, scale, factor).detach().cpu()
+                g, scale, factor).detach().to("cuda", copy=True)
                 for p, g in params_grads if g is not None})
         return apply(params_grads, skip_update=skip_update, scale=scale,
                      factor=factor, **kw)
@@ -2631,7 +3065,8 @@ def _travel_noise(grads, noise, beta1, beta2, eps):
     of 1e-3 of that step's noise."""
     import torch
 
-    var = torch.zeros(grads[0].shape, dtype=torch.float64)
+    var = torch.zeros(grads[0].shape, dtype=torch.float64,
+                      device=grads[0].device)
     for s, nz in enumerate(noise):
         h = nz.double() * 1e-3
         moved = [[g.double() + (sign * h if t == s else 0)
@@ -2675,18 +3110,18 @@ def _param_report(gpu_model, cpu_model, rec_gpu, rec_cpu, lr, opt, top=8,
     per, cand, noise, amp = {}, [], {}, []
     cpu_params = dict(cpu_model.named_parameters())
     for name, p in gpu_model.named_parameters():
-        # the difference (exact in f32 on either device) and its median on
-        # the card: the median is one of its elements, the same on the
-        # CPU, where sorting 667 M of them took some 20 s a phase
-        d_card = (p.detach()
-                  - cpu_params[name].detach().to(p.device)).abs().flatten()
-        median = float(d_card.median())
-        d = d_card.cpu()
-        del d_card
+        # the difference (exact in f32 on either device), its median, the
+        # outliers and every noise below on the card, beside the recorded
+        # gradients: the same elements and counts as on the CPU, where
+        # sorting, scanning and the row norms over 667 M elements took
+        # some 40 s a phase
+        d = (p.detach()
+             - cpu_params[name].detach().to(p.device)).abs().flatten()
+        median = float(d.median())
         out = (d > 0.1 * lr).nonzero().flatten()
-        near = torch.zeros(out.numel(), dtype=torch.bool)
+        near = torch.zeros(out.numel(), dtype=torch.bool, device=d.device)
         noise[name] = []
-        mg = mc = var_m = torch.zeros(out.numel())
+        mg = mc = var_m = torch.zeros(out.numel(), device=d.device)
 
         def within(a, b, nz):
             return (torch.maximum(a.abs(), b.abs()) <= NOISE_MULT * nz) & (
@@ -4827,7 +5262,11 @@ def kernel_table(rows):
                       # f32 q (over f32 pools for K4 and K5)
                       "f32_device_ms": [
                           r["device_ms"] for r in rows[phase]
-                          if r["dtype"] == "torch.float32"]})
+                          if r["dtype"] == "torch.float32"],
+                      # the legacy ladder (K5 alone), warmup and LoRA
+                      "slice_surface_launches": {
+                          r["run"]: r["kernels"][name]
+                          for r in rows.get("slice_surface", [])}})
     errs = {"fwd": ("o",), "bwd_delta": ("delta",), "bwd_dkdv": ("dk", "dv"),
             "bwd_dq": ("dq",)}
     for entry, keys in errs.items():
@@ -5126,15 +5565,19 @@ def main(argv=None):
         rows["k5_int8"] = phase_k5(quant=True)
     if runs("serve_equal"):
         phase_serve_equal()
+    if runs("serve_surface_equal"):
+        rows["serve_surface_equal"] = phase_serve_surface_equal()
     serving = [p for p in ("slice", "profile", "slice_int8",
-                           "slice_sampled_prefix") if runs(p)]
+                           "slice_sampled_prefix", "slice_surface")
+               if runs(p)]
     if serving:
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
         model = LlamaForCausalLM(llama2_7b(dtype="bfloat16"), device="cuda",
                                  seed=0)
         ref = None
-        if runs("slice") or runs("profile"):
+        if runs("slice") or runs("profile") or runs("slice_surface"):
+            # slice_surface continues slice's model and outputs
             rows["slice"], eng, prompts, out = phase_slice(model)
             ref = (rows["slice"], out)
             if runs("profile"):
@@ -5146,6 +5589,8 @@ def main(argv=None):
             del eng
         if runs("slice_sampled_prefix"):
             rows["slice_sampled_prefix"] = phase_slice_sampled_prefix(model)
+        if runs("slice_surface"):
+            rows["slice_surface"] = phase_slice_surface(model, ref)
         # free the serving model and engines before training
         del model
         gc.collect()

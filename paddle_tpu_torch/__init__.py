@@ -25,6 +25,11 @@ generation on the dense caches and weight-only quantization, with a
 weight-only product kernel (``ops.weight_only``). Slice 12 ports mixture
 of experts on one card (``incubate.distributed.models.moe``, the MoE
 LLaMA), with dispatch and combine kernels (``ops.moe_dispatch``).
+Slice 13 redesigns the weight-only product for Hopper. Slice 14 completes
+the serving engine (``inference.continuous``: the ``ragged=False``
+ladder, per-request LoRA adapters with their registry in ``serving``,
+sampling overrides, ``warmup``, the online and handoff hooks) and ports
+the Predictor and Config (``inference``).
 """
 from . import device
 

@@ -1,54 +1,70 @@
-"""Continuous-batching serving engine over the paged KV pool, ragged mode
-(counterpart of ``paddle_tpu/inference/continuous.py``, its ``ragged=True``
-path): greedy and sampled decoding, float or int8 KV pools, and the prefix
-cache on float pools.
+"""Continuous-batching serving engine over the paged KV pool (counterpart
+of ``paddle_tpu/inference/continuous.py``): greedy, sampled and
+per-request sampling, float or int8 KV pools, the prefix cache,
+per-request LoRA adapters, the handoff hooks and ``warmup``.
 
-Each step is one device dispatch:
+Two dispatch planes, as the reference's:
 
-- the MIXED dispatch (``_ragged_step``) packs every decode row's feed
-  token and up to ``prefill_chunk`` prompt tokens of mid-prefill requests
-  into one ``[T]``-token stream, ``T = prefill_chunk + max_seqs``. The
-  stream runs through the model with a ``RaggedLayerCache`` per layer
+- **ragged** (``ragged=None`` or True, the default): each step is one
+  device dispatch. The MIXED dispatch (``_ragged_step``) packs every
+  decode row's feed token and up to ``prefill_chunk`` prompt tokens of
+  mid-prefill requests into one ``[T]``-token stream, ``T =
+  prefill_chunk + max_seqs``, through a ``RaggedLayerCache`` per layer
   (ragged paged attention, K4); every participant takes its first token
-  from its last packed token, then ``k - 1`` more decode steps run with a
-  ``PagedLayerCache`` per layer (paged decode attention, K5);
-- the DECODE block (``_decode_block``) runs ``k`` decode steps over the
-  active rows when no prompt is mid-prefill.
+  from its last packed token, then ``k - 1`` decode steps run with a
+  ``PagedLayerCache`` per layer (paged decode attention, K5). The DECODE
+  block (``_decode_block``) runs ``k = decode_block`` steps when no
+  prompt is mid-prefill.
+- **legacy** (``ragged=False``): a prompt is right-padded to its
+  ``prompt_bucket`` and prefilled through fixed-shape dense caches in the
+  masked plain attention, the reference's own math tier (no kernel), then
+  inserted into its pool pages (``_insert``; an int8 pool quantizes each
+  page from f32). A prefix-cache hit gathers the shared pages
+  (``_gather_prefix``) and prefills only the suffix against them; under
+  ``prefill_chunk`` a long prompt lands in page-aligned chunks, one per
+  slot between decode blocks (the chunk ladder). Decode blocks take the
+  power-of-two ``k`` below the group's remaining budget (the largest
+  under ``async_decode``, the smallest without), each step on K5.
 
 The scheduler is plain host Python between dispatches: admission reserves
-``ceil((len(prompt) + max_new_tokens) / page_size)`` pages up front (page
-0 is scratch: rows that take no part in a step point there), prompts
-stream in token-exact chunks shortest-remaining first, and finished rows
-retire and free their pages at each readback.
+``ceil((len(prompt) + max_new_tokens) / page_size)`` pages up front (and
+the legacy prefill's bucket-rounded pages; page 0 is scratch), finished
+rows retire and free their pages at each readback. A row past its budget
+inside a block freezes its write position at its last reserved slot (the
+caps clamp). Under ``async_decode`` one block stays in flight: block k+1
+is enqueued, fed from block k's device-resident last-token row, before
+block k is read back (a non-blocking copy into pinned memory plus an
+event), so the host's emit/retire/admit work runs under the device's.
 
-Under ``async_decode`` one block stays in flight: block k+1 is enqueued,
-fed from block k's device-resident last-token row, before block k is read
-back (a non-blocking copy into pinned memory plus an event), so the host's
-emit/retire/admit work runs under the device's execution.
-
-Sampling (``serve(do_sample=True, temperature, top_k, top_p, seed)``) uses
-``generation._make_sampler``; all co-scheduled requests share one sampling
-tuple (a request with another one is deferred until the group drains).
-Each request draws from its own noise stream, keyed by (seed, request id,
-token index) as the reference's ``fold_in(fold_in(seed, rid), i)`` is, so
-its tokens do not depend on its co-tenants (``generation.gumbel_noise``).
-
-``kv_cache_dtype="int8"`` keeps the pools as int8 codes with one f32 scale
-per row (``ops.quantization.QuantizedTensor``): the attention kernels' int8
-variants read them. ``enable_prefix_cache`` shares full prompt pages
-between requests with the same prefix (content-addressed by a chained
-blake2b digest, refcounted, LRU-evicted when the allocator needs pages);
-it refuses int8 pools, as ``prefill_chunk`` does, with the reference's
+All co-scheduled requests share one sampling tuple (``sampling_overrides``
+gives each request its own; a request with another one is deferred until
+the group drains). Each request draws from its own noise stream, keyed by
+(seed, request id, token index) as the reference's ``fold_in(fold_in(seed,
+rid), i)`` is (``generation.gumbel_noise``). An adapter (``serve(adapters=
+...)``, ``serving.adapters.LoRAAdapter``) adds ``scale * (h @ A) @ B`` in
+f32 to the head's logits; requests of one rank co-schedule with base
+requests, which ride the stacks' zero slot; a batch with no adapter runs
+the base path and does no LoRA work. ``kv_cache_dtype="int8"`` keeps the
+pools as int8 codes with one f32 scale per row; ``enable_prefix_cache``
+shares full prompt pages between requests with the same prefix
+(content-addressed by a chained blake2b digest, refcounted, LRU-evicted);
+both it and ``prefill_chunk`` refuse int8 pools with the reference's
 messages.
 
-Left out of this slice, and raising when asked for: LoRA adapters,
-``ragged=False``, per-request ``sampling_overrides``, page export and
-adoption, the metrics registry (``stats`` carries the counts), tracing,
-chaos sites, device profiling and the compile ledger.
+The online hooks (``try_admit_one``, ``step``, ``drain``, ``idle``,
+``active_count``, ``has_free_slot``, ``active_prefills``) and the handoff
+hooks (``export_pages``, ``detach_request``, ``adopt_request``) are the
+reference's. Each device section holds the engine's ``dispatch_lock`` (a
+``_StampedRLock``, shareable between engines). The ``serve.*`` metrics go
+to ``observability.metrics.registry``. Tracing, chaos sites, device
+profiling, goodput and the compile ledger come with the serving control
+plane (ROADMAP.md).
 """
 import hashlib
+import threading
 import time
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -57,11 +73,114 @@ from ..device import resolve
 from ..generation import (
     _make_sampler, gumbel_noise, prompt_bucket, request_keys,
 )
+from ..observability.metrics import registry as _registry
+from ..ops import _build
 from ..ops.paged_attention import PagedLayerCache
-from ..ops.quantization import QuantizedTensor, is_quantized
+from ..ops.quantization import QuantizedTensor, is_quantized, quantize_to_int8
 from ..ops.ragged_paged_attention import RaggedLayerCache
+from ..utils.envs import env_int
+from ..utils.metrics_bus import counters
+from ..utils.retry import RetryPolicy
 
-_LATER = "comes in a later slice of the port (see ROADMAP.md)"
+#: the most distinct adapters a decode group holds (the stacks' depth
+#: less the zero slot), read through utils/envs.py
+LORA_SLOTS_ENV = "PADDLE_LORA_SLOTS"
+
+# serving telemetry, the reference's names: TTFT = enqueue -> first token
+# per request; TPOT = a decode block's dispatch-to-readback wall over its
+# tokens; gauges keep their high-water marks
+_M_TTFT = _registry.histogram("serve.ttft_s")
+_FAST_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+_M_TPOT = _registry.histogram("serve.tpot_s", buckets=_FAST_BUCKETS)
+_M_QUEUE = _registry.gauge("serve.queue_depth")
+_M_OCCUPANCY = _registry.gauge("serve.slot_occupancy")
+_M_TOKENS = _registry.counter("serve.tokens_out")
+_M_REQUESTS = _registry.counter("serve.requests")
+_M_PREFIX_HIT = _registry.counter("serve.prefix.hit_pages")
+_M_PREFIX_LOOKUP = _registry.counter("serve.prefix.lookup_pages")
+_M_OVERLAP = _registry.histogram("serve.dispatch_overlap_s",
+                                 buckets=_FAST_BUCKETS)
+_M_CHUNKS = _registry.counter("serve.prefill_chunks")
+_M_WARMUP = _registry.histogram("serve.compile_warmup_s")
+_M_POOL_FREE = _registry.gauge(
+    "serve.pool_frag_free_pages", help="KV pool pages on the free list")
+_M_POOL_EVICT = _registry.gauge(
+    "serve.pool_frag_evictable_pages",
+    help="refcount-0 prefix-cache pages (reclaimable, LRU-evictable)")
+_M_POOL_USED = _registry.gauge(
+    "serve.pool_frag_used_pages",
+    help="pages referenced by in-flight requests")
+_M_POOL_FRAG = _registry.gauge(
+    "serve.pool_frag_ratio",
+    help="cache-held fraction of reclaimable pages "
+         "(evictable / (free + evictable))")
+
+
+class _StampedRLock:
+    """RLock that remembers when its current outermost hold began
+    (``held_since``) and which threads hold it or wait for it
+    (``participants``), so a monitor can tell a dispatcher queued behind a
+    long hold from one wedged elsewhere (the reference's lock)."""
+
+    __slots__ = ("_lock", "_depth", "_since", "_holder", "_waiters")
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._depth = 0
+        self._since = None     # monotonic start of the outermost hold
+        self._holder = None    # thread ident of the holder
+        self._waiters = set()  # thread idents blocked in acquire()
+
+    def acquire(self, blocking=True, timeout=-1):
+        me = threading.get_ident()
+        if blocking and self._holder != me:  # a reentrant acquire can't block
+            self._waiters.add(me)  # set ops are atomic under the GIL
+            try:
+                # holder bookkeeping runs inside the waiter window, so the
+                # winner is never seen as neither waiter nor holder
+                return self._acquired(me, self._lock.acquire(blocking,
+                                                             timeout))
+            finally:
+                self._waiters.discard(me)
+        return self._acquired(me, self._lock.acquire(blocking, timeout))
+
+    def _acquired(self, me, ok):
+        if ok:
+            self._depth += 1
+            if self._depth == 1:
+                self._since = time.monotonic()
+                self._holder = me
+        return ok
+
+    def release(self):
+        # fields mutate only while the lock is held (one writer); the
+        # unlocked reads below are advisory
+        self._depth -= 1
+        if self._depth == 0:
+            self._since = None
+            self._holder = None
+        self._lock.release()
+
+    __enter__ = acquire
+
+    def __exit__(self, *exc_info):
+        self.release()
+
+    def held_since(self):
+        """Monotonic time of the current outermost acquire, or None when
+        free. Advisory (read without the lock)."""
+        return self._since
+
+    def participants(self):
+        """Thread idents holding or blocked acquiring the lock. Advisory
+        snapshot (read without the lock)."""
+        out = set(self._waiters)
+        holder = self._holder
+        if holder is not None:
+            out.add(holder)
+        return out
+
 
 #: canonical greedy sampling tuple: every greedy request shares it,
 #: whatever knob values were passed
@@ -93,19 +212,21 @@ def _per_request(value, n, name):
 
 class EngineRequest:
     """One request's lifecycle state. Once ``finished``, exactly one of
-    ``result`` (np.int32: prompt + generated tokens) or ``error`` is set;
-    a ``timed_out`` request retires with a partial result."""
+    ``result`` (np.int32: prompt + generated tokens) or ``error`` (its
+    rendered string: ``error_message``) is set; a ``timed_out`` request
+    retires with a partial result. ``adapter`` is a resolved
+    ``serving.adapters.LoRAAdapter`` or None."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
-                 "sampling", "seed", "timeout_s", "on_token", "tokens",
-                 "n_generated", "n_dispatched", "last_token", "pages", "slot",
-                 "key_base", "t_enqueue", "t_admit", "t_first_token",
-                 "t_done", "error", "result", "finished", "timed_out",
-                 "cancelled")
+                 "sampling", "seed", "timeout_s", "on_token", "adapter",
+                 "tokens", "n_generated", "n_dispatched", "last_token",
+                 "pages", "slot", "key_base", "t_enqueue", "t_admit",
+                 "t_first_token", "t_done", "error", "result", "finished",
+                 "timed_out", "cancelled")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id=None,
                  sampling=GREEDY_SAMPLING, seed=0, timeout_s=None,
-                 on_token=None):
+                 on_token=None, adapter=None):
         self.rid = int(rid)
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
@@ -118,6 +239,7 @@ class EngineRequest:
         self.seed = int(seed)
         self.timeout_s = timeout_s
         self.on_token = on_token
+        self.adapter = adapter
         self.tokens = []          # prompt + generated
         self.n_generated = 0
         # tokens DISPATCHED to the device (>= n_generated while a block is
@@ -137,18 +259,41 @@ class EngineRequest:
         self.timed_out = False
         self.cancelled = False    # honoured at the next step
 
+    @property
+    def error_message(self):
+        """The failure as ``"Type: message"``, or None."""
+        if self.error is None:
+            return None
+        return f"{type(self.error).__name__}: {self.error}"
+
+    def clone_for_retry(self):
+        """A fresh, unadmitted copy for another replica: the same rid and
+        seed (so the same sampled stream and output) and the same
+        ``t_enqueue`` (TTFT spans the whole journey)."""
+        clone = EngineRequest(self.rid, self.prompt, self.max_new_tokens,
+                              eos_token_id=self.eos_token_id,
+                              sampling=self.sampling, seed=self.seed,
+                              timeout_s=self.timeout_s,
+                              on_token=self.on_token, adapter=self.adapter)
+        clone.t_enqueue = self.t_enqueue
+        return clone
+
 
 class _PrefillState:
     """One slot mid-prefill: its page reservation (shared prefix pages
     first), the prefix-cache hit width, the prompt's page digest chain (to
-    index its pages at graduation) and how many prompt tokens already sit
-    in the pool."""
+    index its pages at graduation), how many prompt tokens already sit in
+    the pool (ragged) or how many pages hold valid KV (the legacy chunk
+    ladder; the slot's page-table row stays at scratch until it
+    graduates)."""
 
-    __slots__ = ("req", "pages", "n_pre0", "digests", "consumed")
+    __slots__ = ("req", "pages", "filled_pages", "n_pre0", "digests",
+                 "consumed")
 
     def __init__(self, req, pages, n_pre, digests, page_size):
         self.req = req
         self.pages = pages
+        self.filled_pages = n_pre
         self.n_pre0 = n_pre
         self.digests = digests
         self.consumed = n_pre * page_size
@@ -157,33 +302,39 @@ class _PrefillState:
 class _InflightBlock:
     """A dispatched block not yet read back: its device-resident last-step
     row (the next block's feed), the slot→request rows frozen at dispatch,
-    and the host copy of the [k, max_seqs] token block with the event that
-    marks it complete (None once complete)."""
+    the host copy of the [k, max_seqs] token block with the event that
+    marks it complete (None once complete), and the dispatch time."""
 
-    __slots__ = ("last", "k", "rows", "host", "ready")
+    __slots__ = ("last", "k", "rows", "host", "ready", "t0")
 
-    def __init__(self, last, k, rows, host, ready):
+    def __init__(self, last, k, rows, host, ready, t0):
         self.last = last
         self.k = k
         self.rows = rows
         self.host = host
         self.ready = ready
+        self.t0 = t0
 
 
 class ContinuousBatchingEngine:
-    """Ragged continuous-batching engine: greedy or sampled decoding over
-    float (the model's dtype) or int8 (``kv_cache_dtype="int8"``) KV pools,
-    with the prefix cache on float pools (``enable_prefix_cache``).
+    """Continuous-batching engine over float (the model's dtype) or int8
+    (``kv_cache_dtype="int8"``) KV pools: the ragged plane by default, the
+    legacy bucket ladder with ``ragged=False``.
 
     ``model`` is a ``models.llama.LlamaForCausalLM`` that lives on
     ``device`` (default "cuda"; raises when CUDA is missing unless
-    device="cpu"). LoRA adapters, ``ragged=False`` and per-request sampling
-    overrides raise NotImplementedError."""
+    device="cpu"). ``dispatch_lock`` (a ``_StampedRLock``) may be shared by
+    engines that share a card."""
+
+    #: bounded retry of a decode dispatch on a transient fault; other
+    #: errors (a kernel's, a shape's) raise at once
+    retry_policy = RetryPolicy(attempts=3, base_delay=0.05)
 
     def __init__(self, model, max_seqs=4, page_size=16, num_pages=None,
                  max_len=512, kv_cache_dtype=None, decode_block=8,
                  enable_prefix_cache=False, prefill_chunk=None,
-                 async_decode=True, ragged=True, device="cuda"):
+                 async_decode=True, dispatch_lock=None, ragged=None,
+                 device="cuda"):
         dev = resolve(device)
         if kv_cache_dtype not in (None, "model", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}")
@@ -196,8 +347,6 @@ class ContinuousBatchingEngine:
             raise ValueError("enable_prefix_cache does not compose with "
                              "kv_cache_dtype='int8' (lossy prefix KV would "
                              "change outputs vs the uncached path)")
-        if not ragged:
-            raise NotImplementedError(f"the ragged=False ladder {_LATER}")
         param = next(model.parameters())
         if param.device.type != dev.type or (
                 dev.index is not None and param.device.index != dev.index):
@@ -213,6 +362,7 @@ class ContinuousBatchingEngine:
         self.num_pages = num_pages or (1 + max_seqs * self.pages_per_seq)
         if self.num_pages < 2:
             raise ValueError("need at least one scratch + one real page")
+        self.kv_cache_dtype = kv_cache_dtype
         shape = (cfg.num_key_value_heads, self.num_pages, page_size,
                  cfg.head_dim)
 
@@ -237,6 +387,10 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = int(prefill_chunk or 0)
         self.async_decode = bool(async_decode)
         self.decode_block = max(int(decode_block), 1)
+        self.dispatch_lock = dispatch_lock or _StampedRLock()
+        self._warm = set()        # program keys that have run successfully
+        self._ragged = (ragged is None or bool(ragged)) and getattr(
+            model, "llama", None) is not None
         # token budget for prompt chunks per mixed dispatch, and the packed
         # stream width: chunk budget + one feed token per slot
         self._ragged_chunk = max(self.prefill_chunk or min(256, max_len), 1)
@@ -246,14 +400,29 @@ class ContinuousBatchingEngine:
                       "prefix_evictions": 0, "failed_requests": 0,
                       "timed_out_requests": 0}
         self.request_errors = {}
+        self._request_errors_bound = 1024
         self._active = {}         # slot -> EngineRequest (decoding)
         self._prefilling = {}     # slot -> _PrefillState
         self._inflight = None     # the ONE in-flight _InflightBlock
+        # requests retired while an out-of-band readback (export_pages'
+        # _settle_inflight) processed the in-flight block: the next step()
+        # returns them
         self._pending_retired = []
         # the running group's sampling tuple (None when idle): requests
         # with another one are deferred until the group drains
         self._active_sampling = None
         self._samplers = {}       # sampling tuple -> sampler
+        # ---- per-request LoRA: the group's adapter rank (None: a base
+        # group, which runs the base path untouched), each adapter slot's
+        # adapter, the device copies (LRU by digest) and the fixed-depth
+        # stacks (slot 0 zeros; LRU by (rank, digests))
+        self._active_lora_rank = None
+        self._slot_adapter = {}
+        self._lora_slots = env_int(LORA_SLOTS_ENV, 4)
+        self._lora_device = OrderedDict()
+        self._lora_stack_cache = OrderedDict()
+        self._lora_dims = (cfg.hidden_size, cfg.vocab_size)
+        self.lora_dispatches = 0  # dispatches that applied an adapter head
         # ---- prefix cache: full prompt pages indexed by the chained
         # digest of the prompt up to and including the page; refcounted
         # while in use, kept (LRU-evictable) at refcount 0. Shared pages
@@ -266,6 +435,7 @@ class ContinuousBatchingEngine:
         self._evictable = OrderedDict()  # page id -> None, LRU first
         self._pages_in_use = 0
         self._cache_weights_version = None
+        self.warmup_build_s = 0.0  # the kernel builds warmup() paid
 
     # ---- page allocator and prefix cache ----------------------------------
     def pool_bytes(self):
@@ -390,11 +560,21 @@ class ContinuousBatchingEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    @contextmanager
+    def _locked_dispatch(self, *keys):
+        """A device section under the engine's ``dispatch_lock``. ``keys``
+        name the reference's program families the section runs (e.g.
+        ("prefill", bucket, sampling)); they join ``_warm`` once the
+        section succeeds."""
+        with self.dispatch_lock:
+            yield
+        self._warm.update(keys)
+
     # ---- device programs ----------------------------------------------------
     def _draw(self, logits, sampling, keys, idx):
-        """Each row's next token from its [max_seqs, V] logits under the
+        """Each row's next token from its [rows, V] logits under the
         group's ``sampling``; a sampled row draws the Gumbel noise of its
-        request key (``keys``) at token index ``idx`` (int64 [max_seqs])."""
+        request key (``keys``) at token index ``idx`` (int64 [rows])."""
         sampler = self._samplers.get(sampling)
         if sampler is None:
             sampler = self._samplers[sampling] = _make_sampler(
@@ -404,8 +584,21 @@ class ContinuousBatchingEngine:
                  else None)
         return sampler(logits, noise)
 
+    def _head(self, h, lora):
+        """Logits of hidden rows ``h`` [B, S, H]: the model's own head
+        (the base path's op) plus, under ``lora`` = (A [B, H, r], B [B, r,
+        V], scale [B, 1, 1]) f32, each row's ``scale * (h @ A) @ B`` in
+        f32 (the reference's ``_lora_base_head`` + delta; a zero-slot row
+        adds +0.0)."""
+        base = self.model.head(h)
+        if lora is None:
+            return base
+        a, b, scale = lora
+        delta = torch.matmul(torch.matmul(h.float(), a), b)
+        return base + delta * scale
+
     def _decode_steps(self, toks, page_table, lengths, caps, n, sampling,
-                      keys, idx):
+                      keys, idx, lora=None):
         """``n`` decode steps over every slot through the paged caches (the
         reference's ``lax.scan`` body), step s drawing token index
         ``idx + s``. A row's write position freezes at its cap (caps 0 park
@@ -416,8 +609,13 @@ class ContinuousBatchingEngine:
             lengths_e = torch.minimum(lengths, caps)
             caches = [PagedLayerCache(kp, vp, page_table, lengths_e)
                       for kp, vp in self.pools]
-            logits, _ = self.model(toks, position_ids=lengths_e[:, None],
-                                   past_key_values=caches)
+            if lora is None:
+                logits, _ = self.model(toks, position_ids=lengths_e[:, None],
+                                       past_key_values=caches)
+            else:
+                h, _ = self.model.llama(toks, position_ids=lengths_e[:, None],
+                                        past_key_values=caches)
+                logits = self._head(h, lora)
             nxt = self._draw(logits[:, -1], sampling, keys,
                              None if idx is None else idx + s)
             out.append(nxt)
@@ -428,15 +626,15 @@ class ContinuousBatchingEngine:
     @torch.no_grad()
     def _ragged_step(self, tok_block, chain_pos, chain_rows, last, cu, row_of,
                      token_pos, valid, b_idx, page_table, scan_table,
-                     lengths, caps, sampling, keys, idx):
-        """The mixed program (reference ``_ragged_fn``): one packed pass
-        through the ragged caches, each participant's first token from its
-        last packed token (``b_idx``) at token index ``idx``, then ``k - 1``
-        decode steps over ``scan_table`` (non-participants routed to the
-        scratch page). Rows chained off an in-flight block take their feed
-        token from its device-resident ``last`` row at packed positions
-        ``chain_pos``. The pools are updated in place (the reference
-        donates them)."""
+                     lengths, caps, sampling, keys, idx, lora=None):
+        """The mixed program (reference ``_ragged_fn``, ``_lora_ragged_fn``
+        under ``lora``): one packed pass through the ragged caches, each
+        participant's first token from its last packed token (``b_idx``)
+        at token index ``idx``, then ``k - 1`` decode steps over
+        ``scan_table`` (non-participants routed to the scratch page). Rows
+        chained off an in-flight block take their feed token from its
+        device-resident ``last`` row at packed positions ``chain_pos``. The
+        pools are updated in place (the reference donates them)."""
         if chain_pos is not None:
             tok_block[chain_pos] = last[chain_rows, 0]
         kv_lens = lengths + (cu[1:] - cu[:-1])  # post-write totals
@@ -446,38 +644,519 @@ class ContinuousBatchingEngine:
         h, _ = self.model.llama(tok_block[None],
                                 position_ids=token_pos[None],
                                 past_key_values=caches)
-        tok0 = self._draw(self.model.head(h[0, b_idx]), sampling, keys, idx)
+        tok0 = self._draw(self._head(h[0, b_idx][:, None], lora)[:, 0],
+                          sampling, keys, idx)
         tail = self._decode_steps(tok0[:, None], scan_table, kv_lens, caps,
                                   self.decode_block - 1, sampling, keys,
-                                  None if idx is None else idx + 1)
+                                  None if idx is None else idx + 1, lora)
         return torch.stack([tok0, *tail])
 
     @torch.no_grad()
-    def _decode_block(self, feed, page_table, lengths, caps, sampling, keys,
-                      idx):
-        """The decode program (reference ``_decode_block_fn``): ``k``
-        decode steps; pools updated in place (the reference donates
-        them)."""
+    def _decode_block(self, feed, page_table, lengths, caps, k, sampling,
+                      keys, idx, lora=None):
+        """The decode program (reference ``_decode_block_fn``, ``_decode``
+        at k 1, their LoRA forms under ``lora``): ``k`` decode steps; pools
+        updated in place (the reference donates them)."""
         return torch.stack(self._decode_steps(feed, page_table, lengths,
-                                              caps, self.decode_block,
-                                              sampling, keys, idx))
+                                              caps, k, sampling, keys, idx,
+                                              lora))
+
+    @torch.no_grad()
+    def _prefill(self, ids, true_len, sampling, key, prefix=None, lora=None):
+        """The legacy bucketed prefill (reference ``_prefill``; with
+        ``prefix`` = the gathered (ks, vs) of the request's first pages,
+        ``_prefill_suffix``; under ``lora`` their adapter forms): ``ids``
+        [1, bucket], right-padded with zeros, through fixed-shape dense
+        caches of plen + bucket positions written from cache position
+        plen, in the masked plain attention (the reference's math tier:
+        no kernel). The first token is drawn from position true_len - 1 at
+        token index 0 of ``key``. Returns (tok0 [1], ks, vs): the bucket
+        positions' K/V [L, bucket, Hkv, D]."""
+        model = self.model
+        plen = 0 if prefix is None else prefix[0].shape[1]
+        caches = model.init_cache(1, plen + ids.shape[1])
+        if prefix is not None:
+            for l, (kc, vc) in enumerate(caches):
+                kc[0, :plen] = prefix[0][l]
+                vc[0, :plen] = prefix[1][l]
+        if lora is None:
+            logits, _ = model(ids, past_key_values=caches,
+                              cache_position=plen)
+            last = logits[:, true_len - 1]
+        else:
+            h, _ = model.llama(ids, past_key_values=caches,
+                               cache_position=plen)
+            last = self._head(h[:, true_len - 1:true_len], lora)[:, 0]
+        zero = None if key is None else torch.zeros_like(key)
+        tok0 = self._draw(last, sampling, key, zero)
+        ks = torch.stack([kc[0, plen:] for kc, _ in caches])
+        vs = torch.stack([vc[0, plen:] for _, vc in caches])
+        return tok0, ks, vs
+
+    @staticmethod
+    def _pages_for_bucket(bucket, bs):
+        return -(-bucket // bs)  # a bucket smaller than a page needs one
+
+    @torch.no_grad()
+    def _insert(self, ks, vs, page_ids):
+        """Scatter dense prefill K/V [L, n, Hkv, D] into the pool pages
+        ``page_ids`` (reference ``_insert``), the positions padded up to
+        whole pages (a bucket shorter than a page still writes one; the
+        pad rows are masked by ``lengths``). Positions past the pages
+        given are bucket padding and are dropped: an adapter request under
+        ``prefill_chunk`` prefills a whole bucket into the chunk ladder's
+        region, which holds its tokens but not always its bucket's pad
+        (the reference clamps the page index there and writes that pad
+        over the last page; ROADMAP.md §3). An int8 pool quantizes each
+        page's rows from f32, as the reference's ``write_page`` does."""
+        bs = self.page_size
+        npg = len(page_ids)
+        ks, vs = ks[:, :npg * bs], vs[:, :npg * bs]
+        pad = npg * bs - ks.shape[1]
+        if pad:
+            ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
+            vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+        ids = self._to_device(np.asarray(page_ids, np.int64))
+        for l, (kp, vp) in enumerate(self.pools):
+            for pool, x in ((kp, ks[l]), (vp, vs[l])):
+                # [npg * bs, Hkv, D] -> [Hkv, npg, bs, D]
+                chunk = x.reshape(npg, bs, *x.shape[1:]).permute(2, 0, 1, 3)
+                if is_quantized(pool):
+                    qt = quantize_to_int8(chunk.float())
+                    pool.weight[:, ids] = qt.weight
+                    pool.scales[:, ids] = qt.scales
+                else:
+                    pool[:, ids] = chunk.to(pool.dtype)
+
+    @torch.no_grad()
+    def _gather_prefix(self, page_ids):
+        """Pools + page ids [n] -> dense K/V [L, n * bs, Hkv, D] each
+        (reference ``_gather_prefix``). Float pools only: TypeError for an
+        int8 pool, whose gather the reference refuses the same way."""
+        if is_quantized(self.pools[0][0]):
+            raise TypeError("the page gather reads float pools only: an "
+                            "int8 pool's pages cannot be exported")
+        ids = self._to_device(np.asarray(page_ids, np.int64))
+
+        def read(pool):
+            arr = pool[:, ids].permute(1, 2, 0, 3)   # [n, bs, Hkv, D]
+            return arr.reshape(-1, *arr.shape[2:])
+
+        return (torch.stack([read(kp) for kp, _ in self.pools]),
+                torch.stack([read(vp) for _, vp in self.pools]))
+
+    # ---- per-request LoRA ---------------------------------------------------
+    def _lora_dev(self, adapter):
+        """An adapter's A and B on the device, digest-keyed LRU of 32 (a
+        re-registration under a new digest is a new entry)."""
+        ent = self._lora_device.get(adapter.digest)
+        if ent is None:
+            ent = (torch.from_numpy(adapter.a).to(self.device),
+                   torch.from_numpy(adapter.b).to(self.device))
+            self._lora_device[adapter.digest] = ent
+            while len(self._lora_device) > 32:
+                self._lora_device.popitem(last=False)
+        else:
+            self._lora_device.move_to_end(adapter.digest)
+        return ent
+
+    def _lora_stack(self, rank, adapters):
+        """(A stack, B stack, scales, digest -> index) for a digest-sorted
+        working set, ``_lora_slots + 1`` deep: slot 0 zeros for rows
+        without an adapter, the tail zero-padded. LRU of 8 by (rank,
+        digests)."""
+        digs = tuple(ad.digest for ad in adapters)
+        cached = self._lora_stack_cache.get((rank, digs))
+        if cached is None:
+            hidden, vocab = self._lora_dims
+            za = torch.zeros((hidden, rank), dtype=torch.float32,
+                             device=self.device)
+            zb = torch.zeros((rank, vocab), dtype=torch.float32,
+                             device=self.device)
+            a_list, b_list, s_list = [za], [zb], [0.0]
+            for ad in adapters:
+                a_dev, b_dev = self._lora_dev(ad)
+                a_list.append(a_dev)
+                b_list.append(b_dev)
+                s_list.append(float(ad.scale))
+            while len(a_list) < self._lora_slots + 1:
+                a_list.append(za)
+                b_list.append(zb)
+                s_list.append(0.0)
+            cached = (torch.stack(a_list), torch.stack(b_list),
+                      torch.tensor(s_list, dtype=torch.float32,
+                                   device=self.device))
+            self._lora_stack_cache[(rank, digs)] = cached
+            while len(self._lora_stack_cache) > 8:
+                self._lora_stack_cache.popitem(last=False)
+        else:
+            self._lora_stack_cache.move_to_end((rank, digs))
+        return cached + ({d: i + 1 for i, d in enumerate(digs)},)
+
+    def _lora_rows(self, rows):
+        """The dispatch's adapter operands (``_head``'s ``lora``): each
+        slot's A, B and scale gathered from the group's stacks (rows
+        without an adapter, and empty slots, take the zero slot); None
+        for a base group."""
+        if self._active_lora_rank is None:
+            return None
+        ads = sorted({a.digest: a for a in self._slot_adapter.values()}
+                     .values(), key=lambda a: a.digest)
+        a_stack, b_stack, scales, pos = self._lora_stack(
+            self._active_lora_rank, ads)
+        idx = np.zeros(self.max_seqs, np.int64)
+        for slot, r in rows:
+            if r.adapter is not None:
+                idx[slot] = pos[r.adapter.digest]
+        idx = self._to_device(idx)
+        self.lora_dispatches += 1
+        return a_stack[idx], b_stack[idx], scales[idx][:, None, None]
+
+    def _lora_one(self, adapter):
+        """One request's adapter operands for its legacy prefill."""
+        a, b = self._lora_dev(adapter)
+        self.lora_dispatches += 1
+        return a[None], b[None], torch.tensor(
+            adapter.scale, dtype=torch.float32, device=self.device).view(
+                1, 1, 1)
+
+    def _lora_reject(self, ad):
+        """Why this adapter can never run on this engine (None: it can):
+        admission fails the request alone instead of deferring forever."""
+        hidden, vocab = self._lora_dims
+        if ad.a.shape[0] != hidden or ad.b.shape[1] != vocab:
+            return ValueError(
+                f"adapter {ad.name!r} shapes {ad.a.shape}/{ad.b.shape} "
+                f"do not match model hidden={hidden} vocab={vocab}")
+        return None
+
+    # ---- warmup -------------------------------------------------------------
+    def warmup(self, prompt_lens=None, do_sample=False, temperature=1.0,
+               top_k=0, top_p=1.0, shared_prefix_lens=(), buckets=None,
+               sampling=None, lora_ranks=()):
+        """Run every program family serve() can reach for prompts of these
+        lengths before latency-sensitive serving (the reference's
+        contract): on the card, first build each kernel library the
+        engine can launch (``ops/_build.py``'s first use, seconds in
+        ``warmup_build_s``); then one dummy request per prompt bucket
+        (under ``prefill_chunk`` the dummy serves walk the chunk ladder)
+        and one serve of 2 * decode_block - 1 tokens that walks every
+        block size (the ragged plane: one serve of decode_block + 1
+        tokens). ``buckets`` is an alias for ``prompt_lens``; ``sampling``
+        a list of (do_sample, temperature, top_k, top_p) tuples (or one);
+        ``lora_ranks`` adds the adapter forms, served with a zero-weight
+        adapter of each rank; ``shared_prefix_lens`` runs the prefix
+        gather and suffix prefill a cache hit of each length would.
+        ``stats`` stay as they were, the prefix cache is bypassed and
+        later streams are unchanged. The wall time, builds included, goes
+        into ``serve.compile_warmup_s``."""
+        if buckets is not None:
+            prompt_lens = buckets
+        if prompt_lens is None:
+            raise ValueError("warmup() needs prompt_lens= or buckets=")
+        if sampling is None:
+            configs = [(do_sample, temperature, top_k, top_p)]
+        elif sampling and not isinstance(sampling[0], (tuple, list)):
+            configs = [tuple(sampling)]
+        else:
+            configs = [tuple(s) for s in sampling]
+        t_warm0 = time.monotonic()
+        try:
+            if self.device.type == "cuda":
+                # the libraries the dispatches can launch: K5's, and K4's
+                # on the ragged plane
+                t0 = time.monotonic()
+                _build.library("paged_attention")
+                if self._ragged:
+                    _build.library("ragged_paged_attention")
+                self.warmup_build_s += time.monotonic() - t0
+            for cfg in configs:
+                self._warmup_one(prompt_lens, shared_prefix_lens, *cfg)
+            for rank in lora_ranks:
+                for cfg in configs:
+                    self._warmup_lora(prompt_lens, int(rank), *cfg)
+        finally:
+            _M_WARMUP.observe(time.monotonic() - t_warm0)
+
+    def _warmup_one(self, prompt_lens, shared_prefix_lens, do_sample,
+                    temperature, top_k, top_p):
+        kw = dict(do_sample=do_sample, temperature=temperature,
+                  top_k=top_k, top_p=top_p)
+        stats_before = dict(self.stats)
+        # the dummy all-ones prompts would hit each other in the prefix
+        # cache (running the suffix programs instead of the full prefills
+        # real misses need) and leave junk pages indexed: bypass it
+        pfx, self.enable_prefix_cache = self.enable_prefix_cache, False
+        try:
+            self._warmup_walk(prompt_lens, kw, chunk_ladder=True)
+        finally:
+            self.enable_prefix_cache = pfx
+            self.stats = stats_before
+        if pfx and shared_prefix_lens:
+            self._warmup_prefix_hits(prompt_lens, shared_prefix_lens,
+                                     canonical_sampling(**kw))
+
+    def _warmup_prefix_hits(self, prompt_lens, shared_prefix_lens, sampling):
+        """For each expected shared prefix, the page gather, suffix prefill
+        and insert a hit will run (the chunk ladder shifted by the hit
+        width under ``prefill_chunk``), on scratch page 0: no cache state
+        or live page changes."""
+        bs = self.page_size
+        dummy_key = (torch.zeros(1, dtype=torch.int64, device=self.device)
+                     if sampling[0] else None)
+        for sp in shared_prefix_lens:
+            for l in prompt_lens:
+                if l <= sp:
+                    continue
+                n_pre = min(int(sp) // bs, (int(l) - 1) // bs)
+                while n_pre:
+                    if n_pre + self._legacy_region(int(l) - n_pre * bs) \
+                            <= self.pages_per_seq:
+                        break
+                    n_pre -= 1
+                if not n_pre:
+                    continue
+                suffix_len = int(l) - n_pre * bs
+                if self.prefill_chunk and suffix_len > self.prefill_chunk:
+                    n_full, flen, _ = self._chunk_plan(suffix_len)
+                    cpg = self.prefill_chunk // bs
+                    stages = [(n_pre + j * cpg, self.prefill_chunk)
+                              for j in range(n_full)]
+                    stages.append((n_pre + n_full * cpg, prompt_bucket(flen)))
+                else:
+                    stages = [(n_pre, prompt_bucket(suffix_len))]
+                for filled, cbucket in stages:
+                    with self._locked_dispatch(
+                            ("gather", filled),
+                            ("suffix", filled, cbucket, sampling),
+                            ("insert", cbucket)):
+                        prefix = self._gather_prefix([0] * filled)
+                        ids = torch.zeros((1, cbucket), dtype=torch.int32,
+                                          device=self.device)
+                        _, cks, cvs = self._prefill(ids, 1, sampling,
+                                                    dummy_key, prefix)
+                        self._insert(cks, cvs, [0] * self._pages_for_bucket(
+                            cbucket, bs))
+
+    def _warmup_walk(self, prompt_lens, kw, chunk_ladder):
+        """The dummy serves: the decode-block ladder on a 1-token prompt
+        (the ragged plane: one serve of decode_block + 1 tokens), then one
+        prompt per prefill signature (bucket, or chunk ladder)."""
+        if self._ragged:
+            fit = min(self.max_len - 1,
+                      self._available_pages() * self.page_size - 1)
+            n = max(min(self.decode_block + 1, fit), 1)
+            self.serve([np.ones(1, np.int32)], max_new_tokens=n, **kw)
+            return
+        # max_new 2 * k - 1 leaves 2k - 2 after the prefill's token, so
+        # the shrinking power-of-two k visits decode_block, ..., 2; max_new
+        # 2 leaves 1: the single-step program
+        ladder_bucket = prompt_bucket(1)
+        fit = min(self.max_len - 1,
+                  self._available_pages() * self.page_size - ladder_bucket)
+        runs = [2]
+        if self.decode_block > 1:
+            runs.append(2 * self.decode_block - 1)
+        runs = sorted({min(n, fit) for n in runs if fit >= 2})
+        for n in runs:
+            self.serve([np.ones(1, np.int32)], max_new_tokens=n, **kw)
+        # one representative length per prefill signature: a bucket, or
+        # under the chunk ladder (full-chunk count, final-chunk bucket)
+        rep = {}
+        for l in prompt_lens:
+            l = int(l)
+            if chunk_ladder and self.prefill_chunk and l > self.prefill_chunk:
+                n_full, flen, _ = self._chunk_plan(l)
+                key = ("chunk", n_full, prompt_bucket(flen))
+            else:
+                key = ("mono", prompt_bucket(l))
+            rep[key] = min(rep.get(key, l), l)
+        for key in sorted(rep, key=str):
+            if key == ("mono", ladder_bucket) and runs:
+                continue  # the ladder serves above ran it
+            self.serve([np.ones(rep[key], np.int32)], max_new_tokens=1, **kw)
+
+    def _warmup_lora(self, prompt_lens, rank, do_sample, temperature,
+                     top_k, top_p):
+        """The adapter forms of the program families for ``rank``, served
+        with a zero-weight adapter (its delta is 0). Adapter requests
+        prefill monolithically, so the legacy walk takes buckets only."""
+        from ..serving.adapters import LoRAAdapter
+
+        hidden, vocab = self._lora_dims
+        ad = LoRAAdapter(f"warmup-r{rank}",
+                         np.zeros((hidden, rank), np.float32),
+                         np.zeros((rank, vocab), np.float32))
+        kw = dict(do_sample=do_sample, temperature=temperature,
+                  top_k=top_k, top_p=top_p, adapters=ad)
+        stats_before = dict(self.stats)
+        pfx, self.enable_prefix_cache = self.enable_prefix_cache, False
+        try:
+            self._warmup_walk(prompt_lens, kw, chunk_ladder=False)
+        finally:
+            self.enable_prefix_cache = pfx
+            self.stats = stats_before
+
+    # ---- online lifecycle -------------------------------------------------
+    # The serving control plane drives the engine from one dispatcher
+    # thread per replica: try_admit_one(req), step(), drain(); serve() is
+    # built on the same hooks. The engine is single-threaded by contract;
+    # the only cross-thread write it tolerates is EngineRequest.cancelled.
+
+    def idle(self):
+        return (not self._active and not self._prefilling
+                and self._inflight is None and not self._pending_retired)
+
+    def active_count(self):
+        # mid-prefill requests hold slots too
+        return len(self._active) + len(self._prefilling)
+
+    def has_free_slot(self):
+        return bool(self.free_slots)
+
+    def active_prefills(self):
+        """Mid-prefill slot count."""
+        return len(self._prefilling)
+
+    # ---- handoff hooks (disaggregated prefill/decode) ----------------------
+    # A prefill replica produces a request's first tokens, the frontend
+    # exports its pages, detaches it without finishing its handle, and a
+    # decode replica adopts the pages and continues it bit for bit. All
+    # three run on the owning dispatcher's thread.
+
+    def _settle_inflight(self):
+        """Read back the in-flight block now, so every active request's
+        emitted tokens equal its dispatched ones (what an export needs);
+        requests it retires are returned by the next step()."""
+        rec = self._inflight
+        if rec is not None:
+            self._inflight = None
+            self._pending_retired.extend(self._process_block(rec))
+
+    def export_pages(self, slot):
+        """``slot``'s KV pages on the host for a handoff bundle:
+        ``{"n_pages", "ks", "vs"}`` with dense ``[L, n * bs, Hkv, D]``
+        numpy arrays (bf16 pools export as float32, exactly). Float pools
+        only (TypeError for int8, as the reference's). None when the
+        request finished while the in-flight block settled."""
+        self._settle_inflight()
+        req = self._active.get(slot)
+        if req is None or req.finished:
+            return None
+        ks, vs = self._gather_prefix(req.pages)
+
+        def host(x):
+            return (x.float() if x.dtype == torch.bfloat16 else x).cpu()\
+                .numpy()
+
+        return {"n_pages": len(req.pages), "ks": host(ks), "vs": host(vs)}
+
+    def detach_request(self, slot):
+        """Free ``slot`` and its pages without finishing the request (its
+        tokens, dispatch count and key stream stay for the adopter). Call
+        right after export_pages(), with no step() between."""
+        req = self._active.pop(slot)
+        self._unref_pages(req.pages)
+        self.free_slots.append(slot)
+        self.page_table[slot] = 0
+        self.lengths[slot] = 0
+        req.pages = []
+        req.slot = None
+        self._slot_adapter.pop(slot, None)
+        self._group_done()
+        return req
+
+    def adopt_request(self, req, payloads):
+        """Admission twin for a handed-off request: scatter its exported
+        pages into this pool and register it mid-decode. Returns
+        "admitted" / "deferred" / "failed" with try_admit_one's semantics.
+        Restores ``lengths[slot] = len(prompt) + n_dispatched - 1``, so the
+        next block's positions, and with the request's own key stream its
+        tokens, are those it would have had unmoved. Adopted pages are
+        private (never prefix-indexed)."""
+        if not self.free_slots:
+            return "deferred"
+        if (self._active or self._prefilling) \
+                and self._active_sampling != req.sampling:
+            return "deferred"
+        n = int(payloads["n_pages"])
+        if n > self.pages_per_seq:
+            self._fail_request(req, ValueError(
+                f"request {req.rid}: handoff bundle spans {n} pages, "
+                f"page table holds {self.pages_per_seq}"))
+            return "failed"
+        if n > self._available_pages():
+            if not self._active and not self._prefilling:
+                self._fail_request(req, RuntimeError(
+                    f"request {req.rid}: handoff bundle needs {n} pages, "
+                    f"idle pool has {self._available_pages()}"))
+                return "failed"
+            self.stats["deferred_admissions"] += 1
+            return "deferred"
+        slot = self.free_slots.pop()
+        pages = self._alloc_pages(n)
+        self._ref_pages(pages)
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self._pages_in_use)
+        try:
+            with self._locked_dispatch(("insert", n * self.page_size)):
+                self._insert(torch.as_tensor(payloads["ks"]).to(self.device),
+                             torch.as_tensor(payloads["vs"]).to(self.device),
+                             pages)
+        except Exception as e:  # fail this request alone, free everything
+            self._unref_pages(pages)
+            self.free_slots.append(slot)
+            self._fail_request(req, e)
+            return "failed"
+        if req.sampling[0] and req.key_base is None:
+            req.key_base = self._key_base(req)
+        row = np.zeros(self.pages_per_seq, np.int32)
+        row[:n] = pages
+        self.page_table[slot] = row
+        self.lengths[slot] = len(req.prompt) + req.n_dispatched - 1
+        req.pages = pages
+        req.slot = slot
+        if req.t_admit is None:
+            req.t_admit = time.monotonic()
+        self._active[slot] = req
+        self._active_sampling = req.sampling
+        self._update_gauges()
+        return "admitted"
 
     # ---- request lifecycle --------------------------------------------------
+    @staticmethod
+    def _key_base(req):
+        """The request's noise key of (seed, rid)."""
+        return int(request_keys(torch.tensor([req.seed]),
+                                torch.tensor([req.rid]))[0])
+
     def _fail_request(self, req, exc):
         req.error = exc
         req.result = None
         req.finished = True
         req.t_done = time.monotonic()
         self.request_errors[req.rid] = exc
+        # bounded for a long-running online engine; serve() raises the
+        # bound to its batch size so every failed rid keeps its entry
+        while len(self.request_errors) > self._request_errors_bound:
+            self.request_errors.pop(next(iter(self.request_errors)))
         self.stats["failed_requests"] += 1
+        counters.bump("fault.serve.request_failed")
+
+    def _group_done(self):
+        """Forget the group's sampling and adapter rank once no request
+        is left in it."""
+        if not self._active and not self._prefilling:
+            self._active_sampling = None
+            self._active_lora_rank = None
 
     def _release_slot(self, slot, pages):
         self._unref_pages(pages)
         self.free_slots.append(slot)
         self.page_table[slot] = 0
         self.lengths[slot] = 0
-        if not self._active and not self._prefilling:
-            self._active_sampling = None
+        self._slot_adapter.pop(slot, None)
+        self._group_done()
 
     def _retire(self, slot):
         req = self._active.pop(slot)
@@ -499,19 +1178,59 @@ class ContinuousBatchingEngine:
         self._release_slot(slot, st.pages)
         return req
 
+    def _update_gauges(self):
+        _M_OCCUPANCY.set(self.active_count() / self.max_seqs)
+        free, evict = len(self.free_pages), len(self._evictable)
+        _M_POOL_FREE.set(free)
+        _M_POOL_EVICT.set(evict)
+        _M_POOL_USED.set(self._pages_in_use)
+        _M_POOL_FRAG.set(evict / (free + evict) if free + evict else 0.0)
+
+    def _region_for(self, suffix_len):
+        """Pages the prefill of a ``suffix_len``-token suffix writes:
+        token-exact on the ragged plane, the chunk ladder's pages under
+        ``prefill_chunk``, else the bucket's pages."""
+        if self._ragged:
+            return -(-suffix_len // self.page_size)
+        return self._legacy_region(suffix_len)
+
+    def _legacy_region(self, suffix_len):
+        """``_region_for`` on the legacy plane."""
+        if self.prefill_chunk and suffix_len > self.prefill_chunk:
+            return self._chunk_plan(suffix_len)[2]
+        return self._pages_for_bucket(prompt_bucket(suffix_len),
+                                      self.page_size)
+
     def try_admit_one(self, req):
-        """Non-blocking admission of one EngineRequest: reserve its pages
-        (a prefix-cache hit's shared pages first) and install its
-        page-table row; the rest of the prompt streams into the pool
-        through the mixed dispatches. Returns "admitted", "failed" (the
-        request alone fails: too long, or larger than the whole pool) or
-        "deferred" (no free slot or pages yet, or the running group samples
-        otherwise)."""
+        """Non-blocking admission of one EngineRequest. Returns "admitted"
+        (drive it with step()), "done" (the legacy prefill's first token
+        finished it), "failed" (it alone failed: too long, larger than the
+        whole pool, a mismatched adapter, or its prefill raised) or
+        "deferred" (no free slot or pages yet, the running group samples
+        otherwise, a base group runs, the adapter's rank differs, or the
+        group holds ``PADDLE_LORA_SLOTS`` adapters already). The caller
+        pops the request on every status but "deferred".
+
+        The ragged plane reserves the pages (a prefix-cache hit's shared
+        pages first) and installs the page-table row; the prompt streams
+        in through the mixed dispatches. The legacy plane prefills here
+        (monolithic, or the first chunk of the ladder)."""
         if not self.free_slots:
             return "deferred"
-        if ((self._active or self._prefilling)
-                and self._active_sampling != req.sampling):
-            return "deferred"
+        ad = req.adapter
+        if self._active or self._prefilling:
+            if self._active_sampling != req.sampling:
+                return "deferred"
+            if ad is not None:
+                if self._active_lora_rank is None:
+                    # a base group runs the untouched base path: wait
+                    return "deferred"
+                if ad.rank != self._active_lora_rank:
+                    return "deferred"
+                digs = {a.digest for a in self._slot_adapter.values()}
+                if ad.digest not in digs and len(digs) >= self._lora_slots:
+                    return "deferred"
+        _M_REQUESTS.inc()
         prompt = req.prompt
         true_len = len(prompt)
         bucket = prompt_bucket(true_len)
@@ -520,18 +1239,30 @@ class ContinuousBatchingEngine:
                 f"request {req.rid}: len {true_len} (bucket {bucket}) + "
                 f"{req.max_new_tokens} exceeds max_len={self.max_len}"))
             return "failed"
+        if ad is not None:
+            err = self._lora_reject(ad)
+            if err is not None:
+                self._fail_request(req, err)
+                return "failed"
         bs = self.page_size
         if self.enable_prefix_cache:
             self._refresh_cache_guard()
             n_pre, shared, digests = self._match_prefix(prompt, true_len)
         else:
             n_pre, shared, digests = 0, [], None
-        # token-exact reservation: the prompt's pages, or its whole budget.
-        # A hit always fits the page-table row: n_pre shared pages plus the
-        # ceil((true_len - n_pre * bs) / bs) pages of the rest are the
-        # prompt's ceil(true_len / bs) (the reference's shrink loop serves
-        # its bucket-rounded ladder and never runs on the ragged path)
-        total_need = max(-(-true_len // bs),
+        # shrink the hit until the prefix and the prefill's region fit the
+        # page-table row (the legacy suffix bucket rounds up on its own)
+        suffix_len = true_len
+        while n_pre:
+            suffix_len = true_len - n_pre * bs
+            if n_pre + self._region_for(suffix_len) <= self.pages_per_seq:
+                break
+            n_pre -= 1
+            shared = shared[:n_pre]
+        if not n_pre:
+            suffix_len = true_len
+        region = self._region_for(suffix_len)
+        total_need = max(n_pre + region,
                          -(-(true_len + req.max_new_tokens) // bs))
         # hold the shared pages BEFORE the availability check: evictable
         # ones would otherwise count as allocatable twice
@@ -546,40 +1277,209 @@ class ContinuousBatchingEngine:
                 return "failed"
             self.stats["deferred_admissions"] += 1
             return "deferred"
+        if self.enable_prefix_cache:
+            # the hit rate's denominator, once per admission
+            _M_PREFIX_LOOKUP.inc((true_len - 1) // bs)
         slot = self.free_slots.pop()
         new_pages = self._alloc_pages(total_need - n_pre)
         self._ref_pages(new_pages)
         pages = shared + new_pages
         self.stats["peak_pages"] = max(self.stats["peak_pages"],
                                        self._pages_in_use)
-        self.stats["prefix_hit_pages"] += n_pre
         req.pages = pages
         req.slot = slot
         req.t_admit = time.monotonic()
-        req.tokens = list(prompt)  # tok0 appended at graduation
-        if req.sampling[0] and req.key_base is None:
-            req.key_base = int(request_keys(torch.tensor([req.seed]),
-                                            torch.tensor([req.rid]))[0])
+        sampling = req.sampling
+        if sampling[0] and req.key_base is None:
+            req.key_base = self._key_base(req)
+        if self._ragged or (self.prefill_chunk
+                            and suffix_len > self.prefill_chunk
+                            and ad is None):
+            # reserve-then-stream: the ragged plane's mixed dispatches, or
+            # the legacy chunk ladder (adapter requests prefill
+            # monolithically, keeping the ladder free of adapter forms)
+            req.tokens = list(prompt)  # tok0 appended at graduation
+            if n_pre:
+                self.stats["prefix_hit_pages"] += n_pre
+                _M_PREFIX_HIT.inc(n_pre)
+            self._prefilling[slot] = _PrefillState(req, pages, n_pre,
+                                                   digests, bs)
+            self._active_sampling = sampling
+            if not self._ragged:
+                # the first chunk dispatches here
+                return self._prefill_chunk_step(slot)
+            row = np.zeros(self.pages_per_seq, np.int32)
+            row[:len(pages)] = pages
+            self.page_table[slot] = row
+            self.lengths[slot] = n_pre * bs
+            if ad is not None:
+                self._slot_adapter[slot] = ad
+                self._active_lora_rank = ad.rank
+            return "admitted"
+        sbucket = prompt_bucket(suffix_len)
+        ids_p = np.zeros((1, sbucket), np.int32)
+        ids_p[0, :suffix_len] = prompt[n_pre * bs:]
+        if ad is None:
+            progs = ([("gather", n_pre), ("suffix", n_pre, sbucket, sampling)]
+                     if n_pre else [("prefill", sbucket, sampling)])
+        else:
+            progs = ([("gather", n_pre),
+                      ("lora_suffix", n_pre, sbucket, sampling, ad.rank)]
+                     if n_pre
+                     else [("lora_prefill", sbucket, sampling, ad.rank)])
+        try:
+            with self._locked_dispatch(*progs, ("insert", sbucket)):
+                if n_pre:
+                    self.stats["prefix_hit_pages"] += n_pre
+                    _M_PREFIX_HIT.inc(n_pre)
+                prefix = self._gather_prefix(shared) if n_pre else None
+                tok0, ks, vs = self._prefill(
+                    self._to_device(ids_p), suffix_len, sampling,
+                    self._prefill_key(req),
+                    prefix, None if ad is None else self._lora_one(ad))
+                self._insert(ks, vs, new_pages[:region])
+                # the prefill's readback, inside the guard: a failure here
+                # fails this request alone
+                tok0 = int(tok0[0])
+        except Exception as e:
+            self._unref_pages(pages)
+            self.free_slots.append(slot)
+            self._fail_request(req, e)
+            return "failed"
+        if self.enable_prefix_cache:
+            self._index_prompt_pages(true_len, pages, n_pre, digests)
+        req.tokens = list(prompt)
+        return self._activate(slot, req, tok0)
+
+    def _prefill_key(self, req):
+        """The first token's noise key ([1] int64), None when greedy."""
+        if not req.sampling[0]:
+            return None
+        return torch.tensor([req.key_base], dtype=torch.int64,
+                            device=self.device)
+
+    def _activate(self, slot, req, tok0):
+        """The legacy admission's epilogue (monolithic prefill and the
+        chunk ladder's graduation): install the page-table row, stamp the
+        first token, join the decode group, fire the callback, and retire
+        at once on a first-token eos or an exhausted budget. Returns
+        "done" or "admitted"."""
         row = np.zeros(self.pages_per_seq, np.int32)
-        row[:len(pages)] = pages
+        row[:len(req.pages)] = req.pages
         self.page_table[slot] = row
-        self.lengths[slot] = n_pre * bs
-        self._prefilling[slot] = _PrefillState(req, pages, n_pre, digests, bs)
+        self.lengths[slot] = len(req.prompt)
+        now = time.monotonic()
+        req.t_first_token = now
+        _M_TTFT.observe(now - req.t_enqueue)
+        _M_TOKENS.inc()
+        req.tokens.append(tok0)
+        req.n_generated = 1
+        req.n_dispatched = 1
+        req.last_token = tok0
+        # registered BEFORE the callback: if it raises, cleanup finds it
+        self._active[slot] = req
         self._active_sampling = req.sampling
+        if req.adapter is not None:
+            self._slot_adapter[slot] = req.adapter
+            self._active_lora_rank = req.adapter.rank
+        if req.on_token is not None:
+            req.on_token(req.rid, tok0)
+        if (req.eos_token_id is not None and tok0 == req.eos_token_id) \
+                or req.n_generated >= req.max_new_tokens:
+            self._retire(slot)
+            return "done"
         return "admitted"
 
+    def _chunk_plan(self, suffix_len):
+        """(full_chunks, final_len, region_pages) of a chunked suffix:
+        non-final chunks are exactly ``prefill_chunk`` tokens (whole
+        pages); the final one keeps >= 1 token (its logits give the first
+        token) and pads to its own bucket."""
+        c = self.prefill_chunk
+        n_full = (suffix_len - 1) // c
+        final_len = suffix_len - n_full * c
+        region = (n_full * (c // self.page_size)
+                  + self._pages_for_bucket(prompt_bucket(final_len),
+                                           self.page_size))
+        return n_full, final_len, region
+
+    def _prefill_chunk_step(self, slot):
+        """Land ONE chunk of ``slot``'s prompt (the legacy ladder): gather
+        the pages already filled, prefill the next chunk against them,
+        insert its K/V into the next pages. The final chunk graduates the
+        request (its first token from the same key the monolithic path
+        uses). Returns "admitted", "done" or "failed" (resources freed,
+        co-tenants untouched)."""
+        st = self._prefilling[slot]
+        req = st.req
+        bs = self.page_size
+        prompt = req.prompt
+        true_len = len(prompt)
+        filled = st.filled_pages
+        done_tokens = filled * bs
+        rest = true_len - done_tokens
+        final = rest <= self.prefill_chunk
+        clen = rest if final else self.prefill_chunk
+        cbucket = prompt_bucket(clen) if final else clen
+        npg = self._pages_for_bucket(cbucket, bs)
+        sampling = req.sampling
+        ids = np.zeros((1, cbucket), np.int32)
+        ids[0, :clen] = prompt[done_tokens:done_tokens + clen]
+        progs = ([("gather", filled), ("suffix", filled, cbucket, sampling)]
+                 if filled else [("prefill", cbucket, sampling)])
+        try:
+            with self._locked_dispatch(*progs, ("insert", cbucket)):
+                prefix = (self._gather_prefix(st.pages[:filled]) if filled
+                          else None)
+                # a non-final chunk's drawn token is discarded
+                tok0, ks, vs = self._prefill(
+                    self._to_device(ids), clen, sampling,
+                    self._prefill_key(req), prefix)
+                self._insert(ks, vs, st.pages[filled:filled + npg])
+                tok0 = int(tok0[0])   # the chunk's readback, inside the guard
+        except Exception as e:
+            del self._prefilling[slot]
+            self._unref_pages(st.pages)
+            self.free_slots.append(slot)
+            self._group_done()
+            self._fail_request(req, e)
+            return "failed"
+        _M_CHUNKS.inc()
+        if not final:
+            st.filled_pages = filled + npg
+            return "admitted"
+        del self._prefilling[slot]
+        if self.enable_prefix_cache:
+            self._index_prompt_pages(true_len, st.pages, st.n_pre0,
+                                     st.digests)
+        return self._activate(slot, req, tok0)
+
+    def _advance_prefill(self):
+        """One chunk for every mid-prefill slot, between decode blocks
+        (co-admitted long prompts graduate together). Returns the requests
+        that reached a terminal state."""
+        out = []
+        for slot in list(self._prefilling):
+            req = self._prefilling[slot].req
+            if self._prefill_chunk_step(slot) in ("done", "failed"):
+                out.append(req)
+        return out
+
     def _admit_from(self, queue):
-        """Admit from the head of ``queue`` until one defers (FIFO)."""
+        """Admit from the head of ``queue`` until one defers (FIFO),
+        popping every request that reached another status."""
         while queue and self.free_slots:
             if self.try_admit_one(queue[0]) == "deferred":
                 break
             queue.popleft()
+        self._update_gauges()
 
     # ---- stepping -------------------------------------------------------------
     def step(self):
-        """One scheduling round: sweep cancellations, advance the dispatch
-        pipeline (one mixed or decode dispatch), sweep timeouts. Returns
-        the EngineRequests that reached a terminal state."""
+        """One scheduling round: sweep cancellations, (legacy) land one
+        prefill chunk per mid-prefill slot, advance the dispatch pipeline,
+        sweep timeouts. Returns the EngineRequests that reached a terminal
+        state."""
         retired = self._pending_retired
         self._pending_retired = []
         for slot in list(self._active):
@@ -588,16 +1488,25 @@ class ContinuousBatchingEngine:
         for slot in list(self._prefilling):
             if self._prefilling[slot].req.cancelled:
                 retired.append(self._abort_prefill(slot))
+        if self._ragged:
+            dispatch = self._dispatch_ragged
+        else:
+            retired.extend(self._advance_prefill())
+            dispatch = self._dispatch_decode
+
+        def busy():
+            return self._active or (self._ragged and self._prefilling)
+
         if self.async_decode:
             prev = self._inflight
             if prev is not None:
                 # enqueue block k+1 BEFORE block k's readback
-                self._inflight = self._dispatch_ragged(chain=prev)
+                self._inflight = dispatch(chain=prev)
                 retired.extend(self._process_block(prev))
-            if self._inflight is None and (self._active or self._prefilling):
-                self._inflight = self._dispatch_ragged()
-        elif self._active or self._prefilling:
-            rec = self._dispatch_ragged()
+            if self._inflight is None and busy():
+                self._inflight = dispatch()
+        elif busy():
+            rec = dispatch()
             if rec is not None:
                 retired.extend(self._process_block(rec))
         now = time.monotonic()
@@ -605,13 +1514,16 @@ class ContinuousBatchingEngine:
             r = self._active[slot]
             if r.timeout_s is not None and now - r.t_admit > r.timeout_s:
                 self.stats["timed_out_requests"] += 1
+                counters.bump("fault.serve.request_timeout")
                 r.timed_out = True
                 retired.append(self._retire(slot))
         for slot in list(self._prefilling):
             r = self._prefilling[slot].req
             if r.timeout_s is not None and now - r.t_admit > r.timeout_s:
                 self.stats["timed_out_requests"] += 1
+                counters.bump("fault.serve.request_timeout")
                 retired.append(self._abort_prefill(slot, timed_out=True))
+        self._update_gauges()
         return retired
 
     def _dispatch_ragged(self, chain=None):
@@ -711,17 +1623,27 @@ class ContinuousBatchingEngine:
         b_idx = np.clip(cu[1:] - 1, 0, T - 1)
         dev = self._to_device
         chained = bool(chain_pos)
-        blk = self._ragged_step(
-            dev(tok_block),
-            dev(np.asarray(chain_pos, np.int64)) if chained else None,
-            dev(np.asarray(chain_rows, np.int64)) if chained else None,
-            chain.last if chained else None,
-            dev(cu), dev(row_of), dev(token_pos), dev(valid),
-            dev(b_idx.astype(np.int64)), dev(self.page_table), dev(scan_pt),
-            dev(lengths_op), dev(caps), sampling,
-            *((dev(keys), dev(idxs)) if sampling[0] else (None, None)))
-        rec = self._inflight_block(blk, k, part)
+        rank = self._active_lora_rank
+        progs = [("ragged", sampling) if rank is None
+                 else ("lora_ragged", sampling, rank)]
+        if sampling[0]:
+            progs.append(("keys", k))
+        t0 = time.monotonic()
+        with self._locked_dispatch(*progs):
+            lora = self._lora_rows(part)
+            blk = self.retry_policy.run(lambda: self._ragged_step(
+                dev(tok_block),
+                dev(np.asarray(chain_pos, np.int64)) if chained else None,
+                dev(np.asarray(chain_rows, np.int64)) if chained else None,
+                chain.last if chained else None,
+                dev(cu), dev(row_of), dev(token_pos), dev(valid),
+                dev(b_idx.astype(np.int64)), dev(self.page_table),
+                dev(scan_pt), dev(lengths_op), dev(caps), sampling,
+                *((dev(keys), dev(idxs)) if sampling[0] else (None, None)),
+                lora), name="serve.decode")
+            rec = self._inflight_block(blk, k, part, t0)
         for slot, st, take, final in sched:
+            _M_CHUNKS.inc()
             st.consumed += take
             self.lengths[slot] += take
         for slot, st in grads:
@@ -746,7 +1668,10 @@ class ContinuousBatchingEngine:
     def _dispatch_decode(self, chain=None):
         """Dispatch ONE decode block over the active set without reading it
         back; ``chain`` is the in-flight block whose device-resident last
-        row feeds every slot it covered. None when nothing can dispatch."""
+        row feeds every slot it covered. The ragged plane runs k =
+        decode_block; the legacy ladder the power of two at most
+        decode_block and the largest remaining budget (async; the smallest
+        in sync mode). None when nothing can dispatch."""
         if not self._active:
             return None
         budgets = [r.max_new_tokens - r.n_dispatched
@@ -755,7 +1680,11 @@ class ContinuousBatchingEngine:
         if remaining <= 0:
             return None  # every row fully dispatched: read back, retire
         sampling = self._active_sampling
-        k = self.decode_block
+        if self._ragged:
+            k = self.decode_block
+        else:
+            k = min(self.decode_block, remaining)
+            k = 1 << (k.bit_length() - 1)
         rows = list(self._active.items())
         covered = self._covered(chain)
         S = self.max_seqs
@@ -772,30 +1701,43 @@ class ContinuousBatchingEngine:
             if sampling[0]:
                 keys[slot] = r.key_base
                 idxs[slot] = r.n_dispatched
+        dev = self._to_device
         if chain is None:
-            feed = self._to_device(toks)
+            feed = dev(toks)
         elif fresh.any():
-            feed = torch.where(self._to_device(fresh), self._to_device(toks),
-                               chain.last)
+            feed = torch.where(dev(fresh), dev(toks), chain.last)
         else:
             feed = chain.last
-        dev = self._to_device
-        blk = self._decode_block(
-            feed, dev(self.page_table), dev(self.lengths), dev(caps), sampling,
-            *((dev(keys), dev(idxs)) if sampling[0] else (None, None)))
-        rec = self._inflight_block(blk, k, rows)
+        rank = self._active_lora_rank
+        if rank is not None:
+            progs = [("lora_decode", sampling, rank) if k == 1
+                     else ("lora_block", sampling, rank, k)]
+        else:
+            progs = [("decode", sampling) if k == 1
+                     else ("block", sampling, k)]
+        if sampling[0]:
+            progs.append(("keys", k))
+        t0 = time.monotonic()
+        with self._locked_dispatch(*progs):
+            lora = self._lora_rows(rows)
+            blk = self.retry_policy.run(lambda: self._decode_block(
+                feed, dev(self.page_table), dev(self.lengths), dev(caps), k,
+                sampling,
+                *((dev(keys), dev(idxs)) if sampling[0] else (None, None)),
+                lora), name="serve.decode")
+            rec = self._inflight_block(blk, k, rows, t0)
         for slot, r in rows:
             r.n_dispatched += k
             self.lengths[slot] += k
         return rec
 
-    def _inflight_block(self, blk, k, rows):
+    def _inflight_block(self, blk, k, rows, t0):
         """Start ``blk``'s readback: a non-blocking copy into pinned memory
         and the event that marks it done (waited for at once when
         ``async_decode`` is off; nothing to wait for on the CPU)."""
         last = blk[k - 1][:, None]  # the row the NEXT block chains from
         if blk.device.type == "cpu":
-            return _InflightBlock(last, k, rows, blk, None)
+            return _InflightBlock(last, k, rows, blk, None, t0)
         host = torch.empty(blk.shape, dtype=blk.dtype, pin_memory=True)
         host.copy_(blk, non_blocking=True)
         ready = torch.cuda.Event()
@@ -803,27 +1745,34 @@ class ContinuousBatchingEngine:
         if not self.async_decode:
             ready.synchronize()
             ready = None
-        return _InflightBlock(last, k, rows, host, ready)
+        return _InflightBlock(last, k, rows, host, ready, t0)
 
     def _process_block(self, rec):
         """The readback point: block tokens reach the host, each request
         emits them, finished ones retire (mid-block EOS discards the rest
         of the block)."""
+        if self.async_decode:
+            # host time that ran while the device executed this block
+            _M_OVERLAP.observe(time.monotonic() - rec.t0)
         if rec.ready is not None:
             rec.ready.synchronize()
         block = rec.host.numpy()
+        _M_TPOT.observe((time.monotonic() - rec.t0) / rec.k)
         self.stats["decode_steps"] += rec.k
         retired = []
         for slot, r in rec.rows:
             if r.finished or self._active.get(slot) is not r:
                 continue  # retired while in flight: overshoot discarded
             if r.t_first_token is None:
+                # a ragged graduation's first token arrives here
                 r.t_first_token = time.monotonic()
+                _M_TTFT.observe(r.t_first_token - r.t_enqueue)
             for s in range(rec.k):
                 tok = int(block[s, slot])
                 r.tokens.append(tok)
                 r.n_generated += 1
                 r.last_token = tok
+                _M_TOKENS.inc()
                 if r.on_token is not None:
                     r.on_token(r.rid, tok)
                 if r.n_generated >= r.max_new_tokens or (
@@ -849,34 +1798,72 @@ class ContinuousBatchingEngine:
         """Serve a list of int32 prompt arrays; returns a list of
         [len(prompt) + n_generated] arrays (stops at eos or max_new_tokens;
         None for a request that failed alone, its error in
-        ``request_errors``). ``max_new_tokens`` is a scalar, a
-        per-request list or a complete {rid: n} dict (``_per_request``). Requests beyond the slot or page capacity queue
-        and join as earlier ones retire.
+        ``request_errors``). ``max_new_tokens`` is a scalar, a per-request
+        list or a complete {rid: n} dict (``_per_request``). Requests
+        beyond the slot or page capacity queue and join as earlier ones
+        retire.
 
         ``do_sample`` with ``temperature``, ``top_k`` and ``top_p`` samples
         (the reference's sampler); request ``rid`` draws token i from the
         noise of (seed, rid, i), so its tokens do not depend on its
-        co-tenants. ``sampling_overrides`` and ``adapters`` raise
-        NotImplementedError."""
-        if sampling_overrides is not None:
-            raise NotImplementedError(f"sampling_overrides {_LATER}")
-        if adapters is not None:
-            raise NotImplementedError(f"LoRA adapters {_LATER}")
+        co-tenants. ``sampling_overrides`` (a per-request list of dicts or
+        None, covering every request, or a sparse {rid: dict}) overrides
+        those four per request; requests sharing a sampling tuple
+        co-schedule, the others wait for the running group. ``adapters``:
+        one ``LoRAAdapter`` for every request, a per-request list (None
+        entries: the base model) covering every request, or a sparse {rid:
+        adapter} dict."""
         if self._active or self._prefilling or self._inflight is not None:
             raise RuntimeError("serve() on an engine with active requests — "
                                "drain() first")
-        sampling = canonical_sampling(do_sample, temperature, top_k, top_p)
+        default_sampling = canonical_sampling(do_sample, temperature,
+                                              top_k, top_p)
         per_new = _per_request(max_new_tokens, len(prompts), "max_new_tokens")
-        reqs = [EngineRequest(rid, p, per_new[rid], eos_token_id=eos_token_id,
-                              sampling=sampling, seed=seed,
-                              timeout_s=request_timeout_s, on_token=on_token)
-                for rid, p in enumerate(prompts)]
+        if (sampling_overrides is not None
+                and not isinstance(sampling_overrides, dict)
+                and len(sampling_overrides) != len(prompts)):
+            raise ValueError(
+                f"per-request sampling_overrides has "
+                f"{len(sampling_overrides)} entries for "
+                f"{len(prompts)} requests")
+        if (adapters is not None and isinstance(adapters, (list, tuple))
+                and len(adapters) != len(prompts)):
+            raise ValueError(
+                f"per-request adapters has {len(adapters)} entries for "
+                f"{len(prompts)} requests")
         if self.enable_prefix_cache:
             self._refresh_cache_guard()
+        reqs = []
+        for rid, p in enumerate(prompts):
+            samp = default_sampling
+            if sampling_overrides is not None:
+                ov = (sampling_overrides.get(rid)
+                      if isinstance(sampling_overrides, dict)
+                      else sampling_overrides[rid])
+                if ov:
+                    samp = canonical_sampling(
+                        ov.get("do_sample", do_sample),
+                        ov.get("temperature", temperature),
+                        ov.get("top_k", top_k), ov.get("top_p", top_p))
+            if adapters is None:
+                ad = None
+            elif isinstance(adapters, dict):
+                ad = adapters.get(rid)
+            elif isinstance(adapters, (list, tuple)):
+                ad = adapters[rid]
+            else:
+                ad = adapters
+            reqs.append(EngineRequest(
+                rid, p, per_new[rid], eos_token_id=eos_token_id,
+                sampling=samp, seed=seed, timeout_s=request_timeout_s,
+                on_token=on_token, adapter=ad))
         self.request_errors = {}
+        self._request_errors_bound = max(1024, len(prompts))
         queue = deque(reqs)
+        _M_QUEUE.set(len(queue))
         try:
             self._admit_from(queue)
+            _M_QUEUE.set(len(queue))
             while (queue or self._active or self._prefilling
                    or self._inflight is not None):
                 if not (self._active or self._prefilling
@@ -885,8 +1872,10 @@ class ContinuousBatchingEngine:
                         "serve(): admission stalled with an idle engine")
                 self.step()
                 self._admit_from(queue)
+                _M_QUEUE.set(len(queue))
             return [r.result for r in reqs]
         finally:
+            self._request_errors_bound = 1024
             # a raising on_token (or any failure) must not leak pages/slots
             self._inflight = None
             for slot in list(self._active):

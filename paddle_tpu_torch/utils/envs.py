@@ -5,8 +5,10 @@ The only module of ``paddle_tpu_torch`` that reads the environment. The
 names it is asked for switch telemetry on and set its cadence
 (``PADDLE_DYNAMICS*``, ``observability.dynamics``) or set the non-finite
 guard's tolerance and check cadence (``PADDLE_NONFINITE_TOLERANCE``,
-``PADDLE_NONFINITE_CHECK_EVERY``, ``jit_api``); none picks a kernel or
-its plain version, which the tensor's device alone decides. A garbage
+``PADDLE_NONFINITE_CHECK_EVERY``, ``jit_api``) or size the LoRA plane
+(``PADDLE_LORA_SLOTS``, ``inference.continuous``; ``PADDLE_LORA_MAX_MB``
+and ``PADDLE_LORA_CACHE_MB``, ``serving.adapters``); none picks a kernel
+or its plain version, which the tensor's device alone decides. A garbage
 value reads as the default, so a typo'd variable never stops a process.
 """
 import os

@@ -5,11 +5,13 @@ the device or the kernel.
   ``paddle_tpu``, and no module of the package or ``chip_smoke.py``
   imports either, nor reads an environment variable: only
   ``utils/envs.py`` reads one, for the dynamics telemetry's
-  ``PADDLE_DYNAMICS*`` switches and the non-finite guard's two variables
-  alone, so no variable picks a kernel or its plain version
-  (``chip_smoke.py`` may set the dynamics' switches);
-- entry points default to the card: without CUDA they raise unless the
-  caller asks for the CPU by name;
+  ``PADDLE_DYNAMICS*`` switches, the non-finite guard's two variables and
+  the LoRA plane's three sizes alone, so no variable picks a kernel, its
+  plain version or a dispatch plane (``chip_smoke.py`` may set the
+  dynamics' switches);
+- entry points (the model, the engine, the Predictor) default to the
+  card: without CUDA they raise unless the caller asks for the CPU by
+  name;
 - a kernel wrapper given a CUDA tensor launches its kernel or raises: when
   the kernel library cannot be had it raises, without running the plain
   version and without counting a launch. A stub stands in for the CUDA
@@ -37,6 +39,7 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import device
+from paddle_tpu_torch.inference import Predictor, create_predictor
 from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
 from paddle_tpu_torch.jit_api import TrainStep
 from paddle_tpu_torch.models.llama import (
@@ -134,12 +137,17 @@ def test_source_reads_no_environment_variable(path):
 
 def test_only_the_dynamics_reads_the_environment():
     """The env readers are called from ``observability/dynamics.py``, with
-    its ``PADDLE_DYNAMICS*`` names, and from ``jit_api.py`` for the
+    its ``PADDLE_DYNAMICS*`` names, from ``jit_api.py`` for the
     non-finite guard's two variables, the reference's
     ``PADDLE_NONFINITE_TOLERANCE`` and ``PADDLE_NONFINITE_CHECK_EVERY``,
-    and from nowhere else: no variable picks a kernel."""
+    and from the LoRA plane for the reference's three ``PADDLE_LORA_*``
+    sizes (``inference/continuous.py``: the adapters a decode group holds;
+    ``serving/adapters.py``: the registry's byte bounds), and from nowhere
+    else: no variable picks a kernel or a dispatch plane."""
     from paddle_tpu_torch import jit_api
+    from paddle_tpu_torch.inference import continuous
     from paddle_tpu_torch.observability import dynamics
+    from paddle_tpu_torch.serving import adapters
 
     readers = {"env_int", "env_float", "env_bool"}
     callers = set()
@@ -149,13 +157,26 @@ def test_only_the_dynamics_reads_the_environment():
                and getattr(n.func, "id", None) in readers
                for n in ast.walk(tree)):
             callers.add(path.relative_to(PKG).as_posix())
-    assert callers == {"observability/dynamics.py", "jit_api.py"}
+    assert callers == {"observability/dynamics.py", "jit_api.py",
+                       "inference/continuous.py", "serving/adapters.py"}
     names = [v for k, v in vars(dynamics).items() if k.endswith("_ENV")]
     assert len(names) == 6
     assert all(n.startswith("PADDLE_DYNAMICS") for n in names)
     guard = sorted(v for k, v in vars(jit_api).items() if k.endswith("_ENV"))
     assert guard == ["PADDLE_NONFINITE_CHECK_EVERY",
                      "PADDLE_NONFINITE_TOLERANCE"]
+    lora = sorted(v for mod in (continuous, adapters)
+                  for k, v in vars(mod).items() if k.endswith("_ENV"))
+    assert lora == ["PADDLE_LORA_CACHE_MB", "PADDLE_LORA_MAX_MB",
+                    "PADDLE_LORA_SLOTS"]
+    # the engine reads no other name (the reference's
+    # PADDLE_SERVING_RAGGED would pick the attention kernel)
+    src = (PKG / "inference" / "continuous.py").read_text()
+    assert "PADDLE_SERVING_RAGGED" not in src
+    assert [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Call)
+            and getattr(n.func, "id", None) in readers
+            and not (isinstance(n.args[0], ast.Name)
+                     and n.args[0].id == "LORA_SLOTS_ENV")] == []
 
 
 @pytest.fixture
@@ -181,6 +202,13 @@ def test_entry_points_default_to_the_card(no_cuda):
                                    device="cpu")
     out = eng.serve([np.arange(1, 6, dtype=np.int32)], max_new_tokens=2)
     assert len(out[0]) == 7
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_predictor(model)
+    pred = Predictor(model, device="cpu")
+    assert pred.run([np.arange(1, 6, dtype=np.int32)[None]])[0].shape == (
+        1, 5, 128)
 
 
 class _CudaStub:

@@ -16,7 +16,7 @@ math tiers) on the same weights.
   request's tokens are the same alone or with co-tenants, the same seed
   repeats them and another seed changes them, ``top_k=1`` equals greedy,
   and a request that samples otherwise than the running group is
-  deferred.
+  deferred; the shapes of ``sampling_overrides`` and ``adapters``.
 Each reference engine is built inside its test (it holds process-wide
 locks and registries).
 """
@@ -221,12 +221,28 @@ def test_other_sampling_is_deferred_not_mixed_in(sampled):
     assert len(eng.free_pages) == eng.num_pages - 1
 
 
-def test_unported_serve_options_raise(sampled):
-    eng, prompts, _ = sampled
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.serve(prompts, 4, sampling_overrides=[{}] * len(prompts))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.serve(prompts, 4, adapters=[None] * len(prompts))
+def test_serve_option_shapes_match_reference(models, sampled):
+    """``sampling_overrides`` and ``adapters`` (held against the reference
+    in tests/test_torch_serving_hooks.py and tests/test_torch_lora.py):
+    a list covering every request, and empty overrides or no adapters,
+    serve the default group's tokens; a short list raises the reference's
+    ValueError before any admission."""
+    jm, _ = models
+    eng, prompts, together = sampled
+    n = len(prompts)
+    greedy = eng.serve(prompts, 16)
+    _assert_same(greedy, eng.serve(prompts, 16, sampling_overrides=[{}] * n,
+                                   adapters=[None] * n))
+    _assert_same(together, eng.serve(prompts, 16, seed=1,
+                                     sampling_overrides={}, **SAMPLED))
+    ref = JaxEngine(jm, **SMALL)
+    for kw in (dict(sampling_overrides=[{}]), dict(adapters=[None])):
+        with pytest.raises(ValueError) as got:
+            eng.serve(prompts, 4, **kw)
+        with pytest.raises(ValueError) as want:
+            ref.serve(prompts, 4, **kw)
+        assert str(got.value) == str(want.value)
+    assert eng.idle()
 
 
 # ---- per-request max_new_tokens --------------------------------------------
