@@ -89,7 +89,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             split's span and one past it, the full 2048, and B 1; for K4
             an empty row, pad tokens (zeros), a fresh prefill, a chunk no
             multiple of the 64-pair tile, a chunk starting mid-page, a
-            2-token prefill and a decode row at 2048;
+            2-token prefill and a decode row at 2048; both also over
+            64-token pages (MHA), the page size slice_online serves from;
 9. k4_int8, k5_int8 — the same over int8 pools, q in bf16 and f32, and
             the same edges (``k4_int8_edges``, ``k5_int8_edges``). Each of
             k4, k5, k4_int8 and k5_int8 reports ``device_ms`` beside the
@@ -97,7 +98,7 @@ Phases, one JSON line each (any failed phase exits non-zero):
             kernel one call launches (tiles, split and merge), from
             torch.profiler's kernel events over 20 calls with the L2
             flushed before each;
-10. serve_equal — LLaMA-2-7B widths, 2 layers, f32: tokens served on the
+10. serve_equal — LLaMA-2-7B widths, 1 layer, f32: tokens served on the
             card (kernels) equal those served on the CPU (plain versions),
             in four runs: float pools greedy, int8 pools greedy, float
             pools sampled, float pools with the prefix cache;
@@ -110,7 +111,24 @@ Phases, one JSON line each (any failed phase exits non-zero):
             exported, detached and adopted by a second engine, and a
             legacy engine after warmup. The legacy runs launch K5 and no
             K4;
-11. slice — LLaMA-2-7B, full width and depth, bf16, seeded weights: 8
+10b. frontend_equal — serve_equal's model and seed at 2 layers through
+            the port's ServingFrontend, card against CPU: (a) 2 ragged replicas, 8
+            requests (4 interactive of 8-24 tokens, 4 batch of 100-300),
+            16 new each: the CPU frontend's tokens and each device's
+            single-engine serve's, each replica completing a request and
+            launching K4 and K5 (counted per dispatcher thread); (b) roles
+            prefill/decode over the spool and over the wire: (a)'s tokens,
+            handoffs published = adopted > 0, none corrupt or stale; (c)
+            serving.replica_kill mid-stream: (a)'s tokens, rerouted >= 1;
+            (d) a queue bound of 2: Overloaded for the excess, (a)'s tokens
+            for the admitted; (e) replicas that build the paged libraries
+            themselves into an empty build directory, the heartbeat
+            deadline 1.5x the longer build: their beats go stale past it
+            during the two builds, the monitor's lock probe spares them,
+            none is killed. A differing request passes
+            only at an explained near tie;
+11. slice — LLaMA-2-7B's full width at SLICE_LAYERS (16) of its 32
+            layers, bf16, seeded weights: 8
             requests through the ragged continuous-batching engine, with
             both kernels' launch counts taken over that run alone;
 12. profile — the same traffic again under torch.profiler: device time by
@@ -130,20 +148,34 @@ Phases, one JSON line each (any failed phase exits non-zero):
             plane with 4 rank-16 adapters on 6 of the 8 requests:
             tokens/s, TTFT, decode steps, peak memory, K4/K5 launches and
             the share of tokens equal to `slice`'s;
-14c. generate_equal — f32, LLaMA-2-7B widths, 2 layers: generate on the
+14c. slice_online — LLaMA-2-7B uncut (32 layers) served online through
+            the port's
+            ServingFrontend at bench_serving.py's TPU load (2 replicas of
+            max_seqs 4, page_size 64, max_len 2048, decode_block 32,
+            prefill_chunk 512; 4 batch prompts of 1024-1536 tokens with 64
+            new, 12 interactive of 8-24 with 32 new), in its `baseline`
+            (sync, monolithic prefill, ragged=False, one shared lock) and
+            `pipelined` (the defaults) modes, each with its TTFT-under-
+            prefill probe (one replica, 6 shorts behind a long prompt),
+            then its role-split block: tokens/s, TTFT p50/p99, interactive
+            TTFT p50, TPOT p50, errors (0), handoffs, K4/K5 launches per
+            mode and per replica, peak memory, and serving_report()'s
+            goodput, devprof and memory blocks (telemetry on);
+14d. generate_equal — f32, LLaMA-2-7B widths, 1 layer: generate on the
             card and on the CPU gives the same tokens: greedy (B 4,
             prompts of 100, 32 new), an attention_mask batch, sampled,
             beam K 4, speculative with a 1-layer draft (equal to each
             device's greedy), and int8 and int4 weight-only greedy with
             kernel C's exact launches; then a growing-cache decode on K1
             (exact launches, logits against the CPU and the fixed cache);
-14d. generate — LLaMA-2-7B bf16, 32 layers, bench.py run_decode's
+14e. generate — LLaMA-2-7B bf16 at GEN_LAYERS (16) of 32, bench.py
+            run_decode's
             traffic (B 8, prompts of 512, 256 new): tokens/s, decode ms a
             step, HBM share, peak memory and a profiled decode; then
             speculative with an 8-layer draft (gamma 4), beam K 4 at B 2,
             and int8 and int4 weight-only with the head kept bf16 (kernel
             C's exact launches, each profiled);
-15. train_equal — f32, LLaMA-2-7B widths, 2 layers, B 1, S 256: two
+15. train_equal — f32, LLaMA-2-7B widths, 1 layer, B 1, S 256: two
             TrainSteps on the card (kernels) and on the CPU (plain
             versions) from the same weights and batches give the same
             losses, the same gradients at every step, and parameters
@@ -162,7 +194,7 @@ Phases, one JSON line each (any failed phase exits non-zero):
             rule as in 16a; on the card the first step's loss equals the
             no-mesh loss within 1e-5 relative;
 16c. train_recipe_equal — the training recipe card against CPU: f32,
-            7B widths, 2 layers, B 1 x S 256, 4 TrainSteps under LLaMA 2's
+            7B widths, 1 layer, B 1 x S 256, 4 TrainSteps under LLaMA 2's
             AdamW, a warm-up + cosine schedule, a global-norm clip that
             clips, a dynamic loss scaler whose first step overflows and
             dynamics spilling every step: losses, gradients, parameters,
@@ -224,7 +256,8 @@ grad_norm,adamw,train_recipe_equal,train_recipe`` for the training
 recipe, ``--only wo_linear,generate_equal,generate`` for generation and
 weight-only quantization, ``--only moe_dispatch,moe_equal,moe_train,
 moe_generate`` for mixture of experts, ``--only serve_surface_equal,
-slice_surface`` for the engine's surface, with `slice` run for it): it
+slice_surface`` for the engine's surface, with `slice` run for it,
+``--only frontend_equal,slice_online`` for the serving control plane): it
 ends in a
 ``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
@@ -248,8 +281,9 @@ BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
 PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear",
           "moe_dispatch", "codec",
           "k4", "k5", "k4_int8", "k5_int8", "serve_equal",
-          "serve_surface_equal", "slice", "profile", "slice_int8",
-          "slice_sampled_prefix", "slice_surface", "generate_equal",
+          "serve_surface_equal", "frontend_equal", "slice", "profile",
+          "slice_int8", "slice_sampled_prefix", "slice_surface",
+          "slice_online", "generate_equal",
           "generate",
           "train_equal", "train_packed_equal",
           "train_equal_s1024", "train_cp_equal", "train_recipe_equal",
@@ -257,8 +291,18 @@ PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear",
           "train_gqa", "train_recipe", "moe_train", "moe_generate")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
-PAGES_PER_SEQ = MAX_LEN // BS
-NUM_PAGES = 1 + MAX_SEQS * PAGES_PER_SEQ
+#: depth cuts that keep the call inside its 1200 s budget on a slow host
+#: (one whose host-bound phases run 1.5x longer), made when
+#: frontend_equal and slice_online joined it: the f32 card-vs-CPU serving
+#: and generation phases (serve_equal, serve_surface_equal,
+#: generate_equal) at 1 layer of 2; the `slice` family (slice, profile,
+#: slice_int8, slice_sampled_prefix, slice_surface) and `generate` at 16
+#: layers of 32. slice_online keeps all 32, and the training *_equal
+#: phases their 2 (at 1 layer train_equal's parameter rule leaves an
+#: element it cannot explain)
+EQUAL_LAYERS = 1
+SLICE_LAYERS = 16
+GEN_LAYERS = 16
 
 
 T0 = time.perf_counter()
@@ -358,20 +402,22 @@ def compare(name, got, want, valid_rows):
     return float(err.max())
 
 
-def pools(gen, hkv, dtype, d=D):
+def pools(gen, hkv, dtype, d=D, bs=BS):
     import torch
 
-    shape = (hkv, NUM_PAGES, BS, d)
+    shape = (hkv, 1 + MAX_SEQS * (MAX_LEN // bs), bs, d)
     return (torch.randn(shape, generator=gen, device="cuda").to(dtype),
             torch.randn(shape, generator=gen, device="cuda").to(dtype))
 
 
-def page_table(rng):
+def page_table(rng, bs=BS):
     import numpy as np
     import torch
 
-    perm = rng.permutation(np.arange(1, NUM_PAGES)).astype(np.int32)
-    return torch.from_numpy(perm.reshape(MAX_SEQS, PAGES_PER_SEQ)).cuda()
+    pages_per_seq = MAX_LEN // bs
+    perm = rng.permutation(np.arange(1, 1 + MAX_SEQS * pages_per_seq))
+    return torch.from_numpy(perm.astype(np.int32).reshape(
+        MAX_SEQS, pages_per_seq)).cuda()
 
 
 def bound(nbytes, ops, dtype):
@@ -381,13 +427,13 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def int8_pools(gen, hkv, d=D):
+def int8_pools(gen, hkv, d=D, bs=BS):
     """An int8 K/V pool pair: seeded f32 rows quantized on the card."""
     import torch
 
     from paddle_tpu_torch.ops.quantization import quantize_pages
 
-    kf, vf = pools(gen, hkv, torch.float32, d)
+    kf, vf = pools(gen, hkv, torch.float32, d, bs)
     return quantize_pages(kf), quantize_pages(vf)
 
 
@@ -410,6 +456,8 @@ def same_bits(name, fn):
 
 EDGE_CONFIGS = (   # (hkv, hq, d): groups 1, 2, 4, 8 and head dim 64
     (32, 32, 128), (16, 32, 128), (8, 32, 128), (4, 32, 128), (8, 32, 64))
+#: the page size of bench_serving.py's TPU configuration (slice_online)
+BS_WIDE = 64
 
 
 def pool_runs(pool):
@@ -422,13 +470,14 @@ def pool_runs(pool):
     return (getattr(torch, pool),)
 
 
-def make_pools(gen, hkv, pool, d=D):
-    """A K/V pool pair of type ``pool`` (int8, bfloat16, float32)."""
+def make_pools(gen, hkv, pool, d=D, bs=BS):
+    """A K/V pool pair of type ``pool`` (int8, bfloat16, float32) of
+    ``bs``-token pages."""
     import torch
 
     if pool == "int8":
-        return int8_pools(gen, hkv, d)
-    return pools(gen, hkv, getattr(torch, pool), d)
+        return int8_pools(gen, hkv, d, bs)
+    return pools(gen, hkv, getattr(torch, pool), d, bs)
 
 
 def pool_label(pool):
@@ -441,7 +490,8 @@ def k5_edges(seed, pool):
     version within TOLERANCE, every output finite: per group and head dim,
     rows of length 1 (frozen at page 0), bs, bs + 1, a split's span and one
     past it, two spans and a few, the full MAX_LEN and one in between;
-    then B 1. Returns one row per case."""
+    then B 1; then the MHA rows over 64-token pages (``BS_WIDE``, the page
+    size slice_online serves from). Returns one row per case."""
     import numpy as np
     import torch
 
@@ -450,18 +500,19 @@ def k5_edges(seed, pool):
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    cases = [(c, False) for c in EDGE_CONFIGS] + [((32, 32, 128), True)]
-    for (hkv, hq, d), single in cases:
-        splits, per = pa.kv_split_plan(PAGES_PER_SEQ, hkv,
+    cases = ([(c, False, BS) for c in EDGE_CONFIGS]
+             + [((32, 32, 128), True, BS), ((32, 32, 128), False, BS_WIDE)])
+    for (hkv, hq, d), single, bs in cases:
+        splits, per = pa.kv_split_plan(MAX_LEN // bs, hkv,
                                        pa.num_sms(torch.device("cuda")))
-        span = per * BS
-        kp, vp = make_pools(gen, hkv, pool, d)
-        pt = page_table(rng)
+        span = per * bs
+        kp, vp = make_pools(gen, hkv, pool, d, bs)
+        pt = page_table(rng, bs)
         if single:      # B 1
             lengths = np.array([1337], np.int32)
             pt = pt[:1].contiguous()
         else:
-            lengths = np.array([1, BS, BS + 1, span, span + 1,
+            lengths = np.array([1, bs, bs + 1, span, span + 1,
                                 min(2 * span + 5, MAX_LEN), MAX_LEN, 700],
                                np.int32)
             pt[0] = 0   # the frozen row reads the scratch page
@@ -475,8 +526,9 @@ def k5_edges(seed, pool):
             torch.cuda.synchronize()
             want = pa._paged_math(q, kp, vp, lens, pt, scale)
             case = (f"k5 edge hkv={hkv} hq={hq} d={d} B={len(lengths)}"
-                    f" {dtype}{pool_label(pool)}")
+                    f" bs={bs} {dtype}{pool_label(pool)}")
             rows.append({"case": case, "lengths": lengths.tolist(),
+                         "page_size": bs,
                          "splits": splits, "pages_per_split": per,
                          "max_abs_err": compare(case, got, want,
                                                 len(lengths))})
@@ -491,7 +543,8 @@ def k4_edges(seed, pool):
     stream holding a decode row at MAX_LEN, an empty row, a fresh prefill
     (kv_len = q_len = 100), a chunk of 77 tokens (no multiple of a tile), a
     40-token chunk starting mid-page (kv 1010), a short decode row, a
-    2-token prefill, and 3 pad tokens. Returns one row per case."""
+    2-token prefill, and 3 pad tokens; then the MHA stream over 64-token
+    pages (``BS_WIDE``). Returns one row per case."""
     import numpy as np
     import torch
 
@@ -506,9 +559,10 @@ def k4_edges(seed, pool):
     n_valid = int(cu[-1])
     T = n_valid + 3
     rows = []
-    for hkv, hq, d in EDGE_CONFIGS:
-        kp, vp = make_pools(gen, hkv, pool, d)
-        pt = page_table(rng)
+    cases = [(c, BS) for c in EDGE_CONFIGS] + [((32, 32, 128), BS_WIDE)]
+    for (hkv, hq, d), bs in cases:
+        kp, vp = make_pools(gen, hkv, pool, d, bs)
+        pt = page_table(rng, bs)
         q32 = torch.randn((T, hq, d), generator=gen, device="cuda")
         args_i = (torch.from_numpy(kv_lens).cuda(), pt,
                   torch.from_numpy(cu).cuda())
@@ -518,12 +572,14 @@ def k4_edges(seed, pool):
             got = rpa.ragged_paged_attention(q, kp, vp, *args_i)
             torch.cuda.synchronize()
             want = rpa._ragged_math(q, kp, vp, *args_i, scale)
-            case = f"k4 edge hkv={hkv} hq={hq} d={d} {dtype}{pool_label(pool)}"
+            case = (f"k4 edge hkv={hkv} hq={hq} d={d} bs={bs} "
+                    f"{dtype}{pool_label(pool)}")
             err = compare(case, got, want, n_valid)
             if (got[n_valid:] != 0).any():
                 raise AssertionError(f"{case}: pad tokens not zero")
             rows.append({"case": case, "q_lens": q_lens.tolist(),
                          "kv_lens": kv_lens.tolist(), "T": T,
+                         "page_size": bs,
                          "max_abs_err": err})
         del kp, vp
     return rows
@@ -765,6 +821,8 @@ def _reset_counts():
     paged_decode_attention.launches = 0
     ragged_paged_attention.launches_int8 = 0
     paged_decode_attention.launches_int8 = 0
+    ragged_paged_attention.launches_by_thread.clear()
+    paged_decode_attention.launches_by_thread.clear()
 
 
 FLOAT_KERNELS = ("ragged_paged_attention", "paged_decode_attention")
@@ -814,10 +872,11 @@ def prefix_logits(model, tokens, kv_cache_dtype):
     from paddle_tpu_torch.ops.ragged_paged_attention import RaggedLayerCache
 
     dev = next(model.parameters()).device
-    eng = ContinuousBatchingEngine(model, max_seqs=1, page_size=BS,
-                                   max_len=256, kv_cache_dtype=kv_cache_dtype,
-                                   device=str(dev))
     n = len(tokens)
+    eng = ContinuousBatchingEngine(model, max_seqs=1, page_size=BS,
+                                   max_len=max(256, -(-n // BS) * BS),
+                                   kv_cache_dtype=kv_cache_dtype,
+                                   device=str(dev))
     npages = -(-n // BS)
     table = torch.zeros((1, eng.pages_per_seq), dtype=torch.int32)
     table[0, :npages] = torch.arange(1, npages + 1)
@@ -876,7 +935,7 @@ def perturbed_copy(model):
 
 
 def phase_serve_equal(seed=3):
-    """f32, LLaMA-2-7B widths, 2 layers: the same prompts served on the
+    """f32, LLaMA-2-7B widths, 1 layer: the same prompts served on the
     card and on the CPU give the same token ids, in four runs: float pools
     greedy; int8 pools greedy; float pools sampled (temperature 0.8, top-p
     0.9, seed 0); float pools with the prefix cache, over two serve()
@@ -891,7 +950,7 @@ def phase_serve_equal(seed=3):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
     cfg = llama2_7b()
-    cfg.num_hidden_layers = 2
+    cfg.num_hidden_layers = EQUAL_LAYERS
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     rng = np.random.RandomState(seed)
@@ -933,7 +992,7 @@ def phase_serve_equal(seed=3):
             secs.append(time.perf_counter() - t0)
         got, want = outs
         same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
-        row = {"phase": "serve_equal", "run": name, "layers": 2,
+        row = {"phase": "serve_equal", "run": name, "layers": EQUAL_LAYERS,
                "dtype": "float32",
                "prompt_lens": [len(p) for b in batches for p in b],
                "new_tokens": 16, "identical": same, "kernels": counts,
@@ -1029,7 +1088,8 @@ def _timed_serve(eng, prompts, new_tokens, ttfts=None, **serve_kw):
 
 def phase_slice(model, seed=0, new_tokens=64, kv_cache_dtype=None,
                 reference=None):
-    """LLaMA-2-7B, full width and depth, bf16, seeded weights: 8 requests
+    """LLaMA-2-7B's full width at SLICE_LAYERS of 32 layers, bf16, seeded
+    weights: 8 requests
     of 32-1024 prompt tokens and 64 new tokens each, greedy. With
     ``kv_cache_dtype="int8"`` (phase `slice_int8`) the pools are int8 and
     ``prefill_chunk`` is left out (the int8 engine refuses it; its ragged
@@ -1053,7 +1113,7 @@ def phase_slice(model, seed=0, new_tokens=64, kv_cache_dtype=None,
     out, wall, ttft, counts = _timed_serve(eng, prompts, new_tokens)
     check_launches(counts, int8)
     row = {"phase": "slice_int8" if int8 else "slice", "model": "llama2_7b",
-           "layers": 32, "dtype": "bfloat16",
+           "layers": model.config.num_hidden_layers, "dtype": "bfloat16",
            "kv_cache_dtype": "int8" if int8 else "bfloat16",
            "max_seqs": MAX_SEQS, "page_size": BS, "max_len": MAX_LEN,
            "decode_block": 8, "prefill_chunk": None if int8 else CHUNK,
@@ -1118,7 +1178,8 @@ def phase_slice_sampled_prefix(model, seed=0, new_tokens=64):
     check_launches(counts, int8=False)
     hits = eng.stats["prefix_hit_pages"] - hits0
     row = {"phase": "slice_sampled_prefix", "model": "llama2_7b",
-           "layers": 32, "dtype": "bfloat16", "max_seqs": MAX_SEQS,
+           "layers": model.config.num_hidden_layers, "dtype": "bfloat16",
+           "max_seqs": MAX_SEQS,
            "page_size": BS, "max_len": MAX_LEN, "decode_block": 8,
            "prefill_chunk": CHUNK, "sampling": sampled,
            "system_prompt": len(system), "first_prompt": len(first),
@@ -1175,7 +1236,7 @@ def _surface_adapter(rng, name, rank, hidden, vocab, scale=1.0):
 
 
 def phase_serve_surface_equal(seed=3):
-    """f32, LLaMA-2-7B widths, 2 layers, ``serve_equal``'s prompt draw: the
+    """f32, LLaMA-2-7B widths, 1 layer, ``serve_equal``'s prompt draw: the
     engine's surface card vs CPU. Token ids identical (int8 pools: or the
     first differing token at an explained near tie) in: the legacy ladder
     (``ragged=False``) greedy over float and int8 pools; the legacy ladder
@@ -1200,7 +1261,7 @@ def phase_serve_surface_equal(seed=3):
     from paddle_tpu_torch.serving import LoRAAdapter
 
     cfg = llama2_7b()
-    cfg.num_hidden_layers = 2
+    cfg.num_hidden_layers = EQUAL_LAYERS
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     rng = np.random.RandomState(seed)
@@ -1255,7 +1316,8 @@ def phase_serve_surface_equal(seed=3):
         got, want = outs
         card_out[name] = got
         same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
-        row = {"phase": "serve_surface_equal", "run": name, "layers": 2,
+        row = {"phase": "serve_surface_equal", "run": name,
+               "layers": EQUAL_LAYERS,
                "dtype": "float32", "ragged": ragged,
                "prompt_lens": [len(p) for b in batches for p in b],
                "new_tokens": 16, "identical": same, "kernels": counts,
@@ -1423,7 +1485,8 @@ def _surface_row(run, eng, prompts, out, wall, ttft, counts, reference,
     ref_row, ref_out = reference
     gen = [(o[len(p):], r[len(p):]) for p, o, r in zip(prompts, out, ref_out)]
     return {"phase": "slice_surface", "run": run, "model": "llama2_7b",
-            "layers": 32, "dtype": "bfloat16", "ragged": eng._ragged,
+            "layers": eng.model.config.num_hidden_layers,
+            "dtype": "bfloat16", "ragged": eng._ragged,
             "prefill_chunk": eng.prefill_chunk, "decode_block": 8,
             "prompt_lens": [len(p) for p in prompts],
             "new_tokens": new_tokens, "wall_s": wall,
@@ -3223,7 +3286,7 @@ def _planted_faults(amp, opt):
 def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
                  grad_tol=1e-4, outlier_share=1e-5, context_parallel=False,
                  sep=1, oracle_tol=1e-5, amplified=False, cfg=None):
-    """f32, LLaMA-2-7B widths, 2 layers, fused CE, recompute "full": one
+    """f32, LLaMA-2-7B widths, 1 layer, fused CE, recompute "full": one
     TrainStep per batch on the card (kernels) and on the CPU (plain
     versions) from the same weights, every gradient handed to the optimizer
     kept (``packed``: batches of ids, segment ids and labels through
@@ -3284,9 +3347,10 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     t_cpu = time.perf_counter() - t0 - t_gpu
     path = ("k3" if packed else "ulysses" if context_parallel == "ulysses"
             else "ring" if context_parallel else "k1")
-    want = _expected_counts(2, len(batches), len(list(
+    L = cfg.num_hidden_layers
+    want = _expected_counts(L, len(batches), len(list(
         cpu_model.parameters())), path, sep, forwards=1 if moe else 2,
-        moe_layers=2 if moe else 0)
+        moe_layers=L if moe else 0)
     routing = _routing_report(routes) if moe else None
     if context_parallel:
         oracle["cp_loss"] = gpu[0]
@@ -3309,7 +3373,7 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     n_el = sum(p.numel() for p in cpu_model.parameters())
     outliers = sum(r["outliers"] for r in per.values())
     unexplained = outliers - sum(r["explained"] for r in per.values())
-    row = {"phase": phase, "layers": 2, "dtype": "float32",
+    row = {"phase": phase, "layers": L, "dtype": "float32",
            "B": batches[0][0].shape[0], "S": batches[0][0].shape[1],
            "context_parallel": context_parallel, "sep": sep,
            "oracle": oracle or None,
@@ -4262,7 +4326,7 @@ GEN_EQUAL_NEW = 32
 
 
 def phase_generate_equal(seed=19):
-    """f32, LLaMA-2-7B widths, 2 layers (the draft 1): the card's tokens
+    """f32, LLaMA-2-7B widths, 1 layer (the draft too): the card's tokens
     equal the CPU's in every generate path: greedy at B 4 with prompts of
     100 tokens and 32 new, an attention_mask batch (rows of 60-100
     tokens, padded right and left), sampled (temperature 0.8, top-k 40,
@@ -4283,7 +4347,7 @@ def phase_generate_equal(seed=19):
     from paddle_tpu_torch.nn.quant import quantize_for_inference
 
     cfg = llama2_7b()
-    cfg.num_hidden_layers = 2
+    cfg.num_hidden_layers = EQUAL_LAYERS
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     dcfg = llama2_7b()
@@ -4338,7 +4402,8 @@ def phase_generate_equal(seed=19):
             secs.append(time.perf_counter() - t0)
         got, want = outs
         same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
-        row = {"phase": "generate_equal", "run": name, "layers": 2,
+        row = {"phase": "generate_equal", "run": name,
+               "layers": EQUAL_LAYERS,
                "dtype": "float32", "B": got.shape[0],
                "new_tokens": got.shape[1] - ids.shape[1],
                "identical": same, "kernels": counts, "gpu_s": secs[0],
@@ -4518,13 +4583,13 @@ def _decode_row(phase, model, ids, **kw):
 
 
 def phase_generate(seed=0):
-    """LLaMA-2-7B bf16, 32 layers, nothing cut, bench.py run_decode's
+    """LLaMA-2-7B bf16 at GEN_LAYERS of 32 layers, bench.py run_decode's
     traffic: B 8, prompts of 512, 256 new tokens, greedy: tokens/s, decode
     ms a step, HBM share, peak memory. Then speculative with an 8-layer
     draft of the same widths (run_spec_decode's layers // 4) and gamma 4:
     tokens/s, accepted tokens a round, the share of tokens equal to the
     greedy run's; beam search K 4 at B 2; int8 and int4 weight-only with
-    the head kept bf16 (bench.py:350): kernel C launches exactly 7 x 32
+    the head kept bf16 (bench.py:350): kernel C launches exactly 7 a layer
     per decode forward, the prefill takes the plain form, and one short
     decode is profiled for the idle share and kernel C's share of the
     device time, the prefill alone beside it (each dtype's copy kernels
@@ -4536,8 +4601,9 @@ def phase_generate(seed=0):
     from paddle_tpu_torch.nn.quant import quantize_for_inference
 
     def build():
-        return LlamaForCausalLM(llama2_7b(dtype="bfloat16"), device="cuda",
-                                seed=seed)
+        cfg = llama2_7b(dtype="bfloat16")
+        cfg.num_hidden_layers = GEN_LAYERS
+        return LlamaForCausalLM(cfg, device="cuda", seed=seed)
 
     model = build()
     rng = np.random.RandomState(seed)
@@ -5218,6 +5284,590 @@ def phase_moe_generate(model, seed=23):
     return {"generate": row, "engine": serve}
 
 
+FE_NEW = 16            # frontend_equal's new tokens a request
+FE_ENGINE = dict(max_seqs=4, page_size=BS, max_len=512, decode_block=8)
+FE_CHUNK = 64
+
+
+def _handoff_counts():
+    from paddle_tpu_torch.observability.metrics import registry
+
+    return {k: int(getattr(registry.get(f"serving.handoff.{k}"), "value", 0)
+                   or 0)
+            for k in ("published", "adopted", "corrupt", "stale",
+                      "initiated")}
+
+
+def _serving_counter(name):
+    from paddle_tpu_torch.observability.metrics import registry
+
+    return int(getattr(registry.get(name), "value", 0) or 0)
+
+
+def _thread_counts(ident):
+    """K4's and K5's launches (float and int8 pools) made by thread
+    ``ident``: a replica's dispatcher."""
+    from paddle_tpu_torch.ops.paged_attention import paged_decode_attention
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    out = {}
+    for fn in (ragged_paged_attention, paged_decode_attention):
+        for attr, sfx in (("launches", ""), ("launches_int8", "_int8")):
+            out[fn.__name__ + sfx] = fn.launches_by_thread.get(
+                (attr, ident), 0)
+    return out
+
+
+def fe_load(seed, vocab):
+    """frontend_equal's open-loop load: 4 `batch` prompts of 100-300 tokens
+    and 4 `interactive` of 8-24, interleaved (batch first)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    batch = [rng.randint(1, vocab, int(rng.randint(100, 301)))
+             .astype(np.int32) for _ in range(4)]
+    inter = [rng.randint(1, vocab, int(rng.randint(8, 25)))
+             .astype(np.int32) for _ in range(4)]
+    load = []
+    for b, i in zip(batch, inter):
+        load += [(b, "batch"), (i, "interactive")]
+    return load
+
+
+def fe_engines(model, device, n=2, **kw):
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    knobs = dict(FE_ENGINE, prefill_chunk=FE_CHUNK, **kw)
+    return [ContinuousBatchingEngine(model, device=device, **knobs)
+            for _ in range(n)]
+
+
+def fe_run(engines, load, new=FE_NEW, before_start=None, timeout=60,
+           **fe_kw):
+    """Serve ``load`` through a ServingFrontend over ``engines``: submit
+    every request open loop, then wait for each result (``timeout`` s
+    bound each). ``before_start(frontend)`` runs after the submits and before
+    the dispatchers start (with it the frontend is built stopped).
+    Returns (outputs, per-replica rows, frontend report)."""
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    start = before_start is None
+    with ServingFrontend(engines, heartbeat_deadline_s=fe_kw.pop(
+            "heartbeat_deadline_s", 120.0), start=start, **fe_kw) as fe:
+        handles = [fe.submit(p, new, slo_class=slo) for p, slo in load]
+        if not start:
+            before_start(fe)
+            fe.start()
+        outs = [h.result(timeout=timeout) for h in handles]
+        reps = {r.name: {"state": r.state,
+                         "completed": sum(h.replica == r.name
+                                          for h in handles),
+                         "thread": r.thread_ident}
+                for r in fe.replicas}
+        report = fe.serving_report()
+    for rep in reps.values():
+        rep["kernels"] = _thread_counts(rep.pop("thread"))
+    return outs, reps, report
+
+
+def _near_tie_check(name, got, want, gpu_model, cpu_model):
+    """Requests of ``got`` equal to ``want``, or differing first at an
+    explained near tie (``explain_divergences``); raises otherwise."""
+    import numpy as np
+
+    same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+    div = (explain_divergences(gpu_model, cpu_model, got, want, None)
+           if not all(same) else [])
+    ok = [s or any(d["request"] == i and d["explained"] for d in div)
+          for i, s in enumerate(same)]
+    if not all(ok):
+        raise AssertionError(
+            f"frontend_equal {name}: tokens differ beyond near ties {div}: "
+            + json.dumps([[g.tolist(), w.tolist()]
+                          for g, w, s in zip(got, want, ok) if not s]))
+    return {"identical": same, "divergences": div}
+
+
+def fe_cold_build(load, gpu_model, cpu_model, want, build_s):
+    """A frontend whose replicas build both paged libraries themselves:
+    the build directory is a fresh, empty one, so each replica's first
+    dispatch waits for `nvcc` under `_COMPILE_LOCK`, one library after the
+    other. The heartbeat deadline is 1.5x the longer build (``build_s``:
+    each library's seconds in the build phase; where that phase found a
+    library built already, both are built once more to time them): every
+    single hold of the lock stays younger than the deadline while a
+    replica's beat goes stale past it (the two builds' sum), so the
+    monitor must spare the replicas through its lock probe (the frontend's
+    default misses and a 1 s check), kill none, and the requests complete
+    with (a)'s tokens."""
+    import tempfile
+    from pathlib import Path
+
+    from paddle_tpu_torch.observability import compilemem
+    from paddle_tpu_torch.ops import _build
+
+    libs = ("ragged_paged_attention", "paged_attention")
+    old_dir = _build.BUILD_DIR
+    try:
+        if not all(build_s.get(n) for n in libs):
+            _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="build_probe_"))
+            build_s = {n: b["seconds"] for n, b in _build.build(libs).items()}
+        _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="build_cold_"))
+        for n in libs:
+            _build._LIBS.pop(n, None)
+        deadline = 1.5 * max(build_s[n] for n in libs)
+        dead0 = _serving_counter("serving.replica_dead")
+        spared0 = _serving_counter("serving.replica_spared")
+        builds0 = {n: compilemem.ledger.report()["by_key"].get(
+            f"build.{n}", {}).get("count", 0) for n in libs}
+        t0 = time.perf_counter()
+        outs, reps, _ = fe_run(fe_engines(gpu_model, "cuda"), load,
+                               timeout=600, heartbeat_deadline_s=deadline,
+                               monitor_interval_s=1.0)
+        wall = time.perf_counter() - t0
+    finally:
+        _build.BUILD_DIR = old_dir
+    builds = {n: compilemem.ledger.report()["by_key"][f"build.{n}"]
+              ["count"] - builds0[n] for n in libs}
+    row = {"run": "cold_build",
+           "build_phase_s": {n: build_s[n] for n in libs},
+           "heartbeat_deadline_s": deadline, "wall_s": wall,
+           "builds": builds,
+           "replicas_dead": _serving_counter("serving.replica_dead") - dead0,
+           "stale_checks_spared":
+               _serving_counter("serving.replica_spared") - spared0,
+           "replicas": reps,
+           **_near_tie_check("cold_build", outs, want, gpu_model, cpu_model)}
+    if row["replicas_dead"] or any(b != 1 for b in builds.values()):
+        raise AssertionError(f"frontend_equal cold_build: {row}")
+    if not row["stale_checks_spared"]:
+        raise AssertionError(
+            "frontend_equal cold_build: no stale heartbeat was spared, so "
+            f"the run did not exercise the lock probe: {row}")
+    return row
+
+
+def phase_frontend_equal(build_s, seed=3):
+    """f32, LLaMA-2-7B widths, 2 layers, serve_equal's seed: the port's
+    ServingFrontend on the card against the same frontend on the CPU.
+    (a) blended over 2 ragged engines (async, prefill_chunk 64), 8
+    requests (4 interactive of 8-24 tokens, 4 batch of 100-300) of 16 new
+    tokens: equal to the CPU frontend's and to each device's single-engine
+    serve; each replica completes a request and launches K4 and K5. (b)
+    roles prefill/decode over the spool transport and over the wire: (a)'s
+    tokens, handoffs published == adopted > 0, none corrupt or stale. (c)
+    serving.replica_kill armed once mid-stream: (a)'s tokens, >= 1
+    reroute. (d) a queue bound of 2: the excess submits get Overloaded,
+    the admitted requests (a)'s tokens. (e) ``fe_cold_build``. The CPU
+    side of (a) runs on a thread of its own during (e), whose replicas
+    mostly wait for `nvcc` (after (c), whose chaos plan is process-wide),
+    with two cores left to the builds. Every comparison passes a
+    differing request only at an explained near tie: the schedule decides
+    who shares a batch."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.serving import (
+        HandoffManager, Overloaded, SLOScheduler, make_transport,
+    )
+    from paddle_tpu_torch.testing import chaos
+
+    cfg = llama2_7b()
+    cfg.num_hidden_layers = 2
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    load = fe_load(seed, cfg.vocab_size)
+    prompts = [p for p, _ in load]
+    rows = []
+
+    # (a) blended on the card, and the card's single-engine serve; the CPU
+    # side comes after (d)
+    _reset_counts()
+    t0 = time.perf_counter()
+    card, reps, report = fe_run(fe_engines(gpu_model, "cuda"), load)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_serve = fe_engines(gpu_model, "cuda", n=1)[0].serve(prompts,
+                                                             FE_NEW)
+    blended = {"phase": "frontend_equal", "run": "blended", "layers": 2,
+               "dtype": "float32",
+               "prompt_lens": [len(p) for p in prompts],
+               "classes": [c for _, c in load], "new_tokens": FE_NEW,
+               "card_s": card_s, "replicas": reps,
+               "vs_card_serve": _near_tie_check(
+                   "blended vs card serve", card, card_serve, gpu_model,
+                   cpu_model),
+               "report_keys": sorted(report),
+               "counters": report["counters"]}
+    for name, rep in reps.items():
+        k = rep["kernels"]
+        if (rep["completed"] < 1 or k["ragged_paged_attention"] < 1
+                or k["paged_decode_attention"] < 1):
+            raise AssertionError(f"frontend_equal blended: replica {name} "
+                                 f"completed or launched nothing: {reps}")
+
+    # (b) role split over the spool and the wire
+    for kind in ("spool", "wire"):
+        h0 = _handoff_counts()
+        tr = (HandoffManager(spool_dir=tempfile.mkdtemp(prefix="handoff_"))
+              if kind == "spool" else make_transport("wire"))
+        # decode_block 4: a request's first readback leaves it tokens to
+        # hand off (with 8, async decode finishes 16 on the prefill side)
+        outs, reps_b, _ = fe_run(
+            fe_engines(gpu_model, "cuda", decode_block=4), load,
+            roles=["prefill", "decode"], handoff=tr)
+        h = {k: v - h0[k] for k, v in _handoff_counts().items()}
+        row = {"phase": "frontend_equal", "run": f"roles_{kind}",
+               "handoff": h, "replicas": reps_b,
+               **_near_tie_check(f"roles_{kind}", outs, card, gpu_model,
+                                 cpu_model)}
+        emit(row)
+        rows.append(row)
+        if not (h["published"] == h["adopted"] > 0
+                and h["corrupt"] == h["stale"] == 0):
+            raise AssertionError(f"frontend_equal roles_{kind}: {h}")
+
+    # (c) a replica killed mid-stream
+    rerouted0 = _serving_counter("serving.rerouted")
+    dead0 = _serving_counter("serving.replica_dead")
+    plan = chaos.FaultPlan().fail("serving.replica_kill", after=4, times=1)
+    try:
+        outs, reps_c, _ = fe_run(fe_engines(gpu_model, "cuda"), load,
+                                 before_start=lambda fe: chaos.arm(plan))
+    finally:
+        chaos.disarm()
+    row = {"phase": "frontend_equal", "run": "replica_kill",
+           "rerouted": _serving_counter("serving.rerouted") - rerouted0,
+           "replicas_dead": _serving_counter("serving.replica_dead") - dead0,
+           "fired": plan.rules[0].fired, "replicas": reps_c,
+           **_near_tie_check("replica_kill", outs, card, gpu_model,
+                             cpu_model)}
+    emit(row)
+    rows.append(row)
+    if row["rerouted"] < 1 or row["replicas_dead"] != 1:
+        raise AssertionError(f"frontend_equal replica_kill: {row}")
+
+    # (d) overload: a queue bound of 2, submitted before the dispatchers
+    # start, so the bound is met deterministically
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    shed, admitted = [], []
+    with ServingFrontend(fe_engines(gpu_model, "cuda"),
+                         scheduler=SLOScheduler(max_queue_depth=2),
+                         heartbeat_deadline_s=120.0, start=False) as fe:
+        for i, (p, slo) in enumerate(load):
+            try:
+                admitted.append((i, fe.submit(p, FE_NEW, slo_class=slo)))
+            except Overloaded as e:
+                shed.append({"request": i, "slo_class": e.slo_class,
+                             "step": e.step,
+                             "retry_after_s": e.retry_after_s})
+        fe.start()
+        outs = [h.result(timeout=60) for _, h in admitted]
+    row = {"phase": "frontend_equal", "run": "overload",
+           "admitted": [i for i, _ in admitted], "shed": shed,
+           **_near_tie_check("overload", outs, [card[i] for i, _ in admitted],
+                             gpu_model, cpu_model)}
+    emit(row)
+    rows.append(row)
+    if len(admitted) != 2 or len(shed) != len(load) - 2:
+        raise AssertionError(f"frontend_equal overload: {row}")
+
+    # (a)'s CPU side, the CPU frontend and the CPU single-engine serve, on
+    # a thread of its own while (e)'s replicas build their kernels
+    cpu = {}
+
+    def cpu_side():
+        try:
+            t0 = time.perf_counter()
+            cpu["frontend"], _, _ = fe_run(fe_engines(cpu_model, "cpu"),
+                                           load, timeout=600)
+            cpu["frontend_s"] = time.perf_counter() - t0
+            cpu["serve"] = fe_engines(cpu_model, "cpu", n=1)[0].serve(
+                prompts, FE_NEW)
+        except Exception as e:  # noqa: BLE001 - raised below
+            cpu["error"] = e
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))
+    worker = threading.Thread(target=cpu_side, name="frontend-equal-cpu")
+    worker.start()
+    try:
+        # (e) replicas that build their kernels themselves
+        cold = fe_cold_build(load, gpu_model, cpu_model, card, build_s)
+    finally:
+        worker.join(900)
+        torch.set_num_threads(threads)
+    if worker.is_alive() or "error" in cpu:
+        raise AssertionError(f"frontend_equal: the CPU side failed: "
+                             f"{cpu.get('error', 'still running')}")
+    blended.update(
+        cpu_s=cpu["frontend_s"],
+        vs_cpu_frontend=_near_tie_check(
+            "blended vs CPU frontend", card, cpu["frontend"], gpu_model,
+            cpu_model),
+        cpu_frontend_vs_cpu_serve=_near_tie_check(
+            "CPU frontend vs CPU serve", cpu["frontend"], cpu["serve"],
+            gpu_model, cpu_model))
+    emit(blended)
+    rows.insert(0, blended)
+    row = {"phase": "frontend_equal", **cold}
+    emit(row)
+    rows.append(row)
+    del gpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: bench_serving.py's TPU serving configuration (:524-527), at LLaMA-2-7B
+ONLINE = dict(max_seqs=4, page_size=64, max_len=2048, decode_block=32,
+              prefill_chunk=512, n_replicas=2, n_batch=4, n_interactive=12,
+              n_probe=6, long_lo=1024, long_hi=1536, batch_new=64,
+              inter_new=32)
+
+
+def _percentile(xs, q):
+    """bench_serving.py's nearest-rank percentile."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(round(q * (len(xs) - 1)))))]
+
+
+def online_load(rng, vocab, knobs=ONLINE):
+    """bench_serving.py's ``_mixed_load``: ``n_batch`` long `batch` prompts
+    and ``n_interactive`` short `interactive` ones, interleaved."""
+    reqs = [(rng.randint(1, vocab, (int(rng.randint(
+        knobs["long_lo"], knobs["long_hi"])),)).astype("int32"),
+        knobs["batch_new"], "batch") for _ in range(knobs["n_batch"])]
+    inter = [(rng.randint(1, vocab, (int(rng.randint(8, 24)),))
+              .astype("int32"), knobs["inter_new"], "interactive")
+             for _ in range(knobs["n_interactive"])]
+    out, bi, ii = [], 0, 0
+    while bi < len(reqs) or ii < len(inter):
+        if bi < len(reqs):
+            out.append(reqs[bi])
+            bi += 1
+        for _ in range(max(1, len(inter) // max(1, len(reqs)))):
+            if ii < len(inter):
+                out.append(inter[ii])
+                ii += 1
+    return out
+
+
+def online_engines(model, mode, n, knobs=ONLINE):
+    """bench_serving.py's ``_make_engines``: `baseline` is sync decode,
+    monolithic prefill, the legacy ladder (ragged=False) and one dispatch
+    lock shared by the replicas; `pipelined` the defaults (ragged, async,
+    chunked prefill, a lock per engine)."""
+    from paddle_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine, _StampedRLock,
+    )
+
+    kw = dict(max_seqs=knobs["max_seqs"], page_size=knobs["page_size"],
+              max_len=knobs["max_len"], decode_block=knobs["decode_block"],
+              device="cuda")
+    if mode == "baseline":
+        shared = _StampedRLock()
+        return [ContinuousBatchingEngine(
+            model, async_decode=False, prefill_chunk=None,
+            dispatch_lock=shared, ragged=False, **kw) for _ in range(n)]
+    return [ContinuousBatchingEngine(
+        model, async_decode=True, prefill_chunk=knobs["prefill_chunk"], **kw)
+        for _ in range(n)]
+
+
+def online_run(fe, requests):
+    """bench_serving.py's ``_run_load``: submit open loop, join in order;
+    latency from the engine's own stamps. (records, wall)."""
+    records = []
+    t0 = time.monotonic()
+    handles = [(fe.submit(p, n, slo_class=slo), p, slo)
+               for p, n, slo in requests]
+    for h, prompt, slo in handles:
+        rec = {"slo": slo, "n": 0, "ttft": None, "tpot": None,
+               "error": None}
+        try:
+            out = h.result(timeout=600)
+            req = h._req
+            rec["n"] = len(out) - len(prompt)
+            rec["ttft"] = req.t_first_token - req.t_enqueue
+            if rec["n"] > 1:
+                rec["tpot"] = ((req.t_done - req.t_first_token)
+                               / (rec["n"] - 1))
+        except Exception as e:  # noqa: BLE001 - a failure is data here
+            rec["error"] = f"{type(e).__name__}: {e}"
+        records.append(rec)
+    return records, time.monotonic() - t0
+
+
+def online_summary(records, wall):
+    """bench_serving.py's ``_summarize``."""
+    ttft = [r["ttft"] for r in records if r["ttft"] is not None]
+    inter = [r["ttft"] for r in records
+             if r["ttft"] is not None and r["slo"] == "interactive"]
+    tpot = [r["tpot"] for r in records if r["tpot"] is not None]
+    tokens = sum(r["n"] for r in records)
+    return {"tokens": tokens, "tokens_per_sec": tokens / max(wall, 1e-9),
+            "wall_s": wall, "ttft_p50_s": _percentile(ttft, 0.5),
+            "ttft_p99_s": _percentile(ttft, 0.99),
+            "ttft_interactive_p50_s": _percentile(inter, 0.5),
+            "tpot_p50_s": _percentile(tpot, 0.5),
+            "errors": sum(1 for r in records if r["error"]),
+            "error_messages": [r["error"] for r in records if r["error"]]}
+
+
+def online_mode(model, mode, seed, knobs=ONLINE):
+    """One configuration: warmed engines under the mixed load over two
+    replicas (the launches and peak memory of that run, and the frontend's
+    goodput, devprof and memory blocks), then the TTFT-under-prefill probe
+    on the first of them: a long prompt alone, the shorts submitted once
+    its prefill has been admitted. The pipelined mode's engines then run
+    the role-split block (``online_roles``)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(seed)
+    load = online_load(rng, vocab, knobs)
+    long_p = rng.randint(1, vocab, (knobs["long_hi"],)).astype(np.int32)
+    shorts = [(rng.randint(1, vocab, (int(rng.randint(8, 24)),))
+               .astype(np.int32), knobs["inter_new"], "interactive")
+              for _ in range(knobs["n_probe"])]
+    gc.collect()
+    engines = online_engines(model, mode, knobs["n_replicas"], knobs)
+    t0 = time.perf_counter()
+    for e in engines:
+        e.warmup(buckets=sorted({len(p) for p, _, _ in load}
+                                | {len(long_p)}
+                                | {len(p) for p, _, _ in shorts}))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with ServingFrontend(engines, heartbeat_deadline_s=600.0) as fe:
+        records, wall = online_run(fe, load)
+        torch.cuda.synchronize()
+        counts = _counts()
+        per_replica = {r.name: _thread_counts(r.thread_ident)
+                       for r in fe.replicas}
+        report = fe.serving_report()
+    del fe
+    row = {"phase": "slice_online", "mode": mode,
+           "requests": len(load), "warmup_s": warmup_s,
+           **online_summary(records, wall), "kernels": counts,
+           "replica_kernels": per_replica,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decode_steps": [e.stats["decode_steps"] for e in engines],
+           "goodput": report["goodput"], "devprof": report["devprof"],
+           "memory": {k: v for k, v in report["memory"].items()
+                      if k != "programs"},
+           "cost_rows": report["memory"]["programs"],
+           "compile_events": report["compile"]["events"]}
+    # the TTFT-under-prefill probe, one replica
+    with ServingFrontend(engines[:1], heartbeat_deadline_s=600.0) as fe:
+        h_long = fe.submit(long_p, knobs["batch_new"], slo_class="batch")
+        t1 = time.monotonic()
+        while (any(r.pending for r in fe.replicas)
+               and time.monotonic() - t1 < 10):
+            time.sleep(0.0005)
+        recs, _ = online_run(fe, shorts)
+        h_long.result(timeout=600)
+    del fe
+    ttfts = [r["ttft"] for r in recs if r["ttft"] is not None]
+    row["ttft_under_prefill_p50_s"] = _percentile(ttfts, 0.5)
+    row["probe_errors"] = sum(1 for r in recs if r["error"])
+    roles = online_roles(engines, seed, knobs) if mode == "pipelined" else None
+    engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, roles
+
+
+def online_roles(engines, seed, knobs=ONLINE):
+    """bench_serving.py's role-split block (:326-370) on the pipelined
+    engines: 4 interactive prompts, generations long enough to outlive
+    the first decode blocks, through one prefill and one decode replica;
+    the handoff counters."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    rng = np.random.RandomState(seed + 29)
+    vocab = engines[0].model.config.vocab_size
+    new = max(knobs["inter_new"], 4 * knobs["decode_block"] + 2)
+    shorts = [(rng.randint(1, vocab, (int(rng.randint(8, 24)),))
+               .astype(np.int32), new, "interactive") for _ in range(4)]
+    h0 = _handoff_counts()
+    with ServingFrontend(engines, roles=["prefill", "decode"],
+                         heartbeat_deadline_s=600.0) as fe:
+        records, wall = online_run(fe, shorts)
+    ttfts = [r["ttft"] for r in records if r["ttft"] is not None]
+    return {"phase": "slice_online", "mode": "roles",
+            "tokens": sum(r["n"] for r in records),
+            "errors": sum(1 for r in records if r["error"]),
+            "error_messages": [r["error"] for r in records if r["error"]],
+            "wall_s": wall, "ttft_p50_s": _percentile(ttfts, 0.5),
+            "handoff": {k: v - h0[k] for k, v in _handoff_counts().items()}}
+
+
+def phase_slice_online(model, seed=0):
+    """LLaMA-2-7B bf16, 32 layers (nothing cut), served online through
+    the port's ServingFrontend at bench_serving.py's TPU load shape: 2
+    replicas sharing the model (max_seqs 4, page_size 64, max_len 2048,
+    decode_block 32, prefill_chunk 512), 4 batch prompts of 1024-1536
+    tokens with 64 new and 12 interactive of 8-24 with 32 new,
+    interleaved, once in each mode (`baseline`, `pipelined`), each with
+    its TTFT-under-prefill probe on the mode's first engine; then the
+    role-split block on the pipelined engines. Telemetry is on throughout
+    (spans, request traces, goodput, devprof at its default cadence), for
+    both modes alike. No limit: bring-up."""
+    from paddle_tpu_torch.observability import devprof, tracing
+
+    tracing.enable()
+    devprof.enable()
+    try:
+        rows = {}
+        rows["baseline"], _ = online_mode(model, "baseline", seed)
+        rows["pipelined"], rows["roles"] = online_mode(model, "pipelined",
+                                                       seed)
+    finally:
+        devprof.disable()
+        tracing.disable()
+    for r in rows.values():
+        emit(r)
+    base, pipe = rows["baseline"], rows["pipelined"]
+    ratio = pipe["tokens_per_sec"] / max(base["tokens_per_sec"], 1e-9)
+    emit({"phase": "slice_online", "pipelined_vs_baseline": ratio})
+    errors = [(m, r.get("error_messages")) for m, r in rows.items()
+              if r["errors"] or r.get("probe_errors")]
+    if errors:
+        raise AssertionError(f"slice_online: requests failed: {errors}")
+    k = base["kernels"]
+    if not (k["paged_decode_attention"] > 0
+            and k["ragged_paged_attention"] == 0):
+        raise AssertionError(f"slice_online baseline launches: {k}")
+    k = pipe["kernels"]
+    if not (k["paged_decode_attention"] > 0
+            and k["ragged_paged_attention"] > 0):
+        raise AssertionError(f"slice_online pipelined launches: {k}")
+    h = rows["roles"]["handoff"]
+    if not (h["published"] == h["adopted"] > 0
+            and h["corrupt"] == h["stale"] == 0):
+        raise AssertionError(f"slice_online roles handoff: {h}")
+    rows["ratio"] = ratio
+    return rows
+
+
 def kernel_table(rows):
     """The contract's kernel line, from the phases that ran: every entry's
     launches over the main path (serving's `slice`, `slice_int8` for the
@@ -5266,7 +5916,12 @@ def kernel_table(rows):
                       # the legacy ladder (K5 alone), warmup and LoRA
                       "slice_surface_launches": {
                           r["run"]: r["kernels"][name]
-                          for r in rows.get("slice_surface", [])}})
+                          for r in rows.get("slice_surface", [])},
+                      # the online serve's two modes, through the frontend
+                      "slice_online_launches": {
+                          m: rows["slice_online"][m]["kernels"][name]
+                          for m in ("baseline", "pipelined")
+                          if "slice_online" in rows}})
     errs = {"fwd": ("o",), "bwd_delta": ("delta",), "bwd_dkdv": ("dk", "dv"),
             "bwd_dq": ("dq",)}
     for entry, keys in errs.items():
@@ -5567,14 +6222,18 @@ def main(argv=None):
         phase_serve_equal()
     if runs("serve_surface_equal"):
         rows["serve_surface_equal"] = phase_serve_surface_equal()
+    if runs("frontend_equal"):
+        rows["frontend_equal"] = phase_frontend_equal(
+            {n: b["seconds"] for n, b in built.items()})
     serving = [p for p in ("slice", "profile", "slice_int8",
-                           "slice_sampled_prefix", "slice_surface")
-               if runs(p)]
+                           "slice_sampled_prefix", "slice_surface",
+                           "slice_online") if runs(p)]
     if serving:
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
-        model = LlamaForCausalLM(llama2_7b(dtype="bfloat16"), device="cuda",
-                                 seed=0)
+        cfg = llama2_7b(dtype="bfloat16")
+        cfg.num_hidden_layers = SLICE_LAYERS
+        model = LlamaForCausalLM(cfg, device="cuda", seed=0)
         ref = None
         if runs("slice") or runs("profile") or runs("slice_surface"):
             # slice_surface continues slice's model and outputs
@@ -5591,15 +6250,34 @@ def main(argv=None):
             rows["slice_sampled_prefix"] = phase_slice_sampled_prefix(model)
         if runs("slice_surface"):
             rows["slice_surface"] = phase_slice_surface(model, ref)
-        # free the serving model and engines before training
+        if runs("slice_online"):
+            # the whole depth: slice_online serves LLaMA-2-7B uncut
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = LlamaForCausalLM(llama2_7b(dtype="bfloat16"),
+                                     device="cuda", seed=0)
+            rows["slice_online"] = phase_slice_online(model)
+        # free the serving model and engines before training; cuBLAS
+        # keeps a workspace for each (thread handle, stream) it ran on,
+        # in the caching allocator (every engine runs on a stream of its
+        # own, from a dispatcher thread): a cache, cleared like the
+        # allocator's own
         del model
         gc.collect()
+        cached = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
-        emit({"phase": "free_serving", "allocated_gb": held / 1e9})
+        emit({"phase": "free_serving", "allocated_gb": held / 1e9,
+              "cublas_workspaces_gb": (cached - held) / 1e9})
         if held >= 1e9:
+            blocks = sorted(
+                ((b["size"], seg["stream"]) for seg in
+                 torch.cuda.memory_snapshot() for b in seg["blocks"]
+                 if b["state"] == "active_allocated"), reverse=True)[:20]
             raise AssertionError(f"serving left {held / 1e9:.2f} GB "
-                                 "allocated")
+                                 f"allocated; largest blocks {blocks}")
     if runs("generate_equal"):
         rows["generate_equal"] = phase_generate_equal()
     if runs("generate"):

@@ -55,16 +55,30 @@ The online hooks (``try_admit_one``, ``step``, ``drain``, ``idle``,
 ``active_count``, ``has_free_slot``, ``active_prefills``) and the handoff
 hooks (``export_pages``, ``detach_request``, ``adopt_request``) are the
 reference's. Each device section holds the engine's ``dispatch_lock`` (a
-``_StampedRLock``, shareable between engines). The ``serve.*`` metrics go
-to ``observability.metrics.registry``. Tracing, chaos sites, device
-profiling, goodput and the compile ledger come with the serving control
-plane (ROADMAP.md).
+``_StampedRLock``, shareable between engines); a kernel library's first
+build holds the process-wide ``_COMPILE_LOCK`` (``ops/_build.py``), so the
+serving frontend's monitor spares a dispatcher that builds. On the card
+every engine runs its device work on a CUDA stream of its own (entered by
+each public hook), so engines driven from different threads share no
+stream: a readback waits for its own engine's blocks only. Nothing crosses
+between two engines' streams: a handoff's pages travel as host arrays.
+
+The reference's telemetry seams are kept under its names: the ``serve.*``
+metrics, thread spans (``serve.prefill``, ``serve.decode``,
+``serve.decode.sync``, ``serve.emit``, ``serve.adopt``, ``serve.admit``),
+request-trace spans under the frontend's attempt span (``req.trace``),
+the chaos sites ``serve.prefill`` (a failed prefill retires its own slot
+alone) and ``serve.decode`` (inside the decode dispatch's bounded retry),
+the serving goodput split, the device-time plane (``PADDLE_DEVPROF``), the
+compile ledger (a program family's first dispatch, keyed as the
+reference's programs are) and OOM forensics.
 """
+import functools
 import hashlib
 import threading
 import time
 from collections import OrderedDict, deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -73,11 +87,16 @@ from ..device import resolve
 from ..generation import (
     _make_sampler, gumbel_noise, prompt_bucket, request_keys,
 )
+from ..observability import compilemem as _compilemem
+from ..observability import devprof as _devprof
+from ..observability import goodput as _goodput
+from ..observability import tracing as _trace
 from ..observability.metrics import registry as _registry
 from ..ops import _build
 from ..ops.paged_attention import PagedLayerCache
 from ..ops.quantization import QuantizedTensor, is_quantized, quantize_to_int8
 from ..ops.ragged_paged_attention import RaggedLayerCache
+from ..testing import chaos
 from ..utils.envs import env_int
 from ..utils.metrics_bus import counters
 from ..utils.retry import RetryPolicy
@@ -123,9 +142,10 @@ class _StampedRLock:
     (``participants``), so a monitor can tell a dispatcher queued behind a
     long hold from one wedged elsewhere (the reference's lock)."""
 
-    __slots__ = ("_lock", "_depth", "_since", "_holder", "_waiters")
+    __slots__ = ("name", "_lock", "_depth", "_since", "_holder", "_waiters")
 
-    def __init__(self):
+    def __init__(self, name=None):
+        self.name = name
         self._lock = threading.RLock()
         self._depth = 0
         self._since = None     # monotonic start of the outermost hold
@@ -182,6 +202,41 @@ class _StampedRLock:
         return out
 
 
+#: Process-wide compile lock (the reference's): held around every first
+#: build of a kernel library (``ops/_build.py``'s build lock sits inside
+#: it). A frontend drives one engine per dispatcher thread; a build takes
+#: seconds, and the frontend's liveness monitor spares a dispatcher that
+#: holds or waits for this lock (or its engine's ``dispatch_lock``) under
+#: a hold younger than the heartbeat deadline.
+_COMPILE_LOCK = _StampedRLock(name="inference.compile_lock")
+
+
+def _on_engine_stream(fn):
+    """Run an engine hook's device work on the engine's own CUDA stream
+    (nothing to do on the CPU)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        if self._stream is None:
+            return fn(self, *args, **kwargs)
+        with torch.cuda.stream(self._stream):
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+def _joined(fn):
+    """An engine hook after which the caller's stream sees the engine's
+    work (the batch-level calls: ``serve``, ``warmup``, ``drain``)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            if self._stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._stream)
+    return wrapper
+
+
 #: canonical greedy sampling tuple: every greedy request shares it,
 #: whatever knob values were passed
 GREEDY_SAMPLING = (False, 1.0, 0, 1.0)
@@ -222,7 +277,7 @@ class EngineRequest:
                  "tokens", "n_generated", "n_dispatched", "last_token",
                  "pages", "slot", "key_base", "t_enqueue", "t_admit",
                  "t_first_token", "t_done", "error", "result", "finished",
-                 "timed_out", "cancelled")
+                 "timed_out", "cancelled", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id=None,
                  sampling=GREEDY_SAMPLING, seed=0, timeout_s=None,
@@ -258,6 +313,10 @@ class EngineRequest:
         self.finished = False
         self.timed_out = False
         self.cancelled = False    # honoured at the next step
+        # request-scoped tracing: the frontend's per-attempt span; the
+        # engine's admit/prefill/decode spans nest under it (a clone gets
+        # the new attempt's span from the frontend)
+        self.trace = None
 
     @property
     def error_message(self):
@@ -303,17 +362,19 @@ class _InflightBlock:
     """A dispatched block not yet read back: its device-resident last-step
     row (the next block's feed), the slot→request rows frozen at dispatch,
     the host copy of the [k, max_seqs] token block with the event that
-    marks it complete (None once complete), and the dispatch time."""
+    marks it complete (None once complete), the dispatch time, and whether
+    the dispatch ran a program family for the first time."""
 
-    __slots__ = ("last", "k", "rows", "host", "ready", "t0")
+    __slots__ = ("last", "k", "rows", "host", "ready", "t0", "cold")
 
-    def __init__(self, last, k, rows, host, ready, t0):
+    def __init__(self, last, k, rows, host, ready, t0, cold=False):
         self.last = last
         self.k = k
         self.rows = rows
         self.host = host
         self.ready = ready
         self.t0 = t0
+        self.cold = cold   # a first dispatch: goodput counts it as compile
 
 
 class ContinuousBatchingEngine:
@@ -336,6 +397,10 @@ class ContinuousBatchingEngine:
                  async_decode=True, dispatch_lock=None, ragged=None,
                  device="cuda"):
         dev = resolve(device)
+        # device-time profiling plane: PADDLE_DEVPROF=1 samples one timed
+        # decode dispatch per cadence window; disabled, the dispatch path
+        # pays one is-None check
+        _devprof.arm_from_env()
         if kv_cache_dtype not in (None, "model", "int8"):
             raise ValueError(f"unsupported kv_cache_dtype {kv_cache_dtype!r}")
         if prefill_chunk and kv_cache_dtype == "int8":
@@ -378,6 +443,30 @@ class ContinuousBatchingEngine:
             return torch.zeros(shape, dtype=param.dtype, device=self.device)
 
         self.pools = [(pool(), pool()) for _ in range(cfg.num_hidden_layers)]
+        # the engine's own stream: its device work never queues behind
+        # another engine's (a replica driven by another thread). The
+        # weights and the zeroed pools were written on the creating
+        # stream, so the engine's stream starts after them.
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        # the analytic cost of a serve dispatch (devprof's roofline join):
+        # the matmul parameters (all but the embedding table) and their
+        # bytes, read once per forward pass, and the pool bytes of one
+        # token's K and V across the layers
+        emb = model.llama.embed_tokens.weight if getattr(
+            model, "llama", None) is not None else None
+        params = [p for p in model.parameters() if p is not emb]
+        self._param_count = sum(p.numel() for p in params)
+        self._param_bytes = sum(p.numel() * p.element_size() for p in params)
+        kv_elem = (1 + 4 / cfg.head_dim if kv_cache_dtype == "int8"
+                   else param.element_size())
+        self._kv_token_bytes = (2 * cfg.num_hidden_layers
+                                * cfg.num_key_value_heads * cfg.head_dim
+                                * kv_elem)
+        self._attn_dims = (cfg.num_hidden_layers * cfg.num_attention_heads
+                           * cfg.head_dim)
         self.free_pages = list(range(1, self.num_pages))  # page 0 = scratch
         self.free_slots = list(range(max_seqs))
         self.page_table = np.zeros((max_seqs, self.pages_per_seq), np.int32)
@@ -436,6 +525,33 @@ class ContinuousBatchingEngine:
         self._pages_in_use = 0
         self._cache_weights_version = None
         self.warmup_build_s = 0.0  # the kernel builds warmup() paid
+        # whether the last _locked_dispatch section ran a program family
+        # for the first time (goodput counts its wall as compile)
+        self._last_dispatch_cold = False
+        # device-memory budget and OOM forensics: the KV pools are a
+        # component of the budget, and an OOM report says what the engine
+        # was serving. Both registrations are weak: a dropped engine
+        # vanishes from the reports.
+        _compilemem.memory.register_component_provider(
+            "kv_pool", self, "pool_bytes")
+        _compilemem.register_oom_context(
+            "serving_engine", self, "_oom_context")
+
+    def _oom_context(self):
+        """Serving-state snapshot for the OOM report."""
+        return {
+            "active_slots": len(self._active),
+            "prefilling_slots": len(self._prefilling),
+            "max_seqs": self.max_seqs,
+            "pages_in_use": self._pages_in_use,
+            "free_pages": len(self.free_pages),
+            "evictable_pages": len(self._evictable),
+            "num_pages": self.num_pages,
+            "page_size": self.page_size,
+            "pool_bytes": self.pool_bytes(),
+            "inflight_block": self._inflight is not None,
+            "stats": dict(self.stats),
+        }
 
     # ---- page allocator and prefix cache ----------------------------------
     def pool_bytes(self):
@@ -565,10 +681,102 @@ class ContinuousBatchingEngine:
         """A device section under the engine's ``dispatch_lock``. ``keys``
         name the reference's program families the section runs (e.g.
         ("prefill", bucket, sampling)); they join ``_warm`` once the
-        section succeeds."""
-        with self.dispatch_lock:
-            yield
-        self._warm.update(keys)
+        section succeeds. A section that runs a family for the first time
+        is a compile in the compile ledger (one event per cold family,
+        under its reference program key) and sets
+        ``_last_dispatch_cold``. An exception out of the section passes
+        OOM forensics (the ``obs.oom`` chaos site injects one) before it
+        re-raises."""
+        cold = [k for k in keys if k not in self._warm]
+        self._last_dispatch_cold = bool(cold)
+        t0 = time.perf_counter()
+        try:
+            with self.dispatch_lock:
+                chaos.site("obs.oom")
+                yield
+        except Exception as e:
+            for k in cold:
+                _compilemem.ledger.record(self._ledger_key(k),
+                                          time.perf_counter() - t0, error=e)
+            _compilemem.maybe_oom_report(
+                e, program=self._ledger_key(keys[0]) if keys else None)
+            raise
+        wall = time.perf_counter() - t0
+        for k in cold:
+            _compilemem.ledger.record(self._ledger_key(k), wall)
+        self._warm.update(cold)
+        for family in {k[0] for k in cold}:
+            _compilemem.ledger.note_cache_size(
+                f"serve.{family}", sum(1 for k in self._warm
+                                       if k[0] == family))
+
+    def _ledger_key(self, key):
+        """The reference's compile-ledger key of program family ``key``."""
+        kind, *a = key
+        fmt = {
+            "prefill": lambda b, s: f"serve.prefill[b{b},s{s}]",
+            "suffix": lambda n, b, s: f"serve.suffix[p{n},b{b},s{s}]",
+            "gather": lambda n: f"serve.gather[p{n}]",
+            "insert": lambda b: f"serve.insert[b{b}]",
+            "decode": lambda s: f"serve.decode[s{s}]",
+            "block": lambda s, k: f"serve.decode_block[k{k},s{s}]",
+            "ragged": lambda s: f"serve.ragged[k{self.decode_block},s{s}]",
+            "keys": lambda k: "serve.keys_from_base",
+            "lora_prefill": lambda b, s, r:
+                f"serve.lora_prefill[r{r},b{b},s{s}]",
+            "lora_suffix": lambda n, b, s, r:
+                f"serve.lora_suffix[r{r},p{n},b{b},s{s}]",
+            "lora_decode": lambda s, r: f"serve.lora_decode[r{r},s{s}]",
+            "lora_block": lambda s, r, k:
+                f"serve.lora_decode_block[r{r},k{k},s{s}]",
+            "lora_ragged": lambda s, r:
+                f"serve.lora_ragged[r{r},k{self.decode_block},s{s}]",
+        }[kind]
+        return fmt(*a)
+
+    @staticmethod
+    def _rtrace_annotation(req):
+        """``record_function("rtrace:<trace id>")`` while a torch profiler
+        records and the request is traced: the device trace's join key to
+        the request's trace (the reference's profiler annotation)."""
+        if req.trace is None or not _trace._profiler_recording():
+            return nullcontext()
+        return torch.profiler.record_function(
+            f"rtrace:{req.trace.ctx.trace_id}")
+
+    # ---- device-time sampling -----------------------------------------------
+    def _devprof_start(self):
+        """The start event of a dispatch devprof may sample (recorded on
+        the engine's stream), or None (disarmed, or the CPU)."""
+        if _devprof._PLANE is None or self._stream is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _devprof_tick(self, key, t0, start, passes, tokens, cold):
+        """Tick the devprof plane for one warm dispatch of program ``key``
+        (the reference's ledger key; ``tokens`` as the reference counts
+        them) after noting its analytic cost: ``passes`` lists each
+        forward pass's rows as (query tokens, keys before the first)."""
+        dp = _devprof._PLANE
+        if dp is None or cold:
+            return
+        flops = nbytes = 0
+        for rows in passes:
+            n = sum(q for q, _ in rows)
+            # query i of a row at position p0 + i sees p0 + i + 1 keys
+            pairs = sum(q * p0 + q * (q + 1) // 2 for q, p0 in rows)
+            kv = sum(p0 + q for q, p0 in rows)
+            flops += 2 * self._param_count * n + 4 * self._attn_dims * pairs
+            nbytes += self._param_bytes + self._kv_token_bytes * kv
+        _compilemem.memory.note_cost(key, flops=flops, nbytes=nbytes)
+        events = None
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events = (start, end)
+        dp.tick(key, t0, events, tokens=tokens, context="serve.decode")
 
     # ---- device programs ----------------------------------------------------
     def _draw(self, logits, sampling, keys, idx):
@@ -831,6 +1039,8 @@ class ContinuousBatchingEngine:
         return None
 
     # ---- warmup -------------------------------------------------------------
+    @_joined
+    @_on_engine_stream
     def warmup(self, prompt_lens=None, do_sample=False, temperature=1.0,
                top_k=0, top_p=1.0, shared_prefix_lens=(), buckets=None,
                sampling=None, lora_ranks=()):
@@ -862,19 +1072,22 @@ class ContinuousBatchingEngine:
             configs = [tuple(s) for s in sampling]
         t_warm0 = time.monotonic()
         try:
-            if self.device.type == "cuda":
-                # the libraries the dispatches can launch: K5's, and K4's
-                # on the ragged plane
-                t0 = time.monotonic()
-                _build.library("paged_attention")
-                if self._ragged:
-                    _build.library("ragged_paged_attention")
-                self.warmup_build_s += time.monotonic() - t0
-            for cfg in configs:
-                self._warmup_one(prompt_lens, shared_prefix_lens, *cfg)
-            for rank in lora_ranks:
+            # ledger trigger scope: the builds and first dispatches inside
+            # warmup are deliberate, not cold-path stalls
+            with _compilemem.ledger.trigger("warmup"):
+                if self.device.type == "cuda":
+                    # the libraries the dispatches can launch: K5's, and
+                    # K4's on the ragged plane
+                    t0 = time.monotonic()
+                    _build.library("paged_attention")
+                    if self._ragged:
+                        _build.library("ragged_paged_attention")
+                    self.warmup_build_s += time.monotonic() - t0
                 for cfg in configs:
-                    self._warmup_lora(prompt_lens, int(rank), *cfg)
+                    self._warmup_one(prompt_lens, shared_prefix_lens, *cfg)
+                for rank in lora_ranks:
+                    for cfg in configs:
+                        self._warmup_lora(prompt_lens, int(rank), *cfg)
         finally:
             _M_WARMUP.observe(time.monotonic() - t_warm0)
 
@@ -1033,12 +1246,15 @@ class ContinuousBatchingEngine:
             self._inflight = None
             self._pending_retired.extend(self._process_block(rec))
 
+    @_on_engine_stream
     def export_pages(self, slot):
         """``slot``'s KV pages on the host for a handoff bundle:
         ``{"n_pages", "ks", "vs"}`` with dense ``[L, n * bs, Hkv, D]``
         numpy arrays (bf16 pools export as float32, exactly). Float pools
         only (TypeError for int8, as the reference's). None when the
-        request finished while the in-flight block settled."""
+        request finished while the in-flight block settled. The arrays are
+        on the host: an adopting engine copies them onto its own stream,
+        so no device tensor crosses between two engines' streams."""
         self._settle_inflight()
         req = self._active.get(slot)
         if req is None or req.finished:
@@ -1066,6 +1282,7 @@ class ContinuousBatchingEngine:
         self._group_done()
         return req
 
+    @_on_engine_stream
     def adopt_request(self, req, payloads):
         """Admission twin for a handed-off request: scatter its exported
         pages into this pool and register it mid-decode. Returns
@@ -1099,10 +1316,11 @@ class ContinuousBatchingEngine:
         self.stats["peak_pages"] = max(self.stats["peak_pages"],
                                        self._pages_in_use)
         try:
-            with self._locked_dispatch(("insert", n * self.page_size)):
-                self._insert(torch.as_tensor(payloads["ks"]).to(self.device),
-                             torch.as_tensor(payloads["vs"]).to(self.device),
-                             pages)
+            with self._locked_dispatch(("insert", n * self.page_size)), \
+                    _trace.span("serve.adopt"), self._rtrace_annotation(req):
+                chaos.site("serve.prefill")
+                self._insert(self._to_device(payloads["ks"]),
+                             self._to_device(payloads["vs"]), pages)
         except Exception as e:  # fail this request alone, free everything
             self._unref_pages(pages)
             self.free_slots.append(slot)
@@ -1201,6 +1419,7 @@ class ContinuousBatchingEngine:
         return self._pages_for_bucket(prompt_bucket(suffix_len),
                                       self.page_size)
 
+    @_on_engine_stream
     def try_admit_one(self, req):
         """Non-blocking admission of one EngineRequest. Returns "admitted"
         (drive it with step()), "done" (the legacy prefill's first token
@@ -1231,6 +1450,9 @@ class ContinuousBatchingEngine:
                 if ad.digest not in digs and len(digs) >= self._lora_slots:
                     return "deferred"
         _M_REQUESTS.inc()
+        # request-scoped trace: the admission span nests under the
+        # frontend's attempt span; every return below closes it
+        adm = req.trace.child("admit") if req.trace is not None else None
         prompt = req.prompt
         true_len = len(prompt)
         bucket = prompt_bucket(true_len)
@@ -1238,11 +1460,15 @@ class ContinuousBatchingEngine:
             self._fail_request(req, ValueError(
                 f"request {req.rid}: len {true_len} (bucket {bucket}) + "
                 f"{req.max_new_tokens} exceeds max_len={self.max_len}"))
+            if adm is not None:
+                adm.end("error", error=req.error_message)
             return "failed"
         if ad is not None:
             err = self._lora_reject(ad)
             if err is not None:
                 self._fail_request(req, err)
+                if adm is not None:
+                    adm.end("error", error=req.error_message)
                 return "failed"
         bs = self.page_size
         if self.enable_prefix_cache:
@@ -1274,8 +1500,12 @@ class ContinuousBatchingEngine:
                     f"request {req.rid} needs more pages than the pool holds "
                     f"({true_len}+{req.max_new_tokens} tokens vs "
                     f"{(self.num_pages - 1) * bs} pool tokens)"))
+                if adm is not None:
+                    adm.end("error", error=req.error_message)
                 return "failed"
             self.stats["deferred_admissions"] += 1
+            if adm is not None:  # each deferred probe shows in the trace
+                adm.end("deferred", need_pages=total_need - n_pre)
             return "deferred"
         if self.enable_prefix_cache:
             # the hit rate's denominator, once per admission
@@ -1306,6 +1536,9 @@ class ContinuousBatchingEngine:
                                                    digests, bs)
             self._active_sampling = sampling
             if not self._ragged:
+                if adm is not None:
+                    adm.end("ok", slot=slot, pages=len(pages),
+                            prefix_hit_pages=n_pre, chunked=True)
                 # the first chunk dispatches here
                 return self._prefill_chunk_step(slot)
             row = np.zeros(self.pages_per_seq, np.int32)
@@ -1315,6 +1548,9 @@ class ContinuousBatchingEngine:
             if ad is not None:
                 self._slot_adapter[slot] = ad
                 self._active_lora_rank = ad.rank
+            if adm is not None:
+                adm.end("ok", slot=slot, pages=len(pages),
+                        prefix_hit_pages=n_pre, ragged=True)
             return "admitted"
         sbucket = prompt_bucket(suffix_len)
         ids_p = np.zeros((1, sbucket), np.int32)
@@ -1327,8 +1563,11 @@ class ContinuousBatchingEngine:
                       ("lora_suffix", n_pre, sbucket, sampling, ad.rank)]
                      if n_pre
                      else [("lora_prefill", sbucket, sampling, ad.rank)])
+        t_p0 = time.monotonic()
         try:
-            with self._locked_dispatch(*progs, ("insert", sbucket)):
+            with self._locked_dispatch(*progs, ("insert", sbucket)), \
+                    _trace.span("serve.prefill"), self._rtrace_annotation(req):
+                chaos.site("serve.prefill")
                 if n_pre:
                     self.stats["prefix_hit_pages"] += n_pre
                     _M_PREFIX_HIT.inc(n_pre)
@@ -1341,15 +1580,30 @@ class ContinuousBatchingEngine:
                 # the prefill's readback, inside the guard: a failure here
                 # fails this request alone
                 tok0 = int(tok0[0])
-        except Exception as e:
+        except Exception as e:  # fail this request alone, free everything
             self._unref_pages(pages)
             self.free_slots.append(slot)
             self._fail_request(req, e)
+            if adm is not None:
+                adm.end("error", error=req.error_message)
             return "failed"
+        dt = time.monotonic() - t_p0
+        if _trace.enabled():
+            # serving goodput: a first dispatch is compile, not prefill
+            _goodput.serving_note(
+                "compile" if self._last_dispatch_cold else "prefill", dt)
+        if adm is not None:
+            adm.span_at("prefill", dt, dt, bucket=sbucket,
+                        prefix_hit_pages=n_pre,
+                        cold=self._last_dispatch_cold)
         if self.enable_prefix_cache:
             self._index_prompt_pages(true_len, pages, n_pre, digests)
         req.tokens = list(prompt)
-        return self._activate(slot, req, tok0)
+        status = self._activate(slot, req, tok0)
+        if adm is not None:
+            adm.end("ok", slot=slot, pages=len(pages),
+                    prefix_hit_pages=n_pre)
+        return status
 
     def _prefill_key(self, req):
         """The first token's noise key ([1] int64), None when greedy."""
@@ -1371,6 +1625,9 @@ class ContinuousBatchingEngine:
         now = time.monotonic()
         req.t_first_token = now
         _M_TTFT.observe(now - req.t_enqueue)
+        if req.trace is not None:
+            req.trace.event("first_token",
+                            ttft_s=round(now - req.t_enqueue, 6))
         _M_TOKENS.inc()
         req.tokens.append(tok0)
         req.n_generated = 1
@@ -1427,8 +1684,11 @@ class ContinuousBatchingEngine:
         ids[0, :clen] = prompt[done_tokens:done_tokens + clen]
         progs = ([("gather", filled), ("suffix", filled, cbucket, sampling)]
                  if filled else [("prefill", cbucket, sampling)])
+        t_p0 = time.monotonic()
         try:
-            with self._locked_dispatch(*progs, ("insert", cbucket)):
+            with self._locked_dispatch(*progs, ("insert", cbucket)), \
+                    _trace.span("serve.prefill"), self._rtrace_annotation(req):
+                chaos.site("serve.prefill")
                 prefix = (self._gather_prefix(st.pages[:filled]) if filled
                           else None)
                 # a non-final chunk's drawn token is discarded
@@ -1443,8 +1703,19 @@ class ContinuousBatchingEngine:
             self.free_slots.append(slot)
             self._group_done()
             self._fail_request(req, e)
+            if req.trace is not None:
+                req.trace.event("prefill_chunk_failed",
+                                error=req.error_message)
             return "failed"
         _M_CHUNKS.inc()
+        dt = time.monotonic() - t_p0
+        if _trace.enabled():
+            _goodput.serving_note(
+                "compile" if self._last_dispatch_cold else "prefill", dt)
+        if req.trace is not None:
+            req.trace.span_at("prefill_chunk", dt, dt,
+                              filled_pages=filled, tokens=clen, final=final,
+                              cold=self._last_dispatch_cold)
         if not final:
             st.filled_pages = filled + npg
             return "admitted"
@@ -1475,6 +1746,7 @@ class ContinuousBatchingEngine:
         self._update_gauges()
 
     # ---- stepping -------------------------------------------------------------
+    @_on_engine_stream
     def step(self):
         """One scheduling round: sweep cancellations, (legacy) land one
         prefill chunk per mid-prefill slot, advance the dispatch pipeline,
@@ -1628,10 +1900,12 @@ class ContinuousBatchingEngine:
                  else ("lora_ragged", sampling, rank)]
         if sampling[0]:
             progs.append(("keys", k))
-        t0 = time.monotonic()
-        with self._locked_dispatch(*progs):
-            lora = self._lora_rows(part)
-            blk = self.retry_policy.run(lambda: self._ragged_step(
+
+        def dispatch():
+            # the chaos site fires before the device work, so an injected
+            # outage retries against intact pools
+            chaos.site("serve.decode")
+            return self._ragged_step(
                 dev(tok_block),
                 dev(np.asarray(chain_pos, np.int64)) if chained else None,
                 dev(np.asarray(chain_rows, np.int64)) if chained else None,
@@ -1640,8 +1914,33 @@ class ContinuousBatchingEngine:
                 dev(b_idx.astype(np.int64)), dev(self.page_table),
                 dev(scan_pt), dev(lengths_op), dev(caps), sampling,
                 *((dev(keys), dev(idxs)) if sampling[0] else (None, None)),
-                lora), name="serve.decode")
-            rec = self._inflight_block(blk, k, part, t0)
+                lora)
+
+        t0 = time.monotonic()
+        with self._locked_dispatch(*progs), _trace.span("serve.decode"):
+            start = self._devprof_start()
+            lora = self._lora_rows(part)
+            blk = self.retry_policy.run(dispatch, name="serve.decode")
+            cold = self._last_dispatch_cold
+            if _devprof._PLANE is not None:
+                # the packed pass (each row's queries after its pool
+                # length), then k - 1 decode steps over the participants
+                packed = [(int(q_lens[sl]), int(lengths_op[sl]))
+                          for sl in range(S) if q_lens[sl]]
+                kv0 = lengths_op + q_lens
+                steps = [[(1, int(kv0[sl]) + s) for sl, _ in part]
+                         for s in range(k - 1)]
+                n_chunk = sum(t for _, _, t, _ in sched)
+                self._devprof_tick(
+                    f"serve.ragged[k{k},s{sampling}]" if rank is None else
+                    f"serve.lora_ragged[r{rank},k{k},s{sampling}]",
+                    t0, start, [packed] + steps, k * len(part) + n_chunk,
+                    cold)
+            rec = self._inflight_block(blk, k, part, t0, cold)
+        if _trace.enabled() and cold:
+            # a first dispatch's wall is compile; its readback skips the
+            # decode note (the cold flag rides the in-flight block)
+            _goodput.serving_note("compile", time.monotonic() - t0)
         for slot, st, take, final in sched:
             _M_CHUNKS.inc()
             st.consumed += take
@@ -1702,12 +2001,6 @@ class ContinuousBatchingEngine:
                 keys[slot] = r.key_base
                 idxs[slot] = r.n_dispatched
         dev = self._to_device
-        if chain is None:
-            feed = dev(toks)
-        elif fresh.any():
-            feed = torch.where(dev(fresh), dev(toks), chain.last)
-        else:
-            feed = chain.last
         rank = self._active_lora_rank
         if rank is not None:
             progs = [("lora_decode", sampling, rank) if k == 1
@@ -1717,27 +2010,59 @@ class ContinuousBatchingEngine:
                      else ("block", sampling, k)]
         if sampling[0]:
             progs.append(("keys", k))
-        t0 = time.monotonic()
-        with self._locked_dispatch(*progs):
-            lora = self._lora_rows(rows)
-            blk = self.retry_policy.run(lambda: self._decode_block(
+
+        def dispatch():
+            # the chaos site fires before the device work, so an injected
+            # outage retries against intact pools
+            chaos.site("serve.decode")
+            if chain is None:
+                feed = dev(toks)
+            elif fresh.any():
+                feed = torch.where(dev(fresh), dev(toks), chain.last)
+            else:
+                feed = chain.last
+            return self._decode_block(
                 feed, dev(self.page_table), dev(self.lengths), dev(caps), k,
                 sampling,
                 *((dev(keys), dev(idxs)) if sampling[0] else (None, None)),
-                lora), name="serve.decode")
-            rec = self._inflight_block(blk, k, rows, t0)
+                lora)
+
+        t0 = time.monotonic()  # dispatch epoch: TPOT = readback - t0 per k
+        with self._locked_dispatch(*progs), _trace.span("serve.decode"):
+            start = self._devprof_start()
+            lora = self._lora_rows(rows)
+            blk = self.retry_policy.run(dispatch, name="serve.decode")
+            cold = self._last_dispatch_cold
+            if _devprof._PLANE is not None:
+                base = [min(int(self.lengths[sl]), int(caps[sl]))
+                        for sl, _ in rows]
+                if rank is not None:
+                    key = (f"serve.lora_decode[r{rank},s{sampling}]"
+                           if k == 1 else f"serve.lora_decode_block[r{rank},"
+                           f"k{k},s{sampling}]")
+                else:
+                    key = (f"serve.decode[s{sampling}]" if k == 1
+                           else f"serve.decode_block[k{k},s{sampling}]")
+                self._devprof_tick(
+                    key, t0, start, [[(1, b + s) for b in base]
+                                     for s in range(k)],
+                    k * len(rows), cold)
+            rec = self._inflight_block(blk, k, rows, t0, cold)
+        if _trace.enabled() and cold:
+            _goodput.serving_note("compile", time.monotonic() - t0)
         for slot, r in rows:
             r.n_dispatched += k
             self.lengths[slot] += k
         return rec
 
-    def _inflight_block(self, blk, k, rows, t0):
+    def _inflight_block(self, blk, k, rows, t0, cold=False):
         """Start ``blk``'s readback: a non-blocking copy into pinned memory
-        and the event that marks it done (waited for at once when
-        ``async_decode`` is off; nothing to wait for on the CPU)."""
+        and the event that marks it done, both on the engine's stream
+        (waited for at once when ``async_decode`` is off; nothing to wait
+        for on the CPU)."""
         last = blk[k - 1][:, None]  # the row the NEXT block chains from
         if blk.device.type == "cpu":
-            return _InflightBlock(last, k, rows, blk, None, t0)
+            return _InflightBlock(last, k, rows, blk, None, t0, cold)
         host = torch.empty(blk.shape, dtype=blk.dtype, pin_memory=True)
         host.copy_(blk, non_blocking=True)
         ready = torch.cuda.Event()
@@ -1745,7 +2070,7 @@ class ContinuousBatchingEngine:
         if not self.async_decode:
             ready.synchronize()
             ready = None
-        return _InflightBlock(last, k, rows, host, ready, t0)
+        return _InflightBlock(last, k, rows, host, ready, t0, cold)
 
     def _process_block(self, rec):
         """The readback point: block tokens reach the host, each request
@@ -1754,34 +2079,66 @@ class ContinuousBatchingEngine:
         if self.async_decode:
             # host time that ran while the device executed this block
             _M_OVERLAP.observe(time.monotonic() - rec.t0)
-        if rec.ready is not None:
-            rec.ready.synchronize()
-        block = rec.host.numpy()
-        _M_TPOT.observe((time.monotonic() - rec.t0) / rec.k)
+        with _trace.span("serve.decode.sync"):
+            if rec.ready is not None:
+                try:
+                    rec.ready.synchronize()
+                except Exception as e:
+                    # an asynchronous OOM surfaces at the readback, outside
+                    # the dispatch section: the same forensics seam
+                    _compilemem.maybe_oom_report(
+                        e, program="serve.decode_block")
+                    raise
+            block = rec.host.numpy()
+        # wall from dispatch to readback, per token: the TPOT
+        block_wall = time.monotonic() - rec.t0
+        _M_TPOT.observe(block_wall / rec.k)
+        if _trace.enabled() and not rec.cold:
+            # serving goodput: dispatch to readback is the decode slice (a
+            # first dispatch already landed in compile)
+            _goodput.serving_note("decode", block_wall)
         self.stats["decode_steps"] += rec.k
         retired = []
-        for slot, r in rec.rows:
-            if r.finished or self._active.get(slot) is not r:
-                continue  # retired while in flight: overshoot discarded
-            if r.t_first_token is None:
-                # a ragged graduation's first token arrives here
-                r.t_first_token = time.monotonic()
-                _M_TTFT.observe(r.t_first_token - r.t_enqueue)
-            for s in range(rec.k):
-                tok = int(block[s, slot])
-                r.tokens.append(tok)
-                r.n_generated += 1
-                r.last_token = tok
-                _M_TOKENS.inc()
-                if r.on_token is not None:
-                    r.on_token(r.rid, tok)
-                if r.n_generated >= r.max_new_tokens or (
-                        r.eos_token_id is not None
-                        and tok == r.eos_token_id):
-                    retired.append(self._retire(slot))
-                    break
+        t_e0 = time.monotonic()
+        with _trace.span("serve.emit"):
+            for slot, r in rec.rows:
+                if r.finished or self._active.get(slot) is not r:
+                    continue  # retired while in flight: overshoot discarded
+                if r.t_first_token is None:
+                    # a ragged graduation's first token arrives here
+                    r.t_first_token = time.monotonic()
+                    _M_TTFT.observe(r.t_first_token - r.t_enqueue)
+                    if r.trace is not None:
+                        r.trace.event("first_token", ttft_s=round(
+                            r.t_first_token - r.t_enqueue, 6))
+                if r.trace is not None:
+                    # the request's view of this decode dispatch
+                    r.trace.span_at("decode_block", block_wall, block_wall,
+                                    k=rec.k)
+                emitted = 0
+                for s in range(rec.k):
+                    tok = int(block[s, slot])
+                    r.tokens.append(tok)
+                    r.n_generated += 1
+                    r.last_token = tok
+                    emitted += 1
+                    _M_TOKENS.inc()
+                    if r.on_token is not None:
+                        r.on_token(r.rid, tok)
+                    if r.n_generated >= r.max_new_tokens or (
+                            r.eos_token_id is not None
+                            and tok == r.eos_token_id):
+                        retired.append(self._retire(slot))
+                        break
+                if r.trace is not None:
+                    r.trace.event("emit", tokens=emitted,
+                                  n_generated=r.n_generated)
+        if _trace.enabled():
+            _goodput.serving_note("host_emit", time.monotonic() - t_e0)
         return retired
 
+    @_joined
+    @_on_engine_stream
     def drain(self):
         """Finish every admitted request without admitting more; returns the
         retired EngineRequests."""
@@ -1791,6 +2148,8 @@ class ContinuousBatchingEngine:
             out.extend(self.step())
         return out
 
+    @_joined
+    @_on_engine_stream
     def serve(self, prompts, max_new_tokens, eos_token_id=None,
               do_sample=False, temperature=1.0, top_k=0, top_p=1.0, seed=0,
               on_token=None, request_timeout_s=None, sampling_overrides=None,
@@ -1862,7 +2221,8 @@ class ContinuousBatchingEngine:
         queue = deque(reqs)
         _M_QUEUE.set(len(queue))
         try:
-            self._admit_from(queue)
+            with _trace.span("serve.admit"):
+                self._admit_from(queue)
             _M_QUEUE.set(len(queue))
             while (queue or self._active or self._prefilling
                    or self._inflight is not None):
@@ -1871,7 +2231,8 @@ class ContinuousBatchingEngine:
                     raise AssertionError(
                         "serve(): admission stalled with an idle engine")
                 self.step()
-                self._admit_from(queue)
+                with _trace.span("serve.admit"):
+                    self._admit_from(queue)
                 _M_QUEUE.set(len(queue))
             return [r.result for r in reqs]
         finally:

@@ -1,20 +1,21 @@
 """Metrics registry: counters, gauges, fixed-bucket histograms (the port's
-own copy of the part of ``paddle_tpu/observability/metrics.py`` that the
-training step's telemetry writes: the registry and its snapshot; the JSONL
-and Prometheus dumps come with the serving control plane, see ROADMAP.md).
+own copy of ``paddle_tpu/observability/metrics.py``, without its JSONL and
+Prometheus dumps, which the operator plane's ``/varz`` and fleet snapshots
+render: ROADMAP.md, slice 16).
 
-One process-wide registry that ``utils.metrics_bus`` and
-``observability.dynamics`` publish into. Publishing is hot-path code: a
-counter ``inc`` is one lock and one add; a histogram ``observe`` is a
-bisect over a small tuple and two adds. Nothing here allocates per call or
-touches the filesystem.
+One process-wide registry that every layer of the port publishes into: the
+training step's telemetry (``utils.metrics_bus``, ``observability.
+dynamics``), the engine's ``serve.*`` series and the serving control
+plane's ``serving.*``, ``brownout.*``, ``breaker.*`` and ``kv.*`` series,
+labeled by family. Publishing is hot-path code: a counter ``inc`` is one
+lock and one add; a histogram ``observe`` is a bisect over a small tuple and
+two adds. Nothing here allocates per call or touches the filesystem.
 """
 import bisect
 import threading
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
            "DEFAULT_BUCKETS", "metric_key"]
-
 
 #: latency-oriented default bucket upper bounds, in seconds (an implicit
 #: +inf bucket is always appended): 0.5ms .. 60s covers a dispatch through a
@@ -24,13 +25,16 @@ DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
 
 
 class Counter:
-    """Monotonic named counter: ``inc``, and ``reset`` for the registry's
-    prefix reset."""
+    """Monotonic named counter. ``inc`` only; ``reset`` exists for tests and
+    for the EventCounters compat shim's prefix reset."""
 
-    __slots__ = ("name", "_lock", "_value")
+    __slots__ = ("name", "help", "family", "labels", "_lock", "_value")
 
-    def __init__(self, name):
+    def __init__(self, name, help="", family=None, labels=None):
         self.name = name
+        self.help = help
+        self.family = family or name
+        self.labels = labels
         self._lock = threading.Lock()
         self._value = 0
 
@@ -48,13 +52,17 @@ class Counter:
 
 
 class Gauge:
-    """Last-value gauge that also keeps its high-water mark (``hwm``) since
-    the last reset."""
+    """Last-value gauge. Also tracks the high-water mark (``hwm``) since the
+    last reset — queue depth / slot occupancy are only interesting at their
+    peaks, and a scrape-time gauge alone misses transients."""
 
-    __slots__ = ("name", "_lock", "_value", "_hwm")
+    __slots__ = ("name", "help", "family", "labels", "_lock", "_value", "_hwm")
 
-    def __init__(self, name):
+    def __init__(self, name, help="", family=None, labels=None):
         self.name = name
+        self.help = help
+        self.family = family or name
+        self.labels = labels
         self._lock = threading.Lock()
         self._value = 0.0
         self._hwm = 0.0
@@ -65,6 +73,15 @@ class Gauge:
             self._value = v
             if v > self._hwm:
                 self._hwm = v
+
+    def inc(self, n=1):
+        with self._lock:
+            self._value += n
+            if self._value > self._hwm:
+                self._hwm = self._value
+
+    def dec(self, n=1):
+        self.inc(-n)
 
     @property
     def value(self):
@@ -81,13 +98,22 @@ class Gauge:
 
 
 class Histogram:
-    """Fixed-bucket histogram. ``bounds`` are the finite bucket upper
-    limits; an implicit +inf bucket catches the tail."""
+    """Fixed-bucket histogram (Prometheus-style cumulative export).
 
-    __slots__ = ("name", "bounds", "_lock", "_counts", "_sum", "_count")
+    ``bounds`` are the finite bucket upper limits; an implicit +inf bucket
+    catches the tail. Per-``observe`` cost is a bisect over the bounds tuple
+    plus two adds under the lock — no per-call allocation.
+    """
 
-    def __init__(self, name, buckets=DEFAULT_BUCKETS):
+    __slots__ = ("name", "help", "family", "labels", "bounds", "_lock",
+                 "_counts", "_sum", "_count")
+
+    def __init__(self, name, buckets=DEFAULT_BUCKETS, help="", family=None,
+                 labels=None):
         self.name = name
+        self.help = help
+        self.family = family or name
+        self.labels = labels
         self.bounds = tuple(sorted(float(b) for b in buckets))
         if not self.bounds:
             raise ValueError("histogram needs at least one bucket bound")
@@ -116,15 +142,35 @@ class Histogram:
     def mean(self):
         return self._sum / self._count if self._count else 0.0
 
+    def bucket_counts(self):
+        """Raw (non-cumulative) per-bucket counts, +inf bucket last."""
+        with self._lock:
+            return list(self._counts)
+
     def cumulative(self):
         """[(upper_bound, cumulative_count)], ending with (inf, count)."""
-        with self._lock:
-            counts = list(self._counts)
         out, cum = [], 0
-        for b, c in zip(self.bounds + (float("inf"),), counts):
+        counts = self.bucket_counts()
+        for b, c in zip(self.bounds, counts[:-1]):
             cum += c
             out.append((b, cum))
+        out.append((float("inf"), cum + counts[-1]))
         return out
+
+    def quantile(self, q):
+        """Bucket-resolution quantile estimate: the smallest upper bound
+        whose cumulative count reaches q*count (inf if it lands in the
+        overflow bucket). Good enough for p50/p99 dashboards; exact values
+        need a trace, not a histogram."""
+        if not 0 <= q <= 1:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        if not self._count:
+            return 0.0
+        target = q * self._count
+        for bound, cum in self.cumulative():
+            if cum >= target:
+                return bound
+        return float("inf")
 
     def reset(self):
         with self._lock:
@@ -134,73 +180,114 @@ class Histogram:
 
 
 def _escape_label(v):
-    """Label-value escaping: backslash, double quote, newline."""
+    """Prometheus label-value escaping: backslash, double quote, newline."""
     return (str(v).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
 
 
+def _label_suffix(labels, extra=None):
+    """``{k="v",...}`` rendered suffix (labels sorted, values escaped);
+    empty string when there is nothing to render."""
+    pairs = []
+    if labels:
+        pairs.extend(sorted(labels.items()))
+    if extra:
+        pairs.extend(extra)
+    if not pairs:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in pairs)
+    return "{" + inner + "}"
+
+
 def metric_key(name, labels=None):
-    """Registry key for a (family, labels) pair: the family name alone when
-    unlabeled, ``family{k="v",...}`` otherwise (sorted, escaped: two label
-    dicts that render the same are the same series)."""
+    """Registry key for a (family, labels) pair — the family name alone when
+    unlabeled, ``family{k="v",...}`` otherwise (sorted, escaped — two label
+    dicts that render the same ARE the same series)."""
     if not labels:
         return name
-    inner = ",".join(f'{k}="{_escape_label(v)}"'
-                     for k, v in sorted(labels.items()))
-    return name + "{" + inner + "}"
+    return name + _label_suffix(labels)
 
 
 class MetricsRegistry:
     """Process-wide name -> metric map. Metric creation is idempotent
     (``counter("x")`` twice returns the same object); re-registering a name
     as a different type is a bug and raises. ``labels={...}`` registers one
-    series of a metric family, keyed ``name{k="v"}``. ``help`` is accepted
-    for the reference's signature; nothing here renders it."""
+    series of a metric FAMILY (keyed ``name{k="v"}``): the Prometheus
+    rendering groups series under one ``# TYPE``/``# HELP`` header, which is
+    what real scrapers require (a per-label-value metric NAME breaks every
+    aggregation over the family)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics = {}
+        self._family_types = {}
 
     def _get_or_create(self, name, cls, labels=None, **kw):
         key = metric_key(name, labels)
+        m = self._metrics.get(key)
+        if m is not None:
+            if not isinstance(m, cls):
+                raise ValueError(
+                    f"metric {key!r} already registered as "
+                    f"{type(m).__name__}, not {cls.__name__}")
+            return m
         with self._lock:
             m = self._metrics.get(key)
             if m is None:
-                m = self._metrics[key] = cls(key, **kw)
-        if not isinstance(m, cls):
-            raise ValueError(f"metric {key!r} already registered as "
-                             f"{type(m).__name__}, not {cls.__name__}")
-        return m
+                fcls = self._family_types.setdefault(name, cls)
+                if fcls is not cls:
+                    # a family mixing types renders an unparseable exposition
+                    raise ValueError(
+                        f"metric family {name!r} already registered as "
+                        f"{fcls.__name__}, not {cls.__name__}")
+                m = self._metrics[key] = cls(
+                    key, family=name,
+                    labels=dict(labels) if labels else None, **kw)
+            elif not isinstance(m, cls):
+                raise ValueError(
+                    f"metric {key!r} already registered as "
+                    f"{type(m).__name__}, not {cls.__name__}")
+            return m
 
     def counter(self, name, help="", labels=None):
-        return self._get_or_create(name, Counter, labels)
+        return self._get_or_create(name, Counter, help=help, labels=labels)
 
     def gauge(self, name, help="", labels=None):
-        return self._get_or_create(name, Gauge, labels)
+        return self._get_or_create(name, Gauge, help=help, labels=labels)
 
     def histogram(self, name, buckets=DEFAULT_BUCKETS, help="", labels=None):
-        return self._get_or_create(name, Histogram, labels, buckets=buckets)
+        return self._get_or_create(name, Histogram, buckets=buckets,
+                                   help=help, labels=labels)
 
     def get(self, name, labels=None):
-        """Existing metric or None; never creates."""
+        """Existing metric or None — never creates."""
         return self._metrics.get(metric_key(name, labels))
+
+    def remove(self, name, labels=None):
+        """Delete one series (the fleet aggregator retiring a departed
+        rank's labeled gauge — a rank that left the world must vanish
+        from the exposition, not report its last score forever). The
+        family's type registration is kept. Returns True if removed."""
+        with self._lock:
+            return self._metrics.pop(metric_key(name, labels),
+                                     None) is not None
 
     def names(self, prefix=""):
         with self._lock:
             return sorted(n for n in self._metrics if n.startswith(prefix))
 
-    def _items(self, prefix):
-        with self._lock:
-            return [(n, m) for n, m in self._metrics.items()
-                    if n.startswith(prefix)]
-
+    # ---- snapshots ---------------------------------------------------------
     def snapshot(self, prefix=""):
-        """{name: plain-python value}: counters as numbers, gauges as
-        {value, hwm}, histograms as {count, sum, mean, buckets}. Zero-valued
-        counters are omitted (the EventCounters contract: 'faults' is only
-        present when something actually fired)."""
+        """{name: plain-python value} — counters/gauges as numbers,
+        histograms as {count, sum, mean, buckets}. Zero-valued counters are
+        omitted (the EventCounters contract: 'faults' is only present when
+        something actually fired)."""
         out = {}
-        for name, m in self._items(prefix):
+        with self._lock:
+            items = list(self._metrics.items())
+        for name, m in items:
+            if not name.startswith(prefix):
+                continue
             if isinstance(m, Counter):
                 if m.value:
                     out[name] = m.value
@@ -215,9 +302,12 @@ class MetricsRegistry:
 
     def reset(self, prefix=""):
         """Zero every metric under ``prefix`` (objects and handles stay
-        valid; only values reset)."""
-        for _, m in self._items(prefix):
-            m.reset()
+        valid — only values reset)."""
+        with self._lock:
+            items = list(self._metrics.items())
+        for name, m in items:
+            if name.startswith(prefix):
+                m.reset()
 
 
 #: the process-wide singleton every layer publishes into

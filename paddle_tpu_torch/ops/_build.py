@@ -25,6 +25,7 @@ _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _LIBS = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -88,12 +89,34 @@ def build(names=None):
 
 def library(name):
     """The loaded ``lib<name>`` (built on first use). Raises
-    KernelBuildError when it cannot be built."""
-    with _LOCK:
+    KernelBuildError when it cannot be built. A first build runs under the
+    serving engines' process-wide compile lock (``_LOCK`` inside it), so
+    the serving monitor spares a dispatcher that builds or waits for a
+    build, and is recorded in the compile ledger as ``build.<name>``."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    from ..inference.continuous import _COMPILE_LOCK
+    from ..observability.compilemem import record_compile
+
+    with _COMPILE_LOCK, _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(build([name])[name]["path"])
+            with record_compile(f"build.{name}"):
+                lib = _LIBS[name] = ctypes.CDLL(build([name])[name]["path"])
         return lib
+
+
+def count_launch(fn, attr="launches"):
+    """Add one to the wrapper ``fn``'s launch count ``attr`` and to its
+    count for the calling thread (``fn.launches_by_thread[(attr,
+    thread ident)]``), under one lock: serving replicas launch from threads
+    of their own, and a lost increment would undercount."""
+    me = threading.get_ident()
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        per = fn.launches_by_thread
+        per[(attr, me)] = per.get((attr, me), 0) + 1
 
 
 def entry(name, symbol, argtypes):

@@ -29,9 +29,9 @@
 //   are dispatched first, and the work tile after them zeroes the pad
 //   tokens past cu_q_lens[num_seqs];
 // - three groups of four warps take every third step of the tile's walk
-//   (two pages of an int8 pool; 32 rows of a bf16 pool, 16 of an f32 one,
-//   in pieces of 16 rows, so that the step does not grow with the page
-//   size) and merge at the end in a fixed order. A group's threads copy
+//   (32 rows of an int8 or a bf16 pool, 16 of an f32 one, in pieces of 16
+//   rows of a page, so that neither the step nor the shared memory grows
+//   with the page size) and merge at the end in a fixed order. A group's threads copy
 //   their 16-byte chunks of the group's coming steps by cp.async, two steps
 //   ahead, while the group works the current one (a producer thread's
 //   bulk-copy ring, as K5's, was built here first for int8 and timed
@@ -110,21 +110,22 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
 constexpr int kGroups = 3;  // warp groups, each taking every third step
 constexpr int kGroupThreads = 32 * 4;
 constexpr int kTileThreads = kGroups * kGroupThreads;
-constexpr int kMaxChunks = 1;  // int8: 16-byte code chunks a thread loads a page
+constexpr int kPieceRows = 16;  // rows of a piece, every pool type
+constexpr int kMaxChunks = 1;  // int8: 16-byte code chunks a thread loads a piece
 constexpr int kTileStages = 3;  // steps in flight a group (copies' slots)
 
-// Pieces of a step: pages of an int8 pool, 16-row pieces of a float pool
-// (two in bf16, one in f32, whose rows are twice as wide).
+// 16-row pieces of a step: two in int8 and bf16, one in f32 (whose rows
+// are twice as wide).
 template <typename P>
 constexpr int kStepPieces = P::kBytes == 4 ? 1 : 2;
 
 // The tile kernel's shared memory: a region per group, then for an f32 q
 // the tile's q. An int8 pool's group region holds two step buffers (a
-// step's pages: for a bf16 q, bf16 K rows and then V rows with 16-byte
+// step's pieces: for a bf16 q, bf16 K rows and then V rows with 16-byte
 // chunk c of row r at chunk c ^ (r % 8); for an f32 q, the int8 K rows and
 // then V rows; then the step's key factors and value factors, or raw
 // scales) and its kTileStages staging slots, into which a thread copies
-// its chunks of the group's coming steps (per page: int8 K and V rows,
+// its chunks of the group's coming steps (per piece: int8 K and V rows,
 // then the scales). A float pool's group region is kTileStages step
 // buffers, into which the copies land as the products read them (bf16:
 // swizzled as above; f32: plain rows). After its last step, group gi > 0
@@ -133,26 +134,21 @@ template <typename P, typename T, int D>
 struct TileSmem {
   static constexpr bool kTC = std::is_same_v<T, __nv_bfloat16>;
   static constexpr int kPieces = kStepPieces<P>;
-  // int8: a step buffer, a staging slot (one page)
-  __host__ __device__ static size_t buffer(int bs) {
-    return kPieces * (4 * (size_t)bs * D + 8 * (size_t)bs);
-  }
-  __host__ __device__ static size_t stage(int bs) {
-    return 2 * (size_t)bs * D + 8 * (size_t)bs;
-  }
+  static constexpr size_t kRows = kPieceRows;
+  // int8: a step buffer, a staging slot (one piece)
+  static constexpr size_t kBuffer = kPieces * (4 * kRows * D + 8 * kRows);
+  static constexpr size_t kStage = 2 * kRows * D + 8 * kRows;
   // float: a step's K rows and then V rows, 16 kPieces rows each
-  static constexpr size_t kStep = 2 * (size_t)kPieces * 16 * D * P::kBytes;
-  // >= the exchange's kGroupThreads * (D / 2 + 4) floats (int8: bs >= 16)
-  __host__ __device__ static size_t group(int bs) {
-    if constexpr (P::kScaled)
-      return 2 * buffer(bs) + kTileStages * kPieces * stage(bs);
-    else
-      return kTileStages * kStep;
-  }
-  __host__ __device__ static size_t qs(int bs) { return kGroups * group(bs); }
-  __host__ __device__ static size_t bytes(int bs) {
-    return qs(bs) + (kTC ? 0 : (size_t)kTilePairs * D * sizeof(float));
-  }
+  static constexpr size_t kStep = 2 * (size_t)kPieces * kRows * D * P::kBytes;
+  // >= the exchange's kGroupThreads * (D / 2 + 4) floats
+  static constexpr size_t kGroup =
+      P::kScaled ? 2 * kBuffer + kTileStages * kPieces * kStage
+                 : kTileStages * kStep;
+  static constexpr size_t kQs = kGroups * kGroup;
+  static constexpr size_t kBytes =
+      kQs + (kTC ? 0 : (size_t)kTilePairs * D * sizeof(float));
+  static_assert(kGroup >= kGroupThreads * (D / 2 + 4) * sizeof(float),
+                "a group region holds the accumulators' exchange");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -162,30 +158,40 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-// An int8 pool: a group thread's share of a page, its 16-byte chunks tg,
-// tg + 128 of the K and V codes and its element tg of [K scales, V
-// scales], copied asynchronously (cp.async) into the staging buffer `st`.
-__device__ __forceinline__ void stage_page(const pg::PoolArgs& pool, int h,
-                                           int page, int bs, int chunks,
+// An int8 pool: a group thread's share of 16-row piece j of the row
+// (positions 16 j .. 16 j + 15, on page pt[16 j / bs]), its 16-byte chunk
+// tg of the piece's K and V codes (D chunks a tensor) and its element tg
+// of [K scales, V scales], copied asynchronously (cp.async) into the
+// staging buffer `st`.
+template <int D>
+__device__ __forceinline__ void stage_rows(const pg::PoolArgs& pool, int h,
+                                           const int* pt, int j, int bs,
                                            int tg, unsigned char* st) {
-  const size_t prow = (size_t)h * pool.num_pages + page;
-  const unsigned char* kc =
-      static_cast<const unsigned char*>(pool.k) + prow * chunks * 16;
-  const unsigned char* vc =
-      static_cast<const unsigned char*>(pool.v) + prow * chunks * 16;
+  constexpr int kChunks = kPieceRows * D / 16;
+  static_assert(kChunks <= kMaxChunks * kGroupThreads,
+                "a group thread copies at most kMaxChunks chunks");
+  const int pos = kPieceRows * j;
+  // the piece's first row in the pool
+  const size_t row0 =
+      ((size_t)h * pool.num_pages + pt[pos / bs]) * bs + pos % bs;
+  const unsigned char* kc = static_cast<const unsigned char*>(pool.k) +
+                            row0 * D;
+  const unsigned char* vc = static_cast<const unsigned char*>(pool.v) +
+                            row0 * D;
 #pragma unroll
   for (int c = 0; c < kMaxChunks; ++c) {
     const int idx = tg + kGroupThreads * c;
-    if (idx < chunks) {
+    if (idx < kChunks) {
       cp_async16(st + 16 * idx, kc + 16 * idx);
-      cp_async16(st + 16 * (chunks + idx), vc + 16 * idx);
+      cp_async16(st + 16 * (kChunks + idx), vc + 16 * idx);
     }
   }
-  if (tg < 2 * bs) {
-    const float* src = tg < bs ? pool.k_scales + prow * bs + tg
-                               : pool.v_scales + prow * bs + tg - bs;
+  if (tg < 2 * kPieceRows) {
+    const float* src = tg < kPieceRows
+                           ? pool.k_scales + row0 + tg
+                           : pool.v_scales + row0 + tg - kPieceRows;
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_addr(st + 32 * chunks + 4 * tg)),
+                     smem_addr(st + 32 * kChunks + 4 * tg)),
                  "l"(src)
                  : "memory");
   }
@@ -232,7 +238,7 @@ __device__ __forceinline__ void wait_copies() {
 
 // Block (kv head h, work tile): the 64 pairs of the tile against the row's
 // keys up to its last token's causal extent, in steps of kStepPieces
-// pieces (pages of an int8 pool, 16 rows of a float pool). Group gi of
+// pieces of 16 rows. Group gi of
 // four warps takes steps gi, gi + 3, ...: its threads copy their chunks of
 // the group's coming steps (cp.async, kTileStages - 1 steps ahead); an
 // int8 pool's step is then stored once to a step buffer (bf16 rows for a
@@ -278,7 +284,7 @@ __global__ void __launch_bounds__(kTileThreads)
   const int q_len = end - start;
   T* out = static_cast<T*>(a.out);
   const int bs = a.bs;
-  const int ir = pg::item_rows<P>(bs);  // rows of a piece
+  constexpr int ir = kPieceRows;  // rows of a piece
   // token t of this row sees kv positions < base_lim + t
   const int base_lim = pad ? 0 : a.kv_lens[b] - q_len - start + 1;
   const int block_lim = min(base_lim + t1 - 1, a.pages_per_seq * bs);
@@ -292,22 +298,21 @@ __global__ void __launch_bounds__(kTileThreads)
     return;
   }
 
-  const int chunks = bs * D / 16;  // int8: a page's 16-byte chunks a tensor
+  constexpr int chunks = ir * D / 16;  // int8: a piece's chunks a tensor
   constexpr int kRowBytes = D * (kTC ? 2 : P::kBytes);  // a stored row
   const int step_keys = kPieces * ir;
   extern __shared__ __align__(16) unsigned char tile_smem[];
-  float* qs = reinterpret_cast<float*>(tile_smem + L::qs(bs));  // f32 q
+  float* qs = reinterpret_cast<float*>(tile_smem + L::kQs);  // f32 q
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gi = warp / 4;                  // group
   const int wr = warp % 4;                  // pairs 16 wr .. 16 wr + 15
   const int tg = threadIdx.x % kGroupThreads;
   const int* pt = a.page_indices + (size_t)b * a.pages_per_seq;
-  unsigned char* grp = tile_smem + gi * L::group(bs);
+  unsigned char* grp = tile_smem + gi * L::kGroup;
   const auto slot = [&](int k) {
     if constexpr (kInt8)
-      return grp + 2 * L::buffer(bs) +
-             (k % kTileStages) * kPieces * L::stage(bs);
+      return grp + 2 * L::kBuffer + (k % kTileStages) * kPieces * L::kStage;
     else
       return grp + (k % kTileStages) * L::kStep;
   };
@@ -320,7 +325,7 @@ __global__ void __launch_bounds__(kTileThreads)
       const int j = kPieces * u + p;
       const int jj = j < npieces ? j : kPieces * u;
       if constexpr (kInt8)
-        stage_page(a.pool, h, pt[jj], bs, chunks, tg, dst + p * L::stage(bs));
+        stage_rows<D>(a.pool, h, pt, jj, bs, tg, dst + p * L::kStage);
       else
         stage_piece<P, D, kTC>(a.pool, h, pt, jj, bs, p, tg, dst,
                                step_keys * kRowBytes);
@@ -403,11 +408,11 @@ __global__ void __launch_bounds__(kTileThreads)
       wait_copies<kTileStages - 1>();  // this thread's copies of step u
       // the group stores the step: bf16 rows and factors, or int8 rows and
       // raw scales; a thread reads only the staging bytes it copied
-      buf = grp + (it & 1) * L::buffer(bs);
+      buf = grp + (it & 1) * L::kBuffer;
       float* fk = reinterpret_cast<float*>(buf + 4 * (size_t)step_keys * D);
 #pragma unroll
       for (int p = 0; p < kPieces; ++p) {
-        const unsigned char* cur = slot(it) + p * L::stage(bs);
+        const unsigned char* cur = slot(it) + p * L::kStage;
 #pragma unroll
         for (int c = 0; c < kMaxChunks; ++c) {
           const int idx = tg + kGroupThreads * c;
@@ -415,7 +420,7 @@ __global__ void __launch_bounds__(kTileThreads)
           const uint4 kw = reinterpret_cast<const uint4*>(cur)[idx];
           const uint4 vw = reinterpret_cast<const uint4*>(cur)[chunks + idx];
           if constexpr (kTC) {
-            const int row = p * bs + idx / (D / 16);
+            const int row = p * ir + idx / (D / 16);
             const int cc = idx % (D / 16);
 #pragma unroll
             for (int kv = 0; kv < 2; ++kv) {
@@ -435,18 +440,18 @@ __global__ void __launch_bounds__(kTileThreads)
                                pack_bf16(f[8 * hc + 6], f[8 * hc + 7]));
             }
           } else {
-            reinterpret_cast<uint4*>(buf + (size_t)p * bs * D)[idx] = kw;
-            reinterpret_cast<uint4*>(buf + (size_t)(step_keys + p * bs) * D)
+            reinterpret_cast<uint4*>(buf + (size_t)p * ir * D)[idx] = kw;
+            reinterpret_cast<uint4*>(buf + (size_t)(step_keys + p * ir) * D)
                 [idx] = vw;
           }
         }
-        for (int e = tg; e < 2 * bs; e += kGroupThreads) {
+        for (int e = tg; e < 2 * ir; e += kGroupThreads) {
           const float sc =
               reinterpret_cast<const float*>(cur + 32 * (size_t)chunks)[e];
-          if (e < bs)
-            fk[p * bs + e] = kTC ? sc * pg::PoolInt8::kKeyFactor : sc;
+          if (e < ir)
+            fk[p * ir + e] = kTC ? sc * pg::PoolInt8::kKeyFactor : sc;
           else
-            fk[step_keys + p * bs + e - bs] =
+            fk[step_keys + p * ir + e - ir] =
                 kTC ? sc * pg::PoolInt8::kValueFactor : sc;
         }
       }
@@ -639,7 +644,7 @@ __global__ void __launch_bounds__(kTileThreads)
   if (gi > 0) return;
   for (int gx = 1; gx < kGroups; ++gx) {
     const float* x = reinterpret_cast<const float*>(
-                         tile_smem + gx * L::group(bs)) +
+                         tile_smem + gx * L::kGroup) +
                      (size_t)tg * xstride;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -686,7 +691,7 @@ template <typename P, typename T, int D>
 cudaError_t launch_tile(const TileArgs& a, int num_kv_heads,
                         cudaStream_t stream) {
   const int tpt = kTilePairs / a.group;
-  const size_t smem = TileSmem<P, T, D>::bytes(a.bs);
+  const size_t smem = TileSmem<P, T, D>::kBytes;
   cudaError_t err = pg::allow_smem(ragged_tile_kernel<P, T, D>, smem);
   if (err != cudaSuccess) return err;
   // work tiles: at most ceil(T / tpt) + num_seqs for the rows and one
@@ -711,8 +716,7 @@ int ragged(const pg::PoolArgs& pool, bool quant, const void* q,
            int num_tokens, int num_seqs, int num_kv_heads, int group,
            int head_dim, int page_size, int pages_per_seq, int num_splits,
            int pages_per_split, float scale, int dtype, void* stream) {
-  if (page_size % 16 != 0 || (head_dim != 64 && head_dim != 128) ||
-      (quant && page_size * head_dim > 16 * kMaxChunks * kGroupThreads) ||
+  if (page_size % kPieceRows != 0 || (head_dim != 64 && head_dim != 128) ||
       (group != 1 && group != 2 && group != 4 && group != 8) ||
       (dtype != kFloat32 && dtype != kBFloat16))
     return cudaErrorInvalidValue;
@@ -789,8 +793,8 @@ extern "C" int ragged_paged_attention_launch(
 
 // K4-int8: the same operands, each pool given as int8 codes [num_kv_heads,
 // num_pages, page_size, head_dim] and f32 scales [num_kv_heads, num_pages,
-// page_size, 1]; q/out f32 or bf16 (dtype); page_size * head_dim at most
-// 2048 (a tile thread stages one 16-byte chunk of a page a tensor).
+// page_size, 1]; q/out f32 or bf16 (dtype); page_size a multiple of 16
+// (the tile kernel stages 16-row pieces of a page, whatever its size).
 extern "C" int ragged_paged_attention_int8_launch(
     const void* q, const void* k_codes, const void* k_scales,
     const void* v_codes, const void* v_scales, const void* kv_lens,

@@ -195,10 +195,8 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
             ml_part.data_ptr(), B, Hkv, Hq // Hkv, D, P, bs, pps, splits,
             per, float(scale), dtype, stream)
     _build.check_status(rc, name)
-    if quant:
-        paged_decode_attention.launches_int8 += 1
-    else:
-        paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention,
+                        "launches_int8" if quant else "launches")
     return out
 
 
@@ -221,3 +219,4 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
+paged_decode_attention.launches_by_thread = {}

@@ -161,7 +161,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _ARGTYPES_INT8 = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-INT8_PAGE_CODES = 2048   # int8 pools: page_size * head_dim at most
 
 
 def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
@@ -187,9 +186,6 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
     chk(Dk == D, name, "pools must be [Hkv, P, bs, D] with q's D")
     check_geometry(name, Hq, Hkv, bs, D)
-    chk(not quant or bs * D <= INT8_PAGE_CODES, name,
-        f"an int8 page of {bs}x{D} codes exceeds {INT8_PAGE_CODES} (a "
-        "tile thread loads one 16-byte chunk of a page)")
     chk(kv_lens.dtype == torch.int32 and kv_lens.shape == (S,), name,
         "kv_lens must be int32 [S]")
     chk(page_indices.dtype == torch.int32 and page_indices.dim() == 2, name,
@@ -208,10 +204,8 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
             o_part.data_ptr(), ml_part.data_ptr(), T, S, Hkv, Hq // Hkv, D,
             P, bs, pps, splits, per, float(scale), dtype, stream)
     _build.check_status(rc, name)
-    if quant:
-        ragged_paged_attention.launches_int8 += 1
-    else:
-        ragged_paged_attention.launches += 1
+    _build.count_launch(ragged_paged_attention,
+                        "launches_int8" if quant else "launches")
     return out
 
 
@@ -238,3 +232,4 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_int8 = 0
+ragged_paged_attention.launches_by_thread = {}

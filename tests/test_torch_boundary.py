@@ -1,14 +1,15 @@
 """The port's boundary: ``paddle_tpu_torch`` stands alone and never hides
 the device or the kernel.
 
-- importing the package (every module of it) pulls in neither ``jax`` nor
-  ``paddle_tpu``, and no module of the package or ``chip_smoke.py``
-  imports either, nor reads an environment variable: only
-  ``utils/envs.py`` reads one, for the dynamics telemetry's
-  ``PADDLE_DYNAMICS*`` switches, the non-finite guard's two variables and
-  the LoRA plane's three sizes alone, so no variable picks a kernel, its
-  plain version or a dispatch plane (``chip_smoke.py`` may set the
-  dynamics' switches);
+- importing the package (every module of it; and the serving control
+  plane's packages, ``serving`` and ``observability``, alone) pulls in
+  neither ``jax`` nor ``paddle_tpu``, and no module of the package or
+  ``chip_smoke.py`` imports either, nor reads an environment variable:
+  only ``utils/envs.py`` reads one, for the dynamics telemetry's
+  ``PADDLE_DYNAMICS*`` switches, the non-finite guard's two variables,
+  the LoRA plane's three sizes and the serving control plane's own
+  reference names, so no variable picks a kernel, its plain version or a
+  dispatch plane (``chip_smoke.py`` may set the dynamics' switches);
 - entry points (the model, the engine, the Predictor) default to the
   card: without CUDA they raise unless the caller asks for the CPU by
   name;
@@ -68,6 +69,23 @@ FORBIDDEN = ("jax", "paddle_tpu")
 def test_import_leaves_jax_and_reference_out():
     code = ("import importlib, json, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            f"print(json.dumps([m for m in {FORBIDDEN!r} "
+            "if m in sys.modules]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("package", ["paddle_tpu_torch.serving",
+                                     "paddle_tpu_torch.observability",
+                                     "paddle_tpu_torch.testing.chaos"])
+def test_control_plane_imports_leave_jax_and_reference_out(package):
+    """The serving control plane and the observability it reads (every
+    module the frontend imports) stand alone: importing either package in
+    a fresh interpreter loads neither ``jax`` nor ``paddle_tpu``."""
+    code = (f"import importlib, json, sys\n"
+            f"importlib.import_module({package!r})\n"
             f"print(json.dumps([m for m in {FORBIDDEN!r} "
             "if m in sys.modules]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -140,16 +158,20 @@ def test_only_the_dynamics_reads_the_environment():
     its ``PADDLE_DYNAMICS*`` names, from ``jit_api.py`` for the
     non-finite guard's two variables, the reference's
     ``PADDLE_NONFINITE_TOLERANCE`` and ``PADDLE_NONFINITE_CHECK_EVERY``,
-    and from the LoRA plane for the reference's three ``PADDLE_LORA_*``
+    from the LoRA plane for the reference's three ``PADDLE_LORA_*``
     sizes (``inference/continuous.py``: the adapters a decode group holds;
-    ``serving/adapters.py``: the registry's byte bounds), and from nowhere
-    else: no variable picks a kernel or a dispatch plane."""
+    ``serving/adapters.py``: the registry's byte bounds), and from the
+    serving control plane's modules for the reference's own names of
+    them (chaos arming, telemetry, devprof, the compile ledger's bounds,
+    the handoff and wire transports, the KV fabric, tenancy, the
+    disaggregation switch; each name also read in ``paddle_tpu/``), and
+    from nowhere else: no variable picks a kernel or a dispatch plane."""
     from paddle_tpu_torch import jit_api
     from paddle_tpu_torch.inference import continuous
     from paddle_tpu_torch.observability import dynamics
     from paddle_tpu_torch.serving import adapters
 
-    readers = {"env_int", "env_float", "env_bool"}
+    readers = {"env_int", "env_float", "env_bool", "env_str"}
     callers = set()
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -157,8 +179,26 @@ def test_only_the_dynamics_reads_the_environment():
                and getattr(n.func, "id", None) in readers
                for n in ast.walk(tree)):
             callers.add(path.relative_to(PKG).as_posix())
+    control_plane = {
+        "testing/chaos.py", "observability/tracing.py",
+        "observability/compilemem.py", "observability/devprof.py",
+        "serving/handoff.py", "serving/transport.py", "serving/kvfabric.py",
+        "serving/tenancy.py", "serving/frontend.py"}
     assert callers == {"observability/dynamics.py", "jit_api.py",
-                       "inference/continuous.py", "serving/adapters.py"}
+                       "inference/continuous.py",
+                       "serving/adapters.py"} | control_plane
+    reference = "".join(p.read_text()
+                        for p in (ROOT / "paddle_tpu").rglob("*.py"))
+    for rel in sorted(control_plane):
+        src = (PKG / rel).read_text()
+        for node in ast.walk(ast.parse(src)):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", None) in readers
+                    and node.args
+                    and isinstance(node.args[0], ast.Constant)):
+                name = node.args[0].value
+                assert f'"{name}"' in reference, (rel, name)
+                assert name not in ("PADDLE_SERVING_RAGGED",), (rel, name)
     names = [v for k, v in vars(dynamics).items() if k.endswith("_ENV")]
     assert len(names) == 6
     assert all(n.startswith("PADDLE_DYNAMICS") for n in names)
