@@ -127,7 +127,17 @@ Phases, one JSON line each (any failed phase exits non-zero):
             during the two builds, the monitor's lock probe spares them,
             none is killed. A differing request passes
             only at an explained near tie;
-11. slice — LLaMA-2-7B's full width at SLICE_LAYERS (16) of its 32
+10c. operator_equal — serve_equal's model at EQUAL_LAYERS through a
+            supervised frontend (``engine_factory=``, ``statusz_port=0``,
+            PADDLE_SUPERVISOR=1, a telemetry directory), card against CPU:
+            frontend_equal's 8 requests, replica0 killed once 16 tokens
+            are out; every request completes with the CPU frontend's
+            tokens under the same kill and the card's single-engine
+            serve's (or an explained near tie); one respawn, and
+            `replica0-g1` serves a second load through K4 and K5; a late
+            heartbeat of the dead incarnation is refused (its fence
+            revoked, `supervisor.fenced_writes` up, its file unchanged);
+11. slice — LLaMA-2-7B's full width at SLICE_LAYERS (8) of its 32
             layers, bf16, seeded weights: 8
             requests through the ragged continuous-batching engine, with
             both kernels' launch counts taken over that run alone;
@@ -148,7 +158,7 @@ Phases, one JSON line each (any failed phase exits non-zero):
             plane with 4 rank-16 adapters on 6 of the 8 requests:
             tokens/s, TTFT, decode steps, peak memory, K4/K5 launches and
             the share of tokens equal to `slice`'s;
-14c. slice_online — LLaMA-2-7B uncut (32 layers) served online through
+14c. slice_online — `slice`'s model (SLICE_LAYERS) served online through
             the port's
             ServingFrontend at bench_serving.py's TPU load (2 replicas of
             max_seqs 4, page_size 64, max_len 2048, decode_block 32,
@@ -161,20 +171,32 @@ Phases, one JSON line each (any failed phase exits non-zero):
             TTFT p50, TPOT p50, errors (0), handoffs, K4/K5 launches per
             mode and per replica, peak memory, and serving_report()'s
             goodput, devprof and memory blocks (telemetry on);
-14d. generate_equal — f32, LLaMA-2-7B widths, 1 layer: generate on the
+14d. slice_operator — `slice`'s model (SLICE_LAYERS) behind a supervised
+            frontend: slice_online's pipelined engines and 16 requests,
+            replica0 killed after a quarter of the tokens; all 16 complete
+            with their full counts, the replacement serves a second load
+            through K4 and K5; every /statusz route scraped over HTTP
+            while the load runs (/varz parsed as Prometheus text, /healthz
+            200, /fleetz and /statusz showing the generations); a
+            HangWatchdog over the serving heartbeats reports the dead
+            incarnation only, with stacks and a `hang` flight record;
+            FleetAggregator lists the live replicas; fleet.bench_block()
+            has no error. Recovery seconds, tokens/s, scrape latencies,
+            peak memory, launches by replica;
+14e. generate_equal — f32, LLaMA-2-7B widths, 1 layer: generate on the
             card and on the CPU gives the same tokens: greedy (B 4,
             prompts of 100, 32 new), an attention_mask batch, sampled,
             beam K 4, speculative with a 1-layer draft (equal to each
             device's greedy), and int8 and int4 weight-only greedy with
             kernel C's exact launches; then a growing-cache decode on K1
             (exact launches, logits against the CPU and the fixed cache);
-14e. generate — LLaMA-2-7B bf16 at GEN_LAYERS (16) of 32, bench.py
+14f. generate — LLaMA-2-7B bf16 at GEN_LAYERS (8) of 32, bench.py
             run_decode's
             traffic (B 8, prompts of 512, 256 new): tokens/s, decode ms a
             step, HBM share, peak memory and a profiled decode; then
-            speculative with an 8-layer draft (gamma 4), beam K 4 at B 2,
-            and int8 and int4 weight-only with the head kept bf16 (kernel
-            C's exact launches, each profiled);
+            speculative with a GEN_LAYERS // 4 draft (gamma 4), beam K 4
+            at B 2, and int8 and int4 weight-only with the head kept bf16
+            (kernel C's exact launches, each profiled);
 15. train_equal — f32, LLaMA-2-7B widths, 1 layer, B 1, S 256: two
             TrainSteps on the card (kernels) and on the CPU (plain
             versions) from the same weights and batches give the same
@@ -245,7 +267,15 @@ Phases, one JSON line each (any failed phase exits non-zero):
             two steps profiled;
 23. moe_generate — that model greedy: bench.py run_decode's traffic (B
             8, 512 + 256), then the engine serving `slice`'s 8 requests
-            with 64 new tokens (K4, K5, D and E launched).
+            with 64 new tokens (K4, K5, D and E launched);
+24. train_operator — LLaMA-2-7B widths, bf16, 2 layers, B 1 x S 2048, a
+            TrainStep with a telemetry directory: the heartbeat file's step
+            follows the steps; ``flightrec.arm_capture(2)`` gives one
+            torch.profiler trace naming K1's forward and backward, AdamW
+            and kernel A by their symbols (and a capture under another
+            profiler is refused); a planted non-finite step commits one
+            `nonfinite` bundle with the dynamics' provenance; a planted
+            stall past a HangWatchdog's deadline gives one hang report.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and the contract's last line. ``--only k1,k2`` runs the named phases alone
@@ -257,7 +287,9 @@ recipe, ``--only wo_linear,generate_equal,generate`` for generation and
 weight-only quantization, ``--only moe_dispatch,moe_equal,moe_train,
 moe_generate`` for mixture of experts, ``--only serve_surface_equal,
 slice_surface`` for the engine's surface, with `slice` run for it,
-``--only frontend_equal,slice_online`` for the serving control plane): it
+``--only frontend_equal,slice_online`` for the serving control plane,
+``--only operator_equal,slice_online,slice_operator,train_operator`` for
+the operator plane): it
 ends in a
 ``partial_run`` line
 and prints neither the kernel table nor the contract's last line, so only
@@ -281,14 +313,16 @@ BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
 PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear",
           "moe_dispatch", "codec",
           "k4", "k5", "k4_int8", "k5_int8", "serve_equal",
-          "serve_surface_equal", "frontend_equal", "slice", "profile",
+          "serve_surface_equal", "frontend_equal", "operator_equal",
+          "slice", "profile",
           "slice_int8", "slice_sampled_prefix", "slice_surface",
-          "slice_online", "generate_equal",
+          "slice_online", "slice_operator", "generate_equal",
           "generate",
           "train_equal", "train_packed_equal",
           "train_equal_s1024", "train_cp_equal", "train_recipe_equal",
           "moe_equal", "train", "train_profile", "train_packed", "train_cp",
-          "train_gqa", "train_recipe", "moe_train", "moe_generate")
+          "train_gqa", "train_recipe", "moe_train", "moe_generate",
+          "train_operator")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 #: depth cuts that keep the call inside its 1200 s budget on a slow host
@@ -297,12 +331,20 @@ PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 #: and generation phases (serve_equal, serve_surface_equal,
 #: generate_equal) at 1 layer of 2; the `slice` family (slice, profile,
 #: slice_int8, slice_sampled_prefix, slice_surface) and `generate` at 16
-#: layers of 32. slice_online keeps all 32, and the training *_equal
-#: phases their 2 (at 1 layer train_equal's parameter rule leaves an
-#: element it cannot explain)
+#: layers of 32; the training *_equal phases keep their 2 (at 1 layer
+#: train_equal's parameter rule leaves an element it cannot explain).
+#: When the operator plane's phases joined (operator_equal at
+#: EQUAL_LAYERS, slice_operator on slice_online's model) a call took
+#: 959.6 s on one host: slice_online (then 32 layers and a model of its
+#: own, 101.6 s of phase with its build) and slice_operator (78 s at 32
+#: layers in a first call) moved onto the `slice` family's model, and
+#: after a call of 868.0 s that family and `generate` went to 8 layers
+#: (the speculative draft to run_spec_decode's layers // 4 of them): the
+#: serving and generation phases are host-bound, their time scales with
+#: the layers' launches
 EQUAL_LAYERS = 1
-SLICE_LAYERS = 16
-GEN_LAYERS = 16
+SLICE_LAYERS = 8
+GEN_LAYERS = 8
 
 
 T0 = time.perf_counter()
@@ -4520,7 +4562,7 @@ def _growing_cache_equal(gpu_model, cpu_model, ids, steps=8):
 
 
 GEN_B, GEN_PROMPT, GEN_NEW = 8, 512, 256   # bench.py run_decode's traffic
-SPEC_DRAFT_LAYERS, SPEC_GAMMA = 8, 4       # run_spec_decode: layers // 4
+SPEC_DRAFT_LAYERS, SPEC_GAMMA = GEN_LAYERS // 4, 4   # run_spec_decode
 
 
 def _weight_bytes(model):
@@ -4585,8 +4627,8 @@ def _decode_row(phase, model, ids, **kw):
 def phase_generate(seed=0):
     """LLaMA-2-7B bf16 at GEN_LAYERS of 32 layers, bench.py run_decode's
     traffic: B 8, prompts of 512, 256 new tokens, greedy: tokens/s, decode
-    ms a step, HBM share, peak memory. Then speculative with an 8-layer
-    draft of the same widths (run_spec_decode's layers // 4) and gamma 4:
+    ms a step, HBM share, peak memory. Then speculative with a draft of
+    the same widths at run_spec_decode's layers // 4 and gamma 4:
     tokens/s, accepted tokens a round, the share of tokens equal to the
     greedy run's; beam search K 4 at B 2; int8 and int4 weight-only with
     the head kept bf16 (bench.py:350): kernel C launches exactly 7 a layer
@@ -5821,7 +5863,8 @@ def online_roles(engines, seed, knobs=ONLINE):
 
 
 def phase_slice_online(model, seed=0):
-    """LLaMA-2-7B bf16, 32 layers (nothing cut), served online through
+    """LLaMA-2-7B bf16 at SLICE_LAYERS of 32 layers (`slice`'s model),
+    served online through
     the port's ServingFrontend at bench_serving.py's TPU load shape: 2
     replicas sharing the model (max_seqs 4, page_size 64, max_len 2048,
     decode_block 32, prefill_chunk 512), 4 batch prompts of 1024-1536
@@ -5866,6 +5909,679 @@ def phase_slice_online(model, seed=0):
         raise AssertionError(f"slice_online roles handoff: {h}")
     rows["ratio"] = ratio
     return rows
+
+
+# -- slice 16: the operator plane (supervisor, fences, /statusz, watchdog,
+# flight recorder, fleet snapshots) ------------------------------------------
+
+class _OperatorEnv:
+    """The operator plane's variables for one run: a telemetry directory of
+    its own (``directory``) and, with ``supervisor``, PADDLE_SUPERVISOR=1
+    with a fast decision loop and backoff and no autoscaling (its hold and
+    cooldown past any run, a floor of 2), so the only spawn is the
+    replacement of the killed replica. Every variable is removed again on
+    exit; the process heartbeat and snapshot publisher, which resolve the
+    directory once, are forgotten on entry and on exit."""
+
+    def __init__(self, directory, supervisor=False):
+        self.directory = directory
+        self.supervisor = supervisor
+
+    def __enter__(self):
+        import os
+
+        from paddle_tpu_torch.observability import watchdog
+
+        os.environ["PADDLE_TELEMETRY_DIR"] = self.directory
+        if self.supervisor:
+            os.environ["PADDLE_SUPERVISOR"] = "1"
+            os.environ["PADDLE_SUPERVISOR_INTERVAL_S"] = "0.05"
+            os.environ["PADDLE_SUPERVISOR_BACKOFF_S"] = "0.1"
+            os.environ["PADDLE_SUPERVISOR_MIN_REPLICAS"] = "2"
+            os.environ["PADDLE_SUPERVISOR_GROW_HOLD_S"] = "3600"
+            os.environ["PADDLE_SUPERVISOR_SHRINK_COOLDOWN_S"] = "3600"
+        watchdog._reset_process_heartbeat()
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        from paddle_tpu_torch.observability import watchdog
+
+        del os.environ["PADDLE_TELEMETRY_DIR"]
+        if self.supervisor:
+            del (os.environ["PADDLE_SUPERVISOR"],
+                 os.environ["PADDLE_SUPERVISOR_INTERVAL_S"],
+                 os.environ["PADDLE_SUPERVISOR_BACKOFF_S"],
+                 os.environ["PADDLE_SUPERVISOR_MIN_REPLICAS"],
+                 os.environ["PADDLE_SUPERVISOR_GROW_HOLD_S"],
+                 os.environ["PADDLE_SUPERVISOR_SHRINK_COOLDOWN_S"])
+        watchdog._reset_process_heartbeat()
+        return False
+
+
+def _scrape(port, route):
+    """GET one route: (status, body text, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=30) as r:
+            body, code = r.read().decode(), r.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read().decode(), e.code
+    return code, body, time.perf_counter() - t0
+
+
+def _prom_families(text):
+    """Parse the Prometheus text exposition strictly enough to trust it:
+    every line a ``# HELP``/``# TYPE`` header or a ``name{labels} value``
+    sample of a declared family. Returns {family: type}."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_]'
+                        r'[a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*\})? (\S+)$')
+    types = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if name in types:
+                raise AssertionError(f"/varz: family {name} declared twice")
+            types[name] = kind
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"/varz: unparseable line {line!r}")
+        name = m.group(1)
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        if name not in types and base not in types:
+            raise AssertionError(f"/varz: sample of undeclared {name}")
+        float(m.group(3))
+    return types
+
+
+def _wait_for(cond, timeout, interval=0.02):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if cond():
+            return True
+        time.sleep(interval)
+    return cond()
+
+
+def _submit_retrying(fe, prompt, new, slo, timeout):
+    """``fe.submit`` as a client makes it: an ``Overloaded`` refusal is
+    retried after its ``retry_after_s``, for up to ``timeout`` seconds."""
+    from paddle_tpu_torch.serving import Overloaded
+
+    t0 = time.monotonic()
+    while True:
+        try:
+            return fe.submit(prompt, new, slo_class=slo)
+        except Overloaded as e:
+            if time.monotonic() - t0 > timeout:
+                raise
+            time.sleep(min(max(e.retry_after_s, 0.05), 5.0))
+
+
+def op_kill_run(engines, factory, load, kill_after_tokens, timeout,
+                scrape=None, on_kill=None, after=None):
+    """One supervised run: a ServingFrontend over ``engines`` with
+    ``engine_factory=factory`` and ``statusz_port=0`` (the supervisor
+    attached by PADDLE_SUPERVISOR), the ``load`` submitted open loop,
+    replica0 killed once the handles hold ``kill_after_tokens`` generated
+    tokens, the replacement waited for. ``scrape(frontend, stop)`` runs on
+    a thread of its own while the load runs; ``on_kill(frontend, dead)``
+    right after the kill; ``after(frontend)`` once every result is in,
+    before shutdown. The replacement's launches are counted from the
+    moment its dispatcher appears (a new thread may reuse the dead one's
+    ident). Returns a dict of the run."""
+    import threading
+
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    out = {}
+    respawns0 = _serving_counter("supervisor.respawns")
+    with ServingFrontend(engines, engine_factory=factory, statusz_port=0,
+                         heartbeat_deadline_s=600.0,
+                         monitor_interval_s=0.05, start=False) as fe:
+        if fe.supervisor is None:
+            raise AssertionError("PADDLE_SUPERVISOR=1 attached no supervisor")
+        handles = [fe.submit(p, n, slo_class=slo) for p, n, slo in load]
+        dead = fe.replicas[0]
+        stop = threading.Event()
+        scraper = None
+        if scrape is not None:
+            scraper = threading.Thread(target=scrape, args=(fe, stop),
+                                       name="operator-scrape")
+        t0 = time.perf_counter()
+        fe.start()
+        if scraper is not None:
+            scraper.start()
+        try:
+            if not _wait_for(lambda: sum(len(h.tokens_so_far())
+                                         for h in handles)
+                             >= kill_after_tokens and dead.inflight,
+                             timeout):
+                raise AssertionError(
+                    "operator: the load never reached the kill point")
+            out["tokens_at_kill"] = sum(len(h.tokens_so_far())
+                                        for h in handles)
+            t_kill = time.perf_counter()
+            fe.kill("replica0", reason="chip_smoke: killed mid-load")
+            if on_kill is not None:
+                on_kill(fe, dead)
+
+            def replaced():
+                rep = fe._by_name.get("replica0-g1")
+                ok = (rep is not None and rep.state == "LIVE"
+                      and rep.thread_ident is not None)
+                if ok and "replacement_base" not in out:
+                    out["replacement_base"] = _thread_counts(
+                        rep.thread_ident)
+                return ok
+
+            if not _wait_for(replaced, timeout):
+                raise AssertionError(
+                    f"operator: no live replacement in {timeout} s: "
+                    f"{[(r.name, r.state) for r in fe.replicas]}")
+            out["recovery_s"] = time.perf_counter() - t_kill
+            outs, errors = [], []
+            for h in handles:
+                try:
+                    outs.append(h.result(timeout=timeout))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    outs.append(None)
+                    errors.append(f"{type(e).__name__}: {e}")
+            out["wall_s"] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            if scraper is not None:
+                scraper.join(120)
+        respawns = _serving_counter("supervisor.respawns") - respawns0
+        out.update(outputs=outs, errors=errors, respawns=respawns,
+                   replicas={r.name: {"state": r.state,
+                                      "thread": r.thread_ident,
+                                      "index": r.index,
+                                      "completed": sum(h.replica == r.name
+                                                       for h in handles)}
+                             for r in fe.replicas},
+                   dead={"name": dead.name, "index": dead.index,
+                         "state": dead.state},
+                   report=fe.serving_report())
+        if after is not None:
+            out["after"] = after(fe)
+        for name, rep in out["replicas"].items():
+            rep["kernels"] = _thread_counts(rep["thread"])
+            if name == "replica0-g1":
+                base = out["replacement_base"]
+                rep["kernels"] = {k: v - base[k]
+                                  for k, v in rep["kernels"].items()}
+    return out
+
+
+def phase_operator_equal(seed=3):
+    """f32, LLaMA-2-7B widths at EQUAL_LAYERS layers: the supervised
+    frontend on the card against the same on the CPU. Two ragged replicas
+    (frontend_equal's engines) behind ``ServingFrontend(engine_factory=,
+    statusz_port=0)`` with PADDLE_SUPERVISOR=1 and a telemetry directory;
+    frontend_equal's 8 requests; replica0 killed once 16 tokens are out.
+    Every request completes (none errors, none hangs) with the CPU
+    frontend's tokens under the same kill and the card's single-engine
+    serve's, a difference passing only at an explained near tie;
+    ``supervisor.respawns`` rises by 1 and ``replica0-g1`` serves a second
+    load (8 fresh prompts, the single-engine serve's tokens), launching K4
+    and K5; a late heartbeat of the dead incarnation is refused
+    (``fence_writable()`` False, ``supervisor.fenced_writes`` up, its
+    heartbeat file unchanged); /healthz answers 200."""
+    import os
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
+
+    cfg = llama2_7b()
+    cfg.num_hidden_layers = EQUAL_LAYERS
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    load = [(p, FE_NEW, slo) for p, slo in fe_load(seed, cfg.vocab_size)]
+    again = [(p, FE_NEW, slo) for p, slo in fe_load(seed + 1,
+                                                    cfg.vocab_size)]
+    fence = {}
+
+    def plant_late_write(fe, dead):
+        # a zombie dispatcher's late beat, once the supervisor has fenced
+        # the incarnation (it revokes before it spawns)
+        if not _wait_for(lambda: "replica0-g1" in fe._by_name, 60):
+            raise AssertionError("operator_equal: no replacement spawned")
+        hb = os.path.join(fence["dir"], "serving",
+                          f"heartbeat.{dead.index}.json")
+        before = open(hb, "rb").read()
+        fenced0 = _serving_counter("supervisor.fenced_writes")
+        dead._wd_last_write = 0.0
+        dead.beat()
+        fence.update(writable=dead.fence_writable(),
+                     fenced_writes=_serving_counter("supervisor.fenced_writes")
+                     - fenced0,
+                     heartbeat_unchanged=open(hb, "rb").read() == before,
+                     fence=repr(dead.fence))
+
+    def serve_again(fe):
+        hs = [_submit_retrying(fe, p, n, slo, 120) for p, n, slo in again]
+        outs = [h.result(timeout=120) for h in hs]
+        code, _, secs = _scrape(fe.statusz.port, "/healthz")
+        return {"outputs": outs, "healthz": code, "healthz_s": secs,
+                "by_replica": {r.name: sum(h.replica == r.name for h in hs)
+                               for r in fe.replicas}}
+
+    def run(model, device, after=None, on_kill=None):
+        eng = fe_engines(model, device)
+        d = tempfile.mkdtemp(prefix=f"op_{device}_")
+        fence.setdefault("dir", d)
+        with _OperatorEnv(d, supervisor=True):
+            return op_kill_run(
+                eng, lambda: fe_engines(model, device, n=1)[0], load,
+                kill_after_tokens=FE_NEW, timeout=600, on_kill=on_kill,
+                after=after)
+
+    _reset_counts()
+    card = run(gpu_model, "cuda", after=serve_again, on_kill=plant_late_write)
+    torch.cuda.synchronize()
+    card_serve = fe_engines(gpu_model, "cuda", n=1)[0].serve(
+        [p for p, _, _ in load + again], FE_NEW)
+    cpu = run(cpu_model, "cpu")
+    prompts_n = len(load)
+    rows = {"phase": "operator_equal", "layers": EQUAL_LAYERS,
+            "dtype": "float32", "requests": prompts_n,
+            "new_tokens": FE_NEW,
+            "card": {k: card[k] for k in ("tokens_at_kill", "recovery_s",
+                                          "wall_s", "errors", "respawns",
+                                          "replicas", "dead")},
+            "cpu": {k: cpu[k] for k in ("tokens_at_kill", "recovery_s",
+                                        "wall_s", "errors", "respawns",
+                                        "dead")},
+            "fence": fence,
+            "after": {k: v for k, v in card["after"].items()
+                      if k != "outputs"},
+            "supervisor": card["report"].get("supervisor", {}).get(
+                "domains")}
+    if card["errors"] or cpu["errors"]:
+        raise AssertionError(f"operator_equal: requests failed: "
+                             f"{card['errors']} {cpu['errors']}")
+    rows["vs_cpu_frontend"] = _near_tie_check(
+        "operator_equal vs CPU frontend", card["outputs"], cpu["outputs"],
+        gpu_model, cpu_model)
+    rows["vs_card_serve"] = _near_tie_check(
+        "operator_equal vs card serve", card["outputs"],
+        card_serve[:prompts_n], gpu_model, cpu_model)
+    rows["again_vs_card_serve"] = _near_tie_check(
+        "operator_equal second load vs card serve", card["after"]["outputs"],
+        card_serve[prompts_n:], gpu_model, cpu_model)
+    emit(rows)
+    new = card["replicas"].get("replica0-g1", {})
+    k = new.get("kernels", {})
+    if card["respawns"] != 1 or cpu["respawns"] != 1:
+        raise AssertionError(f"operator_equal: respawns {card['respawns']} "
+                             f"on the card, {cpu['respawns']} on the CPU")
+    if not (new.get("state") == "LIVE" and k.get("ragged_paged_attention")
+            and k.get("paged_decode_attention")):
+        raise AssertionError(f"operator_equal: replica0-g1 did not serve "
+                             f"through K4 and K5: {new}")
+    if not (fence.get("writable") is False and fence["fenced_writes"] >= 1
+            and fence["heartbeat_unchanged"]):
+        raise AssertionError(f"operator_equal: the late write was not "
+                             f"refused: {fence}")
+    if card["after"]["healthz"] != 200:
+        raise AssertionError(f"operator_equal: /healthz "
+                             f"{card['after']['healthz']}")
+    del gpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_slice_operator(model, seed=0, knobs=ONLINE):
+    """LLaMA-2-7B bf16 at SLICE_LAYERS of 32 layers (the `slice` family's
+    model, as slice_online) behind a supervised frontend: slice_online's
+    `pipelined` engines (ragged, 2 replicas, page 64, decode_block 32,
+    prefill_chunk 512) with ``engine_factory=`` (a replacement shares the
+    model, with pools of its own) and ``statusz_port=0``, under
+    slice_online's 16 requests; replica0 killed once a quarter of the
+    tokens are out. All 16 complete with their full token counts and 0
+    errors; the kill reroutes replica0's requests to its sibling before
+    the replacement exists, so the replacement serves a second load (4
+    interactive requests) and launches K4 and K5 there. While the load
+    runs every route of ``route_names()`` is scraped over HTTP (/varz
+    parsed as the Prometheus text format with the serving_* families,
+    /healthz 200, /fleetz and /statusz showing the generations). Then a
+    HangWatchdog over ``<dir>/serving`` reports the dead incarnation's
+    stale heartbeat, with stacks and a `hang` flight record, and no live
+    replica; FleetAggregator over the serving snapshots lists both live
+    replicas; ``fleet.bench_block()`` has no `error`. Prints recovery
+    seconds, tokens/s, scrape latencies, peak memory and the launches by
+    replica."""
+    import json as _json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.observability import fleet, watchdog
+
+    rng = np.random.RandomState(seed)
+    load = online_load(rng, model.config.vocab_size, knobs)
+    total = sum(n for _, n, _ in load)
+    scrapes = []
+
+    def scrape(fe, stop):
+        # a full round of every route while the load runs, then more
+        # rounds until it ends
+        names = fe.statusz.route_names()
+        while True:
+            for route in names:
+                code, body, secs = _scrape(fe.statusz.port, route)
+                scrapes.append({"route": route, "code": code, "s": secs,
+                                "body": body if route in (
+                                    "/varz", "/fleetz", "/statusz",
+                                    "/healthz") else None})
+            if stop.is_set():
+                return
+            stop.wait(1.0)
+
+    d = tempfile.mkdtemp(prefix="op_slice_")
+    gc.collect()
+    engines = online_engines(model, "pipelined", knobs["n_replicas"], knobs)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    # a process heartbeat with the SIGUSR1 faulthandler hook, registered
+    # from the main thread before any watchdog runs (in a directory of its
+    # own, so /healthz reads no stale rank of it)
+    hook = watchdog.Heartbeat(os.path.join(d, "process"), rank=0)
+    # serving heartbeats carry no step: the startup deadline is the one
+    # that applies, set to the step deadline here
+    wd = watchdog.HangWatchdog(os.path.join(d, "serving"), deadline_s=5.0,
+                               startup_deadline_s=5.0, signal_grace_s=0.2)
+
+    # the kill reroutes replica0's requests to its live sibling before the
+    # replacement exists, so a second load (4 interactive requests, placed
+    # by load over two idle replicas) is what the replacement serves
+    again = [(rng.randint(1, model.config.vocab_size, (int(rng.randint(
+        8, 24)),)).astype(np.int32), knobs["inter_new"], "interactive")
+        for _ in range(4)]
+
+    def after(fe):
+        # the load left the brownout ladder high (its pressure sat at 1):
+        # a client retries an Overloaded submit after its retry_after_s
+        hs = [_submit_retrying(fe, p, n, slo, 120) for p, n, slo in again]
+        again_out = [h.result(timeout=600) for h in hs]
+        view = fleet.FleetAggregator(d).collect()
+        bench = fleet.bench_block()
+        # the dead incarnation's heartbeat file goes stale past the
+        # watchdog's deadline while its siblings keep beating
+        stale_for = wd.deadline_s + 1.0
+        _wait_for(lambda: time.time() - _json.load(open(os.path.join(
+            d, "serving", "heartbeat.0.json")))["time"] > stale_for, 30)
+        return {"view": view, "bench": bench, "scan": wd.scan_once(),
+                "again_tokens": [len(o) - len(p) for o, (p, _, _)
+                                 in zip(again_out, again)],
+                "again_by_replica": {r.name: sum(h.replica == r.name
+                                                 for h in hs)
+                                     for r in fe.replicas}}
+
+    with _OperatorEnv(d, supervisor=True):
+        run = op_kill_run(
+            engines,
+            lambda: online_engines(model, "pipelined", 1, knobs)[0],
+            load, kill_after_tokens=total // 4, timeout=600,
+            scrape=scrape, after=after)
+        torch.cuda.synchronize()
+    hook.close()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = _counts()
+    # the results
+    n_tokens = [None if o is None else len(o) - len(p)
+                for o, (p, _, _) in zip(run["outputs"], load)]
+    want_tokens = [n for _, n, _ in load]
+    lat = {}
+    for s in scrapes:
+        lat.setdefault(s["route"], []).append(s["s"])
+    codes = {}
+    for s in scrapes:
+        codes.setdefault(s["route"], set()).add(s["code"])
+    last = {s["route"]: s for s in scrapes}
+    report = None
+    if run["after"]["scan"]:
+        report = _json.load(open(run["after"]["scan"]))
+    flight = sorted(os.listdir(os.path.join(d, "serving", "flight"))) \
+        if os.path.isdir(os.path.join(d, "serving", "flight")) else []
+    view = run["after"]["view"]
+    live = {r["index"] for r in run["replicas"].values()
+            if r["state"] == "LIVE"}
+    members = {int(m["rank"].split("@")[0]) if isinstance(m["rank"], str)
+               else int(m["rank"]) for m in view["members"].values()
+               if m["role"] == "replica"}
+    row = {"phase": "slice_operator", "layers": model.config.num_hidden_layers,
+           "dtype": str(model.config.dtype), "requests": len(load),
+           "tokens": sum(n for n in n_tokens if n),
+           "tokens_per_sec": sum(n for n in n_tokens if n) / run["wall_s"],
+           "wall_s": run["wall_s"], "tokens_at_kill": run["tokens_at_kill"],
+           "recovery_s": run["recovery_s"], "respawns": run["respawns"],
+           "errors": run["errors"], "peak_mem_gb": peak, "kernels": counts,
+           "replica_kernels": {n: r["kernels"]
+                               for n, r in run["replicas"].items()},
+           "replicas": {n: {k: v for k, v in r.items() if k != "kernels"}
+                        for n, r in run["replicas"].items()},
+           "scrape_rounds": len(lat.get("/healthz", [])),
+           "scrape_ms": {r: {"p50": 1e3 * statistics.median(v),
+                             "max": 1e3 * max(v), "n": len(v)}
+                         for r, v in sorted(lat.items())},
+           "scrape_codes": {r: sorted(c) for r, c in sorted(codes.items())},
+           "watchdog": None if report is None else {
+               "stalled_ranks": report["stalled_ranks"],
+               "stacks": {r: bool(v["stacks"])
+                          for r, v in report["ranks"].items()},
+               "flight": flight, "deadline_s": wd.deadline_s},
+           "again_tokens": run["after"]["again_tokens"],
+           "again_by_replica": run["after"]["again_by_replica"],
+           "fleet_members": sorted(view["members"]),
+           "bench_block": run["after"]["bench"],
+           "supervisor": run["report"].get("supervisor", {}).get("domains")}
+    emit(row)
+    errors = []
+    if run["errors"] or n_tokens != want_tokens \
+            or row["again_tokens"] != [n for _, n, _ in again]:
+        errors.append(f"requests: {run['errors']} tokens {n_tokens} of "
+                      f"{want_tokens}, second load {row['again_tokens']}")
+    if run["respawns"] != 1:
+        errors.append(f"respawns {run['respawns']}")
+    k = run["replicas"].get("replica0-g1", {}).get("kernels", {})
+    if not (k.get("ragged_paged_attention")
+            and k.get("paged_decode_attention")):
+        errors.append(f"replica0-g1 launched {k}")
+    routes = set(scrapes and {s["route"] for s in scrapes})
+    if not scrapes or routes != set(last) or any(
+            c != {200} for r, c in codes.items()):
+        errors.append(f"scrapes: {row['scrape_codes']}")
+    else:
+        fams = _prom_families(last["/varz"]["body"])
+        serving_fams = sorted(f for f in fams if f.startswith("serving_"))
+        row["varz_serving_families"] = len(serving_fams)
+        if not serving_fams:
+            errors.append("/varz has no serving_* family")
+        fz = _json.loads(last["/fleetz"]["body"])
+        sz = _json.loads(last["/statusz"]["body"])
+        gens = sz.get("serving", {}).get("supervisor", {}).get(
+            "domains", {}).get("replica0", {}).get("generation")
+        if "generations_seen" not in fz or gens != 1:
+            errors.append(f"/fleetz generations {fz.get('generations_seen')}"
+                          f", /statusz replica0 generation {gens}")
+    if report is None or report["stalled_ranks"] != [run["dead"]["index"]] \
+            or not report["ranks"][str(run["dead"]["index"])]["stacks"] \
+            or not any(f.startswith("hang_") for f in flight):
+        errors.append(f"watchdog: {row['watchdog']}")
+    if not live <= members:
+        errors.append(f"fleet members {sorted(members)}, live {sorted(live)}")
+    if "error" in run["after"]["bench"]:
+        errors.append(f"bench_block: {run['after']['bench']}")
+    engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError(f"slice_operator: {errors}")
+    return row
+
+
+#: the training kernels a capture of train_operator's steps must name (the
+#: symbols of ops/csrc/): K1's forward and backward, AdamW, kernel A
+TRAIN_SYMBOLS = {"flash_fwd": "flash_fwd_hopper",
+                 "flash_bwd_delta": "flash_bwd_delta_kernel",
+                 "flash_bwd_dkdv": "flash_dkdv_hopper",
+                 "flash_bwd_dq": "flash_dq_hopper",
+                 "adamw": "adamw_kernel",
+                 "grad_norm": "sumsq_partials"}
+
+
+def phase_train_operator(seed=24, S=2048):
+    """LLaMA-2-7B widths, bf16, 2 layers (train's recipe: recompute "full",
+    fused CE, AdamW), B 1 x S 2048, a TrainStep with PADDLE_TELEMETRY_DIR
+    and PADDLE_DYNAMICS set: the heartbeat file's step follows the steps;
+    ``flightrec.arm_capture(2)`` yields one torch.profiler trace of 2 steps
+    naming K1's forward and backward, AdamW and kernel A by their symbols
+    (and a capture armed while another profiler runs is refused); a step
+    whose loss is planted non-finite (``run_steps``, whose check always
+    runs) commits one `nonfinite` bundle with the dynamics' provenance; a
+    step stalled past a HangWatchdog's deadline yields one hang report."""
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM, LlamaPretrainingCriterion, llama2_7b,
+    )
+    from paddle_tpu_torch.jit_api import TrainStep
+    from paddle_tpu_torch.observability import flightrec, watchdog
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama2_7b(dtype="bfloat16", use_recompute=True,
+                    recompute_policy="full", fuse_linear_cross_entropy=True)
+    cfg.num_hidden_layers = 2
+    d = tempfile.mkdtemp(prefix="op_train_")
+    os.environ["PADDLE_DYNAMICS"] = "1"
+    os.environ["PADDLE_DYNAMICS_EVERY_STEPS"] = "1"
+    box = {"scale": 1.0, "sleep": 0.0}
+    crit = LlamaPretrainingCriterion(cfg)
+
+    def loss_fn(*a):
+        if box["sleep"]:
+            time.sleep(box["sleep"])      # the planted stall
+        return crit(*a) * box["scale"]    # NaN: the planted bad step
+
+    row = {"phase": "train_operator", "layers": 2, "dtype": "bfloat16",
+           "B": 1, "S": S}
+    try:
+        with _OperatorEnv(d):
+            model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+            step = TrainStep(model, loss_fn, AdamW(
+                learning_rate=1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01), device="cuda")
+            batches = _token_batches(seed, cfg.vocab_size, 8, 1, S)
+            hb_path = os.path.join(d, "heartbeat.0.json")
+            hb = [_json.load(open(hb_path))["step"]]
+            for b in batches[:3]:
+                step(*b)
+                torch.cuda.synchronize()
+                time.sleep(watchdog.BEAT_INTERVAL_S + 0.05)
+                hb.append(_json.load(open(hb_path))["step"])
+            row["heartbeat_steps"] = hb
+            # the capture: refused under a foreign profiler, then 2 steps
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                refused = flightrec.arm_capture(1, trigger="refused")
+            cap_dir = os.path.join(d, "capture")
+            armed = flightrec.arm_capture(2, log_dir=cap_dir)
+            t0 = time.perf_counter()
+            for b in batches[3:6]:
+                step(*b)
+            torch.cuda.synchronize()
+            row["capture_s"] = time.perf_counter() - t0
+            status = flightrec.capture_status()
+            trace = _json.load(open(os.path.join(cap_dir, "trace.json")))
+            names = {e.get("name", "") for e in trace.get("traceEvents", [])
+                     if e.get("cat") == "kernel"}
+            found = {k: sum(sym in n for n in names)
+                     for k, sym in TRAIN_SYMBOLS.items()}
+            row.update(capture_refused=refused, capture_armed="armed" in armed,
+                       capture=status["completed"][-1] if status["completed"]
+                       else None, capture_active=status["active"],
+                       capture_kernels=found,
+                       capture_kernel_events=len(names))
+            # the planted non-finite step
+            skips0 = _serving_counter("train.nonfinite_skips")
+            box["scale"] = float("nan")
+            b = batches[6]
+            step.run_steps(*b, n=1)
+            box["scale"] = 1.0
+            torch.cuda.synchronize()
+            bundles = sorted(f for f in os.listdir(os.path.join(d, "flight"))
+                             if f.startswith("nonfinite_"))
+            prov = (_json.load(open(os.path.join(d, "flight", bundles[0])))
+                    ["payload"]["provenance"] if bundles else None)
+            skips = _serving_counter("train.nonfinite_skips") - skips0
+            row.update(nonfinite_skips=skips, nonfinite_bundles=bundles,
+                       provenance=prov)
+            # the planted stall, past the watchdog's deadline
+            reports = []
+            wd = watchdog.HangWatchdog(d, deadline_s=1.5,
+                                       startup_deadline_s=1.5,
+                                       interval_s=0.1, signal_grace_s=0.2,
+                                       on_hang=reports.append).start()
+            box["sleep"] = 4.0
+            step(*batches[7])
+            box["sleep"] = 0.0
+            torch.cuda.synchronize()
+            wd.fired.wait(10)
+            wd.stop()
+            hang = (_json.load(open(reports[0])) if reports else None)
+            row.update(hang_reports=len(reports),
+                       hang_stalled=hang and hang["stalled_ranks"],
+                       hang_stacks=bool(hang and hang["ranks"]["0"]["stacks"]),
+                       hang_flight=sorted(
+                           f for f in os.listdir(os.path.join(d, "flight"))
+                           if f.startswith("hang_")))
+    finally:
+        del os.environ["PADDLE_DYNAMICS"], os.environ[
+            "PADDLE_DYNAMICS_EVERY_STEPS"]
+        flightrec._reset()
+    emit(row)
+    errors = []
+    if hb != [None, 1, 2, 3]:
+        errors.append(f"heartbeat steps {hb}")
+    if "error" not in refused or not row["capture_armed"] \
+            or not row["capture"] or row["capture"].get("error") \
+            or row["capture_active"] is not None \
+            or not all(found.values()):
+        errors.append(f"capture: {row['capture']} {found} {refused}")
+    if row["nonfinite_skips"] != 1 or len(bundles) != 1 or not prov \
+            or not prov.get("first_groups"):
+        errors.append(f"nonfinite: {row['nonfinite_skips']} {bundles} {prov}")
+    if row["hang_reports"] != 1 or row["hang_stalled"] != [0] \
+            or not row["hang_flight"]:
+        errors.append(f"hang: {row['hang_reports']} {row['hang_stalled']} "
+                      f"{row['hang_flight']}")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError(f"train_operator: {errors}")
+    return row
 
 
 def kernel_table(rows):
@@ -5921,7 +6637,11 @@ def kernel_table(rows):
                       "slice_online_launches": {
                           m: rows["slice_online"][m]["kernels"][name]
                           for m in ("baseline", "pipelined")
-                          if "slice_online" in rows}})
+                          if "slice_online" in rows},
+                      # the supervised frontend with a replica killed
+                      "slice_operator_launches": rows.get(
+                          "slice_operator", {}).get("kernels", {}).get(
+                              name)})
     errs = {"fwd": ("o",), "bwd_delta": ("delta",), "bwd_dkdv": ("dk", "dv"),
             "bwd_dq": ("dq",)}
     for entry, keys in errs.items():
@@ -6225,9 +6945,11 @@ def main(argv=None):
     if runs("frontend_equal"):
         rows["frontend_equal"] = phase_frontend_equal(
             {n: b["seconds"] for n, b in built.items()})
+    if runs("operator_equal"):
+        rows["operator_equal"] = phase_operator_equal()
     serving = [p for p in ("slice", "profile", "slice_int8",
                            "slice_sampled_prefix", "slice_surface",
-                           "slice_online") if runs(p)]
+                           "slice_online", "slice_operator") if runs(p)]
     if serving:
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
@@ -6251,13 +6973,9 @@ def main(argv=None):
         if runs("slice_surface"):
             rows["slice_surface"] = phase_slice_surface(model, ref)
         if runs("slice_online"):
-            # the whole depth: slice_online serves LLaMA-2-7B uncut
-            del model
-            gc.collect()
-            torch.cuda.empty_cache()
-            model = LlamaForCausalLM(llama2_7b(dtype="bfloat16"),
-                                     device="cuda", seed=0)
             rows["slice_online"] = phase_slice_online(model)
+        if runs("slice_operator"):
+            rows["slice_operator"] = phase_slice_operator(model)
         # free the serving model and engines before training; cuBLAS
         # keeps a workspace for each (thread handle, stream) it ran on,
         # in the caching allocator (every engine runs on a stream of its
@@ -6318,6 +7036,10 @@ def main(argv=None):
         if runs("moe_generate"):
             rows["moe_generate"] = phase_moe_generate(model)
         del model
+    if runs("train_operator"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows["train_operator"] = phase_train_operator()
 
     if only is not None:
         # a partial run drove only some phases: no kernel table and no

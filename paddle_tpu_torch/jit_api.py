@@ -12,7 +12,14 @@ at a time (the AdamW kernel takes the scale and the clip factor from the
 device and applies them in registers). The reference's rounding points
 (:328-366) are kept: ``g / scale`` in f32, the finite check on those
 gradients, the clip on them, the cast to the updated weight's dtype.
-The watchdog, device profiling, the compile ledger and ``run_steps`` as
+The operator plane's hooks are the reference's (:241-245, :499-509,
+:542-548, :651-654): construction registers with the hang watchdog
+(``watchdog.arm_from_env``), every call beats (``watchdog.maybe_beat``,
+which also publishes the fleet snapshot on its cadence) and ticks the
+flight recorder's profiler capture (``flightrec.maybe_capture_step``,
+counting the n steps of ``run_steps``), and the guard's check commits a
+``nonfinite`` flight-record bundle, with the dynamics' provenance, when it
+finds new skips. Device profiling, the compile ledger and ``run_steps`` as
 one captured program come in a later slice of the port (ROADMAP.md).
 """
 import math
@@ -23,6 +30,8 @@ import torch
 from .device import resolve
 from .utils.envs import env_int
 from .nn.clip import ClipGradByGlobalNorm
+from .observability import flightrec as _flightrec
+from .observability import watchdog as _watchdog
 from .observability.dynamics import DynamicsMonitor
 from .observability.metrics import registry as _registry
 from .ops.adamw import UpdateNorms, transform_grad
@@ -75,7 +84,12 @@ class TrainStep:
     - ``metrics_bus`` (``utils.metrics_bus.StepMetricsBus``) gets
       ``on_step(loss=...)`` after every call (:655-660);
     - ``PADDLE_DYNAMICS=1`` attaches a ``DynamicsMonitor`` (:232): its
-      carry moves every step and spills on its cadence (:576-596).
+      carry moves every step and spills on its cadence (:576-596);
+    - with ``PADDLE_TELEMETRY_DIR`` set, the step beats
+      ``heartbeat.<rank>.json`` there (phase "init" at construction, then
+      the step count) and commits flight-record bundles under
+      ``flight/``; an armed ``flightrec.arm_capture(k)`` traces the next k
+      steps with ``torch.profiler``.
 
     ``device`` (default "cuda") is where the batch goes and where the
     model's parameters must already be; without CUDA it raises unless
@@ -125,6 +139,10 @@ class TrainStep:
         #: needed none) and whether it skipped the update
         self.last_stats = None
         self.last_skipped = False
+        # register with the hang watchdog before the first step: a rank
+        # that wedges in its first kernel build or step must still be
+        # diagnosable (the init beat gets the longer startup deadline)
+        _watchdog.arm_from_env()
 
     def _tensor(self, b):
         t = torch.from_numpy(np.asarray(b)) if not isinstance(
@@ -288,9 +306,12 @@ class TrainStep:
         for _ in range(ticks):
             if sched is not None:
                 sched.step()
+        _watchdog.maybe_beat(self._calls)
         # one dispatch covered the n steps of run_steps: always checked
         self._nf_check(force=batch is None)
         self._dyn_check(n=ticks)
+        # the capture counts train steps: run_steps' call burns n
+        _flightrec.maybe_capture_step(self._calls, n=ticks)
         bus = self.metrics_bus
         if bus is not None and batch is not None:
             if bus.tokens_per_step is None and batch:
@@ -309,14 +330,24 @@ class TrainStep:
             return
         self._nf_since_check = 0
         consec, total = self._nf_read()
+        prov = None
         if total > self._nf_reported:
             _registry.counter("train.nonfinite_skips").inc(
                 total - self._nf_reported)
             self._nf_reported = total
+            # the dynamics carry knows which layer group went NaN/Inf
+            # first: the bundle carries it (rate-limited, so a skip storm
+            # commits one bundle a window)
+            prov = self._nf_provenance()
+            _flightrec.record(
+                "nonfinite", step=self._calls,
+                payload={"skips_total": total, "consecutive": consec,
+                         "tolerance": self._nf_tolerance,
+                         "provenance": prov})
         if consec < self._nf_tolerance:
             return
-        prov = (self._dynamics.provenance(self._dyn_state)
-                if self._dynamics is not None else None)
+        if prov is None:
+            prov = self._nf_provenance()
         where = ""
         if prov:
             where = (f"; first non-finite gradients in layer group(s) "
@@ -328,6 +359,13 @@ class TrainStep:
             f"all){where}; every skipped update left the weights untouched: "
             f"lower the learning rate, check the data, or raise "
             f"{NONFINITE_TOLERANCE_ENV}")
+
+    def _nf_provenance(self):
+        """The dynamics' first-non-finite record (None without dynamics or
+        while everything stayed finite)."""
+        if self._dynamics is None:
+            return None
+        return self._dynamics.provenance(self._dyn_state)
 
     def _nf_read(self):
         """The guard's counters (consec, total) as the check reads them."""

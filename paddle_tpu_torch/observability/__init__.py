@@ -2,38 +2,47 @@
 metrics registry (``metrics``), span tracing (``tracing``), request-scoped
 traces (``request_trace``), goodput accounting (``goodput``), SLO burn
 rates (``slo``), the compile and device-memory ledgers with OOM forensics
-(``compilemem``), the device-time plane (``devprof``), the serving fleet
-rollup (``fleet``) and the training-dynamics monitor (``dynamics``).
+and the in-flight build breadcrumb (``compilemem``), the device-time plane
+(``devprof``), the fleet snapshots, aggregator and serving rollup
+(``fleet``), the training-dynamics monitor (``dynamics``), the hang
+watchdog and heartbeats (``watchdog``), the anomaly flight recorder and
+its ``torch.profiler`` capture registry (``flightrec``) and the
+``/statusz`` introspection server (``statusz``).
 
 Metric publication is always on; span tracing and goodput timers cost a
 shared no-op context manager while disabled (``PADDLE_TELEMETRY`` or
-``enable()`` turns them on). The status server, the hang watchdog, the
-flight recorder and the fleet's training side come with the operator
-plane (ROADMAP.md, slice 16).
+``enable()`` turns them on). Heartbeats, fleet snapshots and flight
+records go to ``PADDLE_TELEMETRY_DIR`` when it is set.
 """
 from . import (  # noqa: F401
-    compilemem, devprof, dynamics, fleet, goodput, request_trace, slo,
-    tracing,
+    compilemem, devprof, dynamics, fleet, flightrec, goodput,
+    request_trace, slo, statusz, tracing, watchdog,
 )
 from .compilemem import CompileLedger, MemoryLedger, record_compile
 from .devprof import DevProfPlane
 from .dynamics import DynamicsMonitor
+from .fleet import FleetAggregator, SnapshotPublisher
+from .flightrec import FlightRecorder
 from .goodput import GoodputAccountant
 from .metrics import (
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, MetricsRegistry, registry,
 )
 from .slo import SLOMonitor, SLOObjective
+from .statusz import StatusServer
 from .tracing import (
     JsonlSpanSink, add_jsonl_sink, disable, enable, enabled, last_spans,
     span,
 )
+from .watchdog import HangWatchdog, Heartbeat, maybe_beat
 
 __all__ = [
-    "compilemem", "devprof", "dynamics", "fleet", "goodput",
-    "request_trace", "slo", "tracing",
+    "compilemem", "devprof", "dynamics", "fleet", "flightrec", "goodput",
+    "request_trace", "slo", "statusz", "tracing", "watchdog",
     "CompileLedger", "MemoryLedger", "record_compile", "DevProfPlane",
-    "DynamicsMonitor", "GoodputAccountant", "DEFAULT_BUCKETS", "Counter",
+    "DynamicsMonitor", "FleetAggregator", "SnapshotPublisher",
+    "FlightRecorder", "GoodputAccountant", "DEFAULT_BUCKETS", "Counter",
     "Gauge", "Histogram", "MetricsRegistry", "registry", "SLOMonitor",
-    "SLOObjective", "JsonlSpanSink", "add_jsonl_sink", "disable", "enable",
-    "enabled", "last_spans", "span",
+    "SLOObjective", "StatusServer", "JsonlSpanSink", "add_jsonl_sink",
+    "disable", "enable", "enabled", "last_spans", "span", "HangWatchdog",
+    "Heartbeat", "maybe_beat",
 ]

@@ -16,6 +16,13 @@ reaches): the compile ledger, the device-memory ledger and OOM forensics.
   program's cost row (FLOPs and bytes), which ``observability.devprof``
   joins with its sampled device time; the engine registers an analytic
   cost for its serve programs (:meth:`MemoryLedger.note_cost`).
+- The in-flight breadcrumb: while a compile is in flight (a first
+  dispatch, or an ``nvcc`` process of ``ops/_build.py::build``),
+  ``<PADDLE_TELEMETRY_DIR>/compiling.<rank>.json`` lists every one of
+  them, with the library a build writes and when it started, so the hang
+  watchdog can say that a rank is 214 s into building
+  ``ragged_paged_attention`` instead of showing an opaque stack. It is
+  removed when nothing is in flight.
 - OOM forensics: :func:`maybe_oom_report` recognizes
   ``torch.cuda.OutOfMemoryError`` (and the ``obs.oom`` chaos site's
   synthetic fault) at the dispatch seams and writes
@@ -24,8 +31,8 @@ reaches): the compile ledger, the device-memory ledger and OOM forensics.
   before the exception re-raises.
 
 The jit-only parts of the reference (``ledgered_jit``,
-``analyze_function``, the ``compiling.<rank>.json`` breadcrumb the hang
-watchdog reads) wait for the operator plane (ROADMAP.md, slice 16).
+``analyze_function``, the per-program memory analysis) need a captured
+graph and wait for one (ROADMAP.md, "Host-time work").
 """
 import itertools
 import json
@@ -46,6 +53,7 @@ __all__ = [
     "CompileLedger", "MemoryLedger", "ledger", "memory", "record_compile",
     "is_oom", "maybe_oom_report", "write_oom_report",
     "register_oom_context", "oom_report_path", "OOM_REPORT_NAME",
+    "compiling_path",
 ]
 
 OOM_REPORT_NAME = "oom_report.json"
@@ -79,6 +87,11 @@ def _rank():
     return env_str("PADDLE_TRAINER_ID", env_str("RANK", "0")) or "0"
 
 
+def compiling_path(directory, rank):
+    """The watchdog-visible in-flight breadcrumb for ``rank``."""
+    return os.path.join(directory, f"compiling.{rank}.json")
+
+
 class CompileLedger:
     """Process-wide compile event log + recompile-churn detector.
 
@@ -86,7 +99,9 @@ class CompileLedger:
     build, a program family's first dispatch): a compile in flight is
     visible in ``active()``. Nested begins on one thread (a kernel build
     inside a first dispatch) are suppressed: the inner work is part of the
-    outer compile.
+    outer compile. :meth:`track` adds a compile that is not bracketed on
+    the calling thread (each ``nvcc`` process a parallel build starts).
+    Every change of the in-flight set rewrites the breadcrumb.
     """
 
     def __init__(self, max_events=512, churn_threshold=None,
@@ -99,6 +114,7 @@ class CompileLedger:
         self._active = {}
         self._counter = itertools.count(1)
         self._local = threading.local()
+        self._crumb_lock = threading.Lock()
         self.churn_threshold = (int(churn_threshold)
                                 if churn_threshold is not None
                                 else env_int("PADDLE_COMPILE_CHURN_THRESHOLD", 3))
@@ -131,6 +147,7 @@ class CompileLedger:
             self._active[tok] = {"key": str(key), "started_at": time.time(),
                                  "tid": threading.get_ident()}
             _M_ACTIVE.set(len(self._active))
+        self._write_compiling()
         return tok
 
     def exit_trace(self):
@@ -147,7 +164,41 @@ class CompileLedger:
         with self._lock:
             self._active.pop(token, None)
             _M_ACTIVE.set(len(self._active))
+        self._write_compiling()
         return _ledger_record(self, key, wall_s, signature, trigger, error)
+
+    def track(self, key, **extra):
+        """Mark a compile of ``key`` in flight outside a bracket (a kernel
+        build's ``nvcc`` process), with ``extra`` fields (``library``) in
+        its entry. When this thread already brackets ``key``
+        (:func:`record_compile` around a first build), that entry gains
+        the fields instead and None is returned. Returns a token for
+        :meth:`untrack`, which records no event: the bracket or the
+        caller does."""
+        me = threading.get_ident()
+        with self._lock:
+            for entry in self._active.values():
+                if entry["key"] == str(key) and entry["tid"] == me:
+                    entry.update(extra)
+                    tok = None
+                    break
+            else:
+                tok = next(self._counter)
+                self._active[tok] = {"key": str(key),
+                                     "started_at": time.time(), "tid": me,
+                                     **extra}
+                _M_ACTIVE.set(len(self._active))
+        self._write_compiling()
+        return tok
+
+    def untrack(self, token):
+        """Close what :meth:`track` opened (None is a no-op)."""
+        if token is None:
+            return
+        with self._lock:
+            self._active.pop(token, None)
+            _M_ACTIVE.set(len(self._active))
+        self._write_compiling()
 
     def record(self, key, wall_s=0.0, trigger=None, error=None):
         """Record one compile of ``key`` that was timed elsewhere (the
@@ -240,6 +291,37 @@ class CompileLedger:
             self._caches.clear()
             self._cache_warned.clear()
             self._active.clear()
+
+    # ---- watchdog breadcrumb ---------------------------------------------
+    def _write_compiling(self):
+        """Atomic ``compiling.<rank>.json`` under PADDLE_TELEMETRY_DIR, so a
+        hang watchdog in another process can say 'rank 3 is 214 s into
+        building paged_attention'. Removed when nothing is in flight.
+        Never raises (a full disk must not kill a build)."""
+        d = env_str("PADDLE_TELEMETRY_DIR")
+        if not d:
+            return
+        path = compiling_path(d, _rank())
+        # one writer at a time, each writing the set as it then stands:
+        # two builds ending together must not leave the older snapshot
+        with self._crumb_lock:
+            try:
+                active = self.active()
+                if not active:
+                    try:
+                        os.unlink(path)
+                    except FileNotFoundError:
+                        pass
+                    return
+                os.makedirs(d, exist_ok=True)
+                tmp = path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({"rank": _rank(), "pid": os.getpid(),
+                               "active": active}, f)
+                os.replace(tmp, path)
+            except OSError:
+                pass
+
 
 def _ledger_record(led, key, wall_s, signature, trigger, error):
     """The event append and the churn/trigger classification."""

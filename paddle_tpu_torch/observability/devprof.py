@@ -45,7 +45,7 @@ from ..utils.envs import env_bool, env_float, env_int
 from .metrics import registry as _registry
 
 __all__ = ["DevProfPlane", "arm_from_env", "enable", "disable", "enabled",
-           "plane", "report", "serving_block", "ENABLE_ENV",
+           "plane", "report", "serving_block", "fleet_block", "ENABLE_ENV",
            "EVERY_ENV", "PEAK_FLOPS_ENV", "PEAK_BW_ENV"]
 
 #: master switch — unset/false = every hot path is one None check
@@ -289,6 +289,22 @@ class DevProfPlane:
         }
 
 
+    def fleet_block(self):
+        """The bounded per-rank snapshot block the fleet aggregator medians
+        across ranks: mean device-seconds per dispatch for the costliest
+        programs. None until something has been sampled."""
+        table = self._table()
+        if not table:
+            return None
+        ranked = sorted(table.items(), key=lambda kv: kv[1]["device_s"],
+                        reverse=True)[:16]
+        return {
+            "sample_every": self.sample_every,
+            "programs": {k: round(v["device_s"] / v["samples"], 9)
+                         for k, v in ranked if v["samples"]},
+        }
+
+
 # ---- module-level switches (the watchdog arm/disarm idiom) -----------------
 def arm_from_env():
     """Install the plane when ``PADDLE_DEVPROF`` is truthy (idempotent:
@@ -339,3 +355,12 @@ def report(program=None):
 def serving_block():
     """The serving_report()["devprof"] block."""
     return report()
+
+
+def fleet_block():
+    """The per-rank fleet-snapshot block (None while disarmed or before
+    the first sample)."""
+    p = _PLANE
+    if p is None:
+        return None
+    return p.fleet_block()

@@ -22,15 +22,17 @@ reference's (:219-297). Disabled (``PADDLE_DYNAMICS`` unset),
 ``DynamicsMonitor.from_env`` returns None and the step pays one None
 check. Enabled, between spills the host side is one counter increment;
 a spill (every ``PADDLE_DYNAMICS_EVERY_STEPS`` steps) reads the carry back
-once and publishes the ``train.*`` gauges. The live-monitor listing and
-the flight-recorder and fleet hooks come with the serving control plane
-(ROADMAP.md).
+once and publishes the ``train.*`` gauges; a spike past the threshold
+commits a ``loss_spike`` flight-record bundle. Live monitors are listed
+for ``/dynamicsz`` (:func:`reports`), the flight recorder's bundles
+(:func:`flight_block`) and the fleet snapshot (:func:`fleet_block`).
 """
 import collections
 import math
 import re
 import threading
 import time
+import weakref
 
 import torch
 
@@ -38,7 +40,8 @@ from ..device import resolve
 from ..utils.envs import env_bool, env_float, env_int
 from .metrics import registry as _registry
 
-__all__ = ["DynamicsMonitor", "group_of", "ENABLE_ENV", "EVERY_ENV",
+__all__ = ["DynamicsMonitor", "group_of", "monitors", "reports",
+           "flight_block", "fleet_block", "ENABLE_ENV", "EVERY_ENV",
            "SPIKE_Z_ENV", "EWMA_ENV", "MAX_GROUPS_ENV", "WINDOW_ENV"]
 
 #: master switch: unset or false, the whole layer is one None check
@@ -59,6 +62,12 @@ _LAYER_RE = re.compile(
     r"(?:^|\.)((?:layers|layer|blocks|h|stages|encoder_layers|"
     r"decoder_layers)\.\d+)(?=\.|$)")
 
+#: live monitors, for /dynamicsz and the fleet snapshot block: weak, so a
+#: dropped TrainStep takes its monitor out of the listing
+_monitors = weakref.WeakValueDictionary()
+_monitors_lock = threading.Lock()
+_monitor_seq = 0
+
 
 def group_of(name):
     """Layer group for a parameter name: the numbered transformer block
@@ -69,6 +78,42 @@ def group_of(name):
         return m.group(1)
     head = name.split(".", 1)[0]
     return head or "root"
+
+
+def monitors():
+    """Live monitors, oldest first (usually exactly one per process)."""
+    with _monitors_lock:
+        return [m for _, m in sorted(_monitors.items())]
+
+
+def reports():
+    """The /dynamicsz monitor payloads."""
+    return [m.report() for m in monitors()]
+
+
+def flight_block():
+    """The flight-record payload: per-monitor group list, last summary and
+    the recent spill window."""
+    out = []
+    for m in monitors():
+        out.append({
+            "groups": list(m.group_names),
+            "every": m.every,
+            "last": m.last,
+            "window": m.window_list(),
+        })
+    return out
+
+
+def fleet_block():
+    """The per-rank fleet-snapshot block (bounded: the newest monitor's
+    last spilled summary only), what the aggregator reads to flag
+    cross-rank grad-norm skew. None when nothing has spilled."""
+    ms = monitors()
+    for m in reversed(ms):
+        if m.last is not None:
+            return dict(m.last)
+    return None
 
 
 class DynamicsMonitor:
@@ -110,6 +155,10 @@ class DynamicsMonitor:
         self._win_lock = threading.Lock()
         #: the newest spilled summary (None until the first spill)
         self.last = None
+        global _monitor_seq
+        with _monitors_lock:
+            _monitor_seq += 1
+            _monitors[_monitor_seq] = self
 
     @classmethod
     def from_env(cls, named_params):
@@ -313,6 +362,16 @@ class DynamicsMonitor:
                 "train.loss_spikes",
                 help="dynamics spills whose loss z-score crossed the "
                      "spike threshold").inc()
+            from . import flightrec
+
+            flightrec.record(
+                "loss_spike", step=summary["step"],
+                payload={"loss": summary["loss"],
+                         "loss_ewma": summary["loss_ewma"],
+                         "loss_z": summary["loss_z"],
+                         "loss_z_max": z_trip,
+                         "loss_z_max_at": summary["loss_z_max_at"],
+                         "threshold": self.spike_z})
         _registry.histogram(
             "dynamics.spill_s",
             help="wall cost of one dynamics host spill (device read + "

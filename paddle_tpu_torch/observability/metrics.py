@@ -1,17 +1,23 @@
 """Metrics registry: counters, gauges, fixed-bucket histograms (the port's
-own copy of ``paddle_tpu/observability/metrics.py``, without its JSONL and
-Prometheus dumps, which the operator plane's ``/varz`` and fleet snapshots
-render: ROADMAP.md, slice 16).
+own copy of ``paddle_tpu/observability/metrics.py``).
 
 One process-wide registry that every layer of the port publishes into: the
 training step's telemetry (``utils.metrics_bus``, ``observability.
 dynamics``), the engine's ``serve.*`` series and the serving control
-plane's ``serving.*``, ``brownout.*``, ``breaker.*`` and ``kv.*`` series,
-labeled by family. Publishing is hot-path code: a counter ``inc`` is one
-lock and one add; a histogram ``observe`` is a bisect over a small tuple and
-two adds. Nothing here allocates per call or touches the filesystem.
+plane's ``serving.*``, ``brownout.*``, ``breaker.*``, ``kv.*`` and
+``supervisor.*`` series, labeled by family. It dumps three ways: a
+structured series export that a fleet snapshot carries and another
+registry reloads (``export`` / ``load_series``), JSONL (``dump_jsonl``) and
+the Prometheus text exposition that ``/varz`` serves (``to_prometheus``).
+Publishing is hot-path code: a counter ``inc`` is one lock and one add; a
+histogram ``observe`` is a bisect over a small tuple and two adds. Nothing
+on that path allocates or touches the filesystem: rendering happens only in
+the dumps.
 """
 import bisect
+import json
+import os
+import re
 import threading
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
@@ -179,10 +185,22 @@ class Histogram:
             self._count = 0
 
 
+_PROM_SANITIZE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name):
+    n = _PROM_SANITIZE.sub("_", name)
+    return "_" + n if n[:1].isdigit() else n
+
+
 def _escape_label(v):
     """Prometheus label-value escaping: backslash, double quote, newline."""
     return (str(v).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
+
+
+def _escape_help(s):
+    return str(s).replace("\\", "\\\\").replace("\n", "\\n")
 
 
 def _label_suffix(labels, extra=None):
@@ -299,6 +317,148 @@ class MetricsRegistry:
                     "buckets": [[b, c] for b, c in m.cumulative()],
                 }
         return out
+
+    def export(self, prefixes=None):
+        """Merge-ready structured series dump (the fleet snapshot
+        payload): unlike :meth:`snapshot`, every record carries the family,
+        type, labels, and — for histograms — the bucket BOUNDS alongside the
+        raw counts, so a cross-rank aggregator can rebuild exact mergeable
+        metrics instead of lossy summaries. Zero-valued counters and empty
+        histograms are omitted (the snapshot bound matters more than
+        registering silence)."""
+        with self._lock:
+            items = sorted(self._metrics.items())
+        out = []
+        for name, m in items:
+            if prefixes and not m.family.startswith(tuple(prefixes)):
+                continue
+            rec = {"name": name, "family": m.family, "labels": m.labels,
+                   "help": m.help}
+            if isinstance(m, Counter):
+                if not m.value:
+                    continue
+                rec["type"] = "counter"
+                rec["value"] = m.value
+            elif isinstance(m, Gauge):
+                rec["type"] = "gauge"
+                rec["value"] = m.value
+                rec["hwm"] = m.hwm
+            else:
+                if not m.count:
+                    continue
+                rec["type"] = "histogram"
+                rec["bounds"] = list(m.bounds)
+                rec["counts"] = m.bucket_counts()
+                rec["sum"] = m.sum
+                rec["count"] = m.count
+            out.append(rec)
+        return out
+
+    def load_series(self, rec, extra_labels=None):
+        """Recreate one :meth:`export` record in THIS registry, optionally
+        widening its label set (the aggregator adds ``rank=``/``replica=``
+        so merged families stay one ``# TYPE`` with per-source series).
+        Returns the metric, or None when the record's family is already
+        registered here as a different type (conflicting sources must not
+        kill a merge)."""
+        labels = dict(rec.get("labels") or {})
+        if extra_labels:
+            labels.update(extra_labels)
+        kind = rec.get("type")
+        help_ = rec.get("help") or ""
+        family = rec["family"]
+        try:
+            if kind == "counter":
+                m = self.counter(family, help=help_, labels=labels)
+                m.inc(rec.get("value", 0))
+            elif kind == "gauge":
+                m = self.gauge(family, help=help_, labels=labels)
+                # set() tracks the high-water mark: replay hwm first so the
+                # merged gauge carries the source's peak, then the live value
+                m.set(rec.get("hwm", rec.get("value", 0.0)))
+                m.set(rec.get("value", 0.0))
+            elif kind == "histogram":
+                m = self.histogram(family, buckets=rec["bounds"],
+                                   help=help_, labels=labels)
+                counts = list(rec.get("counts") or ())
+                with m._lock:
+                    for i, c in enumerate(counts[:len(m._counts)]):
+                        m._counts[i] += int(c)
+                    m._sum += float(rec.get("sum", 0.0))
+                    m._count += int(rec.get("count", 0))
+            else:
+                return None
+        except ValueError:
+            return None
+        return m
+
+    def dump_jsonl(self, path, extra=None):
+        """Append one JSON record per metric (plus the optional ``extra``
+        dict on each line — rank/step stamps). Atomic enough for a telemetry
+        sidecar: one write + flush per call."""
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        base = dict(extra) if extra else {}
+        lines = []
+        for name, val in self.snapshot().items():
+            rec = dict(base)
+            rec["name"] = name
+            rec["value"] = val
+            lines.append(json.dumps(rec))
+        with open(path, "a") as f:
+            f.write("\n".join(lines) + ("\n" if lines else ""))
+            f.flush()
+
+    def to_prometheus(self):
+        """Prometheus text exposition format (the text a real scraper must
+        parse — asserted against a strict parser in tests): dots in metric
+        names become underscores, every family gets ``# HELP``/``# TYPE``
+        headers and contiguous samples, label values are escaped, and
+        histograms render the standard cumulative ``_bucket{le=...}`` series
+        (``+Inf`` included) plus ``_sum``/``_count``."""
+        lines = []
+        with self._lock:
+            items = sorted(self._metrics.items())
+        families = {}
+        for _, m in items:
+            families.setdefault(m.family, []).append(m)
+
+        def _header(pname, ms, kind):
+            help_text = next((m.help for m in ms if m.help), "")
+            if help_text:
+                lines.append(f"# HELP {pname} {_escape_help(help_text)}")
+            lines.append(f"# TYPE {pname} {kind}")
+
+        for family in sorted(families):
+            ms = families[family]
+            pname = _prom_name(family)
+            if isinstance(ms[0], Counter):
+                _header(pname, ms, "counter")
+                for m in ms:
+                    lines.append(f"{pname}{_label_suffix(m.labels)} {m.value}")
+            elif isinstance(ms[0], Gauge):
+                _header(pname, ms, "gauge")
+                for m in ms:
+                    lines.append(f"{pname}{_label_suffix(m.labels)} {m.value}")
+                # the high-water mark is its own gauge family (a second
+                # sample under the same name would be a duplicate series)
+                lines.append(f"# TYPE {pname}_hwm gauge")
+                for m in ms:
+                    lines.append(
+                        f"{pname}_hwm{_label_suffix(m.labels)} {m.hwm}")
+            else:
+                _header(pname, ms, "histogram")
+                for m in ms:
+                    for bound, cum in m.cumulative():
+                        le = "+Inf" if bound == float("inf") else repr(bound)
+                        suffix = _label_suffix(m.labels, extra=[("le", le)])
+                        lines.append(f"{pname}_bucket{suffix} {cum}")
+                    lines.append(
+                        f"{pname}_sum{_label_suffix(m.labels)} {m.sum}")
+                    lines.append(
+                        f"{pname}_count{_label_suffix(m.labels)} {m.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
 
     def reset(self, prefix=""):
         """Zero every metric under ``prefix`` (objects and handles stay

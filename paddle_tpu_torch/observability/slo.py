@@ -236,11 +236,22 @@ class SLOMonitor:
                     "alert_burn_rate": self.alert_burn_rate,
                 })
         # transition counting: a NEW alerting objective bumps the counter
-        # (the flight recorder's page bundle comes with the operator
-        # plane, ROADMAP.md)
+        # and flight-records the page: the bundle freezes the span ring and
+        # the goodput split at the moment the burn crossed, the evidence a
+        # later SLO review needs
         names = {a["objective"] for a in out}
-        for name in names - self._alerting:
+        newly = names - self._alerting
+        for name in newly:
             self._alerts_fired.inc()
+        if newly:
+            from . import flightrec
+
+            flightrec.record(
+                "slo_page",
+                payload={"alerting": sorted(names),
+                         "new": sorted(newly),
+                         "alerts": [a for a in out
+                                    if a["objective"] in newly]})
         self._alerting = names
         return out
 

@@ -59,7 +59,13 @@ def _lib_path(name):
 def build(names=None):
     """Compile every named kernel source whose library is not built yet,
     all in parallel. Returns {name: {"path", "seconds", "log"}}; raises
-    KernelBuildError naming each source nvcc refused."""
+    KernelBuildError naming each source nvcc refused. Each ``nvcc`` in
+    flight stands in the compile ledger's breadcrumb
+    (``compiling.<rank>.json``, read by the hang watchdog) as
+    ``build.<name>`` with its library's file name, from its start to its
+    end."""
+    from ..observability.compilemem import ledger
+
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
@@ -70,12 +76,20 @@ def build(names=None):
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path, time.perf_counter())
+        tok = ledger.track(f"build.{name}", library=path.name)
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        except BaseException:
+            ledger.untrack(tok)
+            raise
+        procs[name] = (proc, tmp, path, time.perf_counter(), tok)
     failed = []
-    for name, (proc, tmp, path, t0) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, tmp, path, t0, tok) in procs.items():
+        try:
+            log, _ = proc.communicate()
+        finally:
+            ledger.untrack(tok)
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")

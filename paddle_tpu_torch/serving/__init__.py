@@ -14,10 +14,10 @@ control plane over N ``ContinuousBatchingEngine`` replicas.
   bundles, the spool and wire transports and their non-executable
   encoding; ``kvfabric.py``: the cluster prefix residency and host spill
   ring;
-- ``adapters.py``: the LoRA adapter registry.
-
-The replica supervisor and its fences (``ReplicaSupervisor``,
-``ReplicaFence``) come with the operator plane (ROADMAP.md, slice 16).
+- ``adapters.py``: the LoRA adapter registry;
+- ``supervisor.py``: the replica supervisor (``ReplicaSupervisor``), which
+  replaces dead replicas and scales the pool, and the generation fence of
+  each incarnation (``ReplicaFence``).
 """
 from ..inference.continuous import EngineRequest, canonical_sampling
 from .adapters import AdapterRegistry, LoRAAdapter
@@ -39,6 +39,7 @@ from .scheduler import (
     BATCH, INTERACTIVE, DeadlineExceeded, Overloaded, SLOClass,
     SLOScheduler,
 )
+from .supervisor import ReplicaFence, ReplicaSupervisor
 from .tenancy import DEFAULT_TENANT, Tenant, TenantRegistry
 from .transport import (
     KVFetchTimeout, KVPageServer, KVPartitionError, KVTransportError,
@@ -62,4 +63,5 @@ __all__ = [
     "KVTransportError", "KVFetchTimeout", "KVPartitionError",
     "Tenant", "TenantRegistry", "DEFAULT_TENANT",
     "LoRAAdapter", "AdapterRegistry",
+    "ReplicaSupervisor", "ReplicaFence",
 ]

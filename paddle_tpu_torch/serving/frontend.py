@@ -42,10 +42,14 @@ the wake-event wait when a replica is fully idle.
 
 On the card, each engine runs its device sections on a CUDA stream of its
 own, so one replica's readback waits for its own blocks only, never for
-the blocks another replica's thread queued. The replica supervisor and the
-``/statusz`` server belong to the operator plane (ROADMAP.md, slice 16):
-``engine_factory=``, ``statusz_port=`` and ``add_replica(fence=...)`` raise
-``NotImplementedError`` until then.
+the blocks another replica's thread queued.
+
+The operator plane: ``engine_factory=`` with ``PADDLE_SUPERVISOR=1``
+attaches a :class:`ReplicaSupervisor` (serving/supervisor.py) that
+replaces dead replicas through the factory and scales on the fleet
+rollup's hint, each incarnation under a generation fence
+(``add_replica(fence=...)``); ``statusz_port=`` starts the ``/statusz``
+server (observability/statusz.py) that ``shutdown()`` stops.
 """
 import itertools
 import queue as _queue
@@ -430,14 +434,6 @@ class ServingFrontend:
         # warmup() the engines, then tighten it.
         if not engines:
             raise ValueError("need at least one engine replica")
-        if engine_factory is not None:
-            raise NotImplementedError(
-                "engine_factory= attaches the replica supervisor, which "
-                "comes with the operator plane (ROADMAP.md, slice 16)")
-        if statusz_port is not None:
-            raise NotImplementedError(
-                "statusz_port= starts the /statusz server, which comes with "
-                "the operator plane (ROADMAP.md, slice 16)")
         self.scheduler = scheduler or SLOScheduler()
         self.router = router or Router()
         self.poll_wait_s = float(poll_wait_s)
@@ -528,8 +524,21 @@ class ServingFrontend:
         # replica index allocator for add_replica (heartbeat-file rank
         # namespace must never reuse a live index)
         self._next_index = len(self.replicas)
+        # live introspection: statusz_port=0 picks a free port
+        self.statusz = None
+        if statusz_port is not None:
+            self.statusz = self.serve_statusz(statusz_port)
+        # replica lifecycle supervisor: attached by ReplicaSupervisor
+        # itself; None = nobody owns spawn/scale. ``engine_factory`` with
+        # PADDLE_SUPERVISOR=1 is the opt-in: the variable's default-off
+        # keeps this constructor at no extra thread
+        self.supervisor = None
         if start:
             self.start()
+        if engine_factory is not None:
+            from .supervisor import ReplicaSupervisor
+
+            ReplicaSupervisor.from_env(self, engine_factory)
 
     # ---- lifecycle --------------------------------------------------------
     def start(self):
@@ -553,15 +562,23 @@ class ServingFrontend:
         return self
 
     def serve_statusz(self, port=0, host="127.0.0.1"):
-        """The /statusz introspection server: the operator plane's
-        (ROADMAP.md, slice 16)."""
-        raise NotImplementedError(
-            "the /statusz server comes with the operator plane (ROADMAP.md, "
-            "slice 16)")
+        """Start (and return) a /statusz introspection server bound to this
+        frontend: every route of ``StatusServer.route_names()``
+        (observability/statusz.py). Stopped by shutdown()."""
+        from ..observability.statusz import StatusServer
+
+        return StatusServer(port=port, host=host, frontend=self).start()
 
     def shutdown(self, timeout=5.0):
-        """Stop dispatchers and the monitor. In-flight work stops at the
-        next block boundary; unfinished handles are failed (never lost)."""
+        """Stop the supervisor, the status server, the dispatchers and the
+        monitor. In-flight work stops at the next block boundary;
+        unfinished handles are failed (never lost)."""
+        if self.supervisor is not None:
+            self.supervisor.stop()
+            self.supervisor = None
+        if self.statusz is not None:
+            self.statusz.stop()
+            self.statusz = None
         self._stop.set()
         for ev in self._wakes.values():
             ev.set()
@@ -1775,14 +1792,10 @@ class ServingFrontend:
         """Grow the pool by one replica (the supervisor's spawn path; also
         an ops hook). The dispatcher starts immediately when the frontend
         is running. ``domain`` groups replicas into failure domains for
-        the supervisor's restart budgets; ``fence``, the supervisor's
-        generation fence, comes with the operator plane (ROADMAP.md, slice
-        16) and raises until then; ``role`` joins the replica to a
+        the supervisor's restart budgets; ``fence`` is the supervisor's
+        generation fence (``ReplicaFence``), refusing a superseded
+        incarnation's telemetry writes; ``role`` joins the replica to a
         disaggregation pool ("prefill"/"decode"/"blended")."""
-        if fence is not None:
-            raise NotImplementedError(
-                "replica fences belong to the replica supervisor, which "
-                "comes with the operator plane (ROADMAP.md, slice 16)")
         with self._lock:
             if self._stop.is_set():
                 raise RuntimeError("frontend is shut down")
@@ -1793,6 +1806,7 @@ class ServingFrontend:
             if rep.name in self._by_name:
                 raise ValueError(f"replica name {rep.name!r} already exists")
             rep.domain = domain or rep.name
+            rep.fence = fence
             self._wakes[rep.name] = threading.Event()
             self._drained[rep.name] = threading.Event()
             # copy-on-write: unlocked readers iterate either the old or
@@ -2035,6 +2049,8 @@ class ServingFrontend:
             # per-adapter inflight pins
             "adapters": self.adapters.report(),
         }
+        if self.supervisor is not None:
+            out["supervisor"] = self.supervisor.report()
         return out
 
     def tenant_report(self):

@@ -22,27 +22,34 @@ Health is a four-state ladder per replica: ``LIVE`` (routable),
 ``PROBATION`` (circuit-broken: only rate-limited probe traffic routes
 there, see serving/breaker.py), ``DRAINING`` (finishes in-flight work,
 admits nothing, receives no new placements), ``DEAD`` (gone; its queue is
-rerouted). Every dispatcher loop stamps :meth:`ReplicaHandle.beat`, and
-the frontend's monitor declares a replica DEAD when its beat stays stale
-for ``heartbeat_misses`` consecutive monitor checks (flap damping: one slow
-check is a counted flap, ``serving.replica_flaps``, not a death).
+rerouted). Every dispatcher loop stamps :meth:`ReplicaHandle.beat` (and,
+when ``PADDLE_TELEMETRY_DIR`` is set, the watchdog-format
+``serving/heartbeat.<idx>.json`` file and its fleet snapshot, namespaced
+under ``serving/`` so replica indexes never clobber training ranks'
+files), and the frontend's monitor declares a replica DEAD when its beat
+stays stale for ``heartbeat_misses`` consecutive monitor checks (flap
+damping: one slow check is a counted flap, ``serving.replica_flaps``, not
+a death).
 
-A handle's generation ``fence`` belongs to the replica supervisor, which
-comes with the operator plane (ROADMAP.md, slice 16): until then it stays
-None and :meth:`ReplicaHandle.fence_writable` admits every write. The
-heartbeat files and fleet snapshots a replica writes under
-``PADDLE_TELEMETRY_DIR`` come with that plane too.
+When a :class:`ReplicaSupervisor` (serving/supervisor.py) manages the
+fleet, each handle carries a generation ``fence`` (the elastic fencing
+contract): a superseded replica, one the supervisor already replaced, has
+its late heartbeat-file and fleet-snapshot writes refused
+(``supervisor.fenced_writes``), so a zombie dispatcher cannot masquerade as
+its own replacement in the telemetry directory.
 
 Chaos site ``serving.route`` fires on every placement decision so tests can
 inject routing outages; ``serving.replica_kill`` (in the frontend's
 dispatcher loop) kills a replica mid-flight; ``serving.replica_slow`` (in
 the dispatcher's step path) stalls a busy replica's dispatch.
 """
+import os
 import threading
 import time
 
 from ..observability.metrics import registry as _registry
 from ..testing import chaos
+from ..utils.envs import env_str
 
 __all__ = ["LIVE", "PROBATION", "DRAINING", "DEAD", "NoLiveReplicas",
            "ReplicaHandle", "Router"]
@@ -58,6 +65,9 @@ ADMITTING = (LIVE, PROBATION)
 
 _M_ROUTED = _registry.counter("serving.routed")
 _M_AFFINITY_PLACED = _registry.counter("serving.routed_by_affinity")
+_M_FENCED = _registry.counter(
+    "supervisor.fenced_writes",
+    help="late heartbeat/snapshot writes rejected from superseded replicas")
 
 
 class NoLiveReplicas(RuntimeError):
@@ -91,8 +101,8 @@ class ReplicaHandle:
         # the beat stale; written only by the monitor thread
         self.missed_beats = 0
         # supervisor bookkeeping: failure domain (restart budgets/backoff
-        # are per-domain) and the generation fence a supervisor installs
-        # (None until the operator plane's supervisor, ROADMAP.md)
+        # are per-domain) and the generation fence a supervisor installs:
+        # a superseded incarnation's late telemetry writes are rejected
         self.domain = None
         self.fence = None
         self.retired = False       # removed by scale-down, not a failure
@@ -104,6 +114,41 @@ class ReplicaHandle:
         # this replica — stamped by the monitor tick from the fabric's
         # residency map, rolled up fleet-wide as fleet.serving.kv_resident
         self.kv_resident = 0
+        # with PADDLE_TELEMETRY_DIR set, replicas publish watchdog-format
+        # heartbeat files in their own serving/ subdirectory, not the
+        # telemetry root: replica indexes overlap training ranks, and a
+        # replica beating heartbeat.<rank>.json would mask a hung trainer
+        # of the same rank from the watchdog (and the other way round)
+        self._wd_heartbeat = None
+        self._wd_last_write = 0.0
+        # fleet snapshots, in the same serving/ namespace, carrying the
+        # replica's control-plane state for the aggregator
+        self._fleet_pub = None
+        d = env_str("PADDLE_TELEMETRY_DIR")
+        if d:
+            from ..observability.fleet import (
+                SnapshotPublisher, process_instance,
+            )
+            from ..observability.watchdog import Heartbeat
+
+            try:
+                self._wd_heartbeat = Heartbeat(os.path.join(d, "serving"),
+                                               rank=self.index,
+                                               install_faulthandler=False)
+            except OSError:
+                self._wd_heartbeat = None
+            try:
+                # instance = host + pid: replica indexes repeat across
+                # frontend processes sharing one telemetry dir. Only
+                # replica 0 carries the (process-shared) registry export;
+                # the others publish identity and control-plane state
+                self._fleet_pub = SnapshotPublisher(
+                    os.path.join(d, "serving"), rank=self.index,
+                    role="replica", instance=process_instance(),
+                    include_metrics=(self.index == 0),
+                    extra_provider=lambda: {"replica": self.snapshot()})
+            except OSError:
+                self._fleet_pub = None
         # labeled series of one family each
         self._occ_gauge = _registry.gauge(
             "serving.replica.occupancy", labels={"replica": self.name},
@@ -116,18 +161,40 @@ class ReplicaHandle:
             help="per-replica KV pool pages referenced")
 
     def beat(self, step=None):
-        self.last_beat = time.monotonic()
+        now = time.monotonic()
+        self.last_beat = now
+        # the in-memory stamp is per loop; the file write (json + rename)
+        # is rate-limited: an idle dispatcher loops ~200x/s and the
+        # watchdog samples at whole-second granularity anyway
+        if self._wd_heartbeat is not None and now - self._wd_last_write >= 1.0:
+            self._wd_last_write = now
+            if not self.fence_writable():
+                return  # superseded incarnation: no telemetry writes
+            try:
+                self._wd_heartbeat.beat(step=step, role="serving")
+            except OSError:
+                pass  # a full disk must not take the dispatcher down
+            if self._fleet_pub is not None:
+                self._fleet_pub.maybe_publish(step=step)
 
     def fence_writable(self):
         """The fencing contract applied to serving telemetry: a replica the
-        supervisor already superseded must not publish telemetry its
-        replacement would trust. With no fence (the only state until the
-        operator plane's supervisor) every write is admitted."""
+        supervisor already superseded must not publish heartbeat files or
+        fleet snapshots its replacement's aggregator would trust. The
+        in-memory ``last_beat`` stamp stays unfenced: the thread's liveness
+        is a fact either way. Counts each refused write."""
         if self.fence is None:
             return True
-        raise NotImplementedError(
-            "replica fences belong to the replica supervisor, which comes "
-            "with the operator plane (ROADMAP.md, slice 16)")
+        from ..distributed.fleet.elastic.fencing import StaleGenerationError
+
+        try:
+            self.fence.check(f"serving.heartbeat[{self.name}]")
+        except StaleGenerationError:
+            _M_FENCED.inc()
+            return False
+        except Exception:
+            return True  # fencing fails open, like the elastic fence
+        return True
 
     def note_step(self, wall_s):
         """Dispatcher-side dispatch-latency sample (single writer: only

@@ -5,9 +5,8 @@ training steps, and the event counters every layer bumps.
 The hot path stays asynchronous: ``on_step`` stamps the host clock and
 keeps the step's loss tensor, still on the device. Every ``log_every``
 steps the bus reads the window's losses back once, computes throughput,
-MFU and peak device memory, and hands the record to its subscribers. The
-JSONL writer comes with the tracing sinks of the serving control plane
-(ROADMAP.md).
+MFU and peak device memory, and hands the record to its subscribers
+(``stdout_logger``, ``JsonlWriter``, user callbacks).
 """
 import logging
 import time
@@ -16,6 +15,7 @@ import torch
 
 from ..observability.metrics import Counter
 from ..observability.metrics import registry as _registry
+from ..observability.tracing import JsonlSpanSink
 
 logger = logging.getLogger("paddle_tpu_torch.metrics")
 
@@ -173,3 +173,20 @@ class StepMetricsBus:
             if self.flops_per_token and self.peak_flops:
                 out["mfu"] = self.flops_per_token * out["tokens_per_sec"] / self.peak_flops
         return out
+
+
+def stdout_logger(prefix="step"):
+    """A subscriber that logs each record as ``<prefix> k=v ...`` through
+    the ``paddle_tpu_torch.metrics`` logger."""
+    def fn(record):
+        parts = " ".join(f"{k}={v}" for k, v in record.items())
+        logger.info("%s %s", prefix, parts)
+
+    return fn
+
+
+class JsonlWriter(JsonlSpanSink):
+    """Structured per-rank metrics log: one JSON record a line, the span
+    sink's implementation (every record flushed, an idempotent close at
+    exit or through the context-manager protocol, writes after the close
+    dropped)."""

@@ -9,7 +9,12 @@ the device or the kernel.
   ``PADDLE_DYNAMICS*`` switches, the non-finite guard's two variables,
   the LoRA plane's three sizes and the serving control plane's own
   reference names, so no variable picks a kernel, its plain version or a
-  dispatch plane (``chip_smoke.py`` may set the dynamics' switches);
+  dispatch plane (``chip_smoke.py`` may set the dynamics' switches, the
+  supervisor's and the telemetry directory); the operator plane's
+  packages (``distributed.fleet.elastic``, ``observability`` with
+  ``statusz``, ``watchdog`` and ``flightrec``) import neither either, the
+  variables they read are named, and the flight recorder's backend is the
+  only place in them that opens ``torch.profiler.profile``;
 - entry points (the model, the engine, the Predictor) default to the
   card: without CUDA they raise unless the caller asks for the CPU by
   name;
@@ -77,9 +82,13 @@ def test_import_leaves_jax_and_reference_out():
     assert json.loads(out.stdout.splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("package", ["paddle_tpu_torch.serving",
-                                     "paddle_tpu_torch.observability",
-                                     "paddle_tpu_torch.testing.chaos"])
+@pytest.mark.parametrize("package", [
+    "paddle_tpu_torch.serving", "paddle_tpu_torch.observability",
+    "paddle_tpu_torch.testing.chaos",
+    "paddle_tpu_torch.distributed.fleet.elastic",
+    "paddle_tpu_torch.observability.statusz",
+    "paddle_tpu_torch.observability.watchdog",
+    "paddle_tpu_torch.observability.flightrec"])
 def test_control_plane_imports_leave_jax_and_reference_out(package):
     """The serving control plane and the observability it reads (every
     module the frontend imports) stand alone: importing either package in
@@ -121,6 +130,10 @@ def test_source_imports_neither_jax_nor_reference(path):
 
 
 ENV_READER = PKG / "utils" / "envs.py"
+#: the variables chip_smoke.py may set: the dynamics' switches, the
+#: replica supervisor's and the telemetry directory the operator plane
+#: writes its heartbeats, snapshots and flight records into
+SMOKE_SETS = ("PADDLE_DYNAMICS", "PADDLE_SUPERVISOR", "PADDLE_TELEMETRY_DIR")
 
 
 def _environment_reads(tree):
@@ -147,7 +160,7 @@ def test_source_reads_no_environment_variable(path):
                   if isinstance(n, ast.Subscript)
                   and isinstance(n.ctx, (ast.Store, ast.Del))
                   and getattr(n.value, "attr", None) == "environ"]
-        assert all(w.startswith("PADDLE_DYNAMICS") for w in writes), writes
+        assert all(w.startswith(SMOKE_SETS) for w in writes), writes
     else:                         # the package writes none
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
                     and n.attr in ("environ", "putenv", "unsetenv")]
@@ -183,7 +196,7 @@ def test_only_the_dynamics_reads_the_environment():
         "testing/chaos.py", "observability/tracing.py",
         "observability/compilemem.py", "observability/devprof.py",
         "serving/handoff.py", "serving/transport.py", "serving/kvfabric.py",
-        "serving/tenancy.py", "serving/frontend.py"}
+        "serving/tenancy.py", "serving/frontend.py"} | set(OPERATOR_PLANE)
     assert callers == {"observability/dynamics.py", "jit_api.py",
                        "inference/continuous.py",
                        "serving/adapters.py"} | control_plane
@@ -217,6 +230,124 @@ def test_only_the_dynamics_reads_the_environment():
             and getattr(n.func, "id", None) in readers
             and not (isinstance(n.args[0], ast.Name)
                      and n.args[0].id == "LORA_SLOTS_ENV")] == []
+
+
+#: the operator plane's modules that read variables, with every name each
+#: reads through ``utils/envs.py`` (a name held in a module constant is
+#: resolved through it)
+OPERATOR_PLANE = {
+    "distributed/fleet/elastic/membership.py": {
+        "PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+        "PADDLE_ELASTIC_GENERATION", "PADDLE_ELASTIC_RANKS",
+        "PADDLE_ELASTIC_ORIG_WORLD"},
+    "distributed/fleet/elastic/fencing.py": {"PADDLE_ELASTIC_GENERATION"},
+    "observability/watchdog.py": {
+        "PADDLE_TELEMETRY_DIR", "PADDLE_ELASTIC_GENERATION",
+        "PADDLE_TRAINER_ID", "RANK"},
+    "observability/flightrec.py": {
+        "PADDLE_TELEMETRY_DIR", "PADDLE_TRAINER_ID", "RANK",
+        "PADDLE_FLIGHTREC_MAX", "PADDLE_FLIGHTREC_MIN_INTERVAL_S",
+        "PADDLE_FLIGHTREC_CAPTURE_STEPS"},
+    "observability/fleet.py": {
+        "PADDLE_TELEMETRY_DIR", "PADDLE_TRAINER_ID", "RANK",
+        "PADDLE_FLEET_SNAPSHOT_EVERY_S", "PADDLE_FLEET_SNAPSHOT_MAX_SERIES",
+        "PADDLE_ELASTIC_GENERATION", "PADDLE_TRAINERS_NUM",
+        "PADDLE_FLEET_STRAGGLER_WINDOW", "PADDLE_FLEET_STRAGGLER_RATIO",
+        "PADDLE_FLEET_SNAPSHOT_STALE_S"},
+    "observability/statusz.py": {
+        "PADDLE_TELEMETRY_DIR", "PADDLE_ELASTIC_GENERATION",
+        "PADDLE_TRAINERS_NUM", "PADDLE_ELASTIC_RANKS"},
+    "serving/supervisor.py": {
+        "PADDLE_SUPERVISOR", "PADDLE_SUPERVISOR_MIN_REPLICAS",
+        "PADDLE_SUPERVISOR_MAX_REPLICAS", "PADDLE_SUPERVISOR_RESTART_BUDGET",
+        "PADDLE_SUPERVISOR_BUDGET_WINDOW_S", "PADDLE_SUPERVISOR_BACKOFF_S",
+        "PADDLE_SUPERVISOR_BACKOFF_MAX_S", "PADDLE_SUPERVISOR_GROW_HOLD_S",
+        "PADDLE_SUPERVISOR_SHRINK_COOLDOWN_S", "PADDLE_SUPERVISOR_INTERVAL_S",
+        "PADDLE_SUPERVISOR_MIN_REPLICAS_PREFILL",
+        "PADDLE_SUPERVISOR_MIN_REPLICAS_DECODE",
+        "PADDLE_SUPERVISOR_MIN_REPLICAS_BLENDED"},
+    "serving/router.py": {"PADDLE_TELEMETRY_DIR"},
+}
+
+
+def _names_read(path):
+    """Every variable name ``path`` reads through the env readers: string
+    constants, and module constants (its own or imported) given by
+    name."""
+    import importlib
+
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mod = importlib.import_module(
+        ".".join(path.relative_to(PKG.parent).with_suffix("").parts))
+    consts = {k: v for k, v in vars(mod).items() if isinstance(v, str)}
+    names = set()
+    for n in ast.walk(tree):
+        if (isinstance(n, ast.Call) and getattr(n.func, "id", None)
+                in ("env_int", "env_float", "env_bool", "env_str")
+                and n.args):
+            a = n.args[0]
+            if isinstance(a, ast.Constant):
+                names.add(a.value)
+            elif isinstance(a, ast.Name):
+                names.add(consts.get(a.id, a.id))
+    return names
+
+
+@pytest.mark.parametrize("rel", sorted(OPERATOR_PLANE))
+def test_operator_plane_reads_only_its_named_variables(rel):
+    """The operator plane reads the reference's names of its own knobs
+    (telemetry directory, rank and membership, the supervisor's, the
+    flight recorder's and the fleet snapshots' cadences and bounds) and
+    nothing that could pick a kernel, its plain version or a dispatch
+    plane."""
+    names = _names_read(PKG / rel)
+    assert names == OPERATOR_PLANE[rel]
+    reference = "".join(p.read_text()
+                        for p in (ROOT / "paddle_tpu").rglob("*.py"))
+    for name in names:
+        assert f'"{name}"' in reference, name
+        assert not any(w in name for w in ("RAGGED", "KERNEL", "PLAIN",
+                                           "FLASH", "TRITON", "CUDA")), name
+
+
+def _profiler_opens(tree):
+    """Calls that open a profiler session: ``profile(...)`` by any path
+    (``torch.profiler.profile``, an imported ``profile``) and
+    ``torch.autograd.profiler.profile``."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            f = node.func
+            name = getattr(f, "attr", getattr(f, "id", None))
+            if name in ("profile", "_KinetoProfile", "start_trace"):
+                out.append(node.lineno)
+    return out
+
+
+def test_flight_recorder_backend_is_the_only_profiler_site():
+    """In the operator plane's new modules, only ``flightrec._start_backend``
+    opens ``torch.profiler.profile``."""
+    from paddle_tpu_torch.observability import flightrec
+
+    new = ["observability/watchdog.py", "observability/flightrec.py",
+           "observability/statusz.py", "observability/fleet.py",
+           "serving/supervisor.py", "serving/router.py",
+           "serving/frontend.py", "jit_api.py",
+           "distributed/fleet/elastic/__init__.py",
+           "distributed/fleet/elastic/fencing.py",
+           "distributed/fleet/elastic/membership.py"]
+    sites = {}
+    for rel in new:
+        lines = _profiler_opens(ast.parse((PKG / rel).read_text()))
+        if lines:
+            sites[rel] = lines
+    src = (PKG / "observability" / "flightrec.py").read_text()
+    tree = ast.parse(src)
+    backend = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                   and n.name == "_start_backend")
+    assert sites == {"observability/flightrec.py": _profiler_opens(backend)}
+    assert len(sites["observability/flightrec.py"]) == 1
+    assert callable(flightrec._start_backend)
 
 
 @pytest.fixture
