@@ -22,10 +22,14 @@ Phases, one JSON line each (any failed phase exits non-zero):
             and, for k1, 24 mixed-shape forwards on four streams at once,
             each equal bit for bit to the call alone, and the growing
             cache's decode shapes (causal Sq 1 and 7 against Sk 1000,
-            forward only, row by row);
+            forward only, row by row); the fp16 instances at the main
+            shape (timed) and one edge (tails, causal Sq < Sk), held row
+            by row at 2.5e-3; and the loss scaler's case: an fp16 backward
+            whose dS passes 65504 gives inf in dQ, which kernel A flags
+            (``fp16_overflow``);
 4. k2     — the same for GQA (K2): Hq 64 / Hkv 8 (llama2_70b attention),
             also held to the plain version with the splash kernel's
-            rounding of q;
+            rounding of q; fp16 at the main shape, timed;
 5. k3     — segment-masked flash attention (K3), held as k1 is: packed
             rows of LLaMA-2-7B attention (B 2, S 2048 packed from
             conversations of 64-1024 tokens, bf16, causal), MHA with K1's
@@ -35,7 +39,9 @@ Phases, one JSON line each (any failed phase exits non-zero):
             empty key sequence; bounds from the visible pairs alone, and
             F.sdpa with the boolean segment mask as the library time; the
             edges as k1's, rows of 1-3 token segments, and dQ exactly 0
-            on rows that see no key (dK, dV on keys no query sees);
+            on rows that see no key (dK, dV on keys no query sees); fp16
+            on the packed rows (timed), the varlen form and the 1-3 token
+            segments;
 6. k6     — ring attention (K6) over a sep-4 ring on the one card (B 1,
             S 4 x 2048 = 8192, D 128, bf16): causal MHA 32/32 and GQA
             64/8, timed, full MHA, and an f32 case at S 4 x 256.
@@ -45,17 +51,21 @@ Phases, one JSON line each (any failed phase exits non-zero):
             equal to the kernel path; CUDA-event times of the ring forward
             and forward + backward beside K1 over the whole 8192 and F.sdpa
             over it; the edges (shards of 1000, head dim 64, Hq 4); two
-            runs of the ring's backward bit for bit;
-6a. adamw — the AdamW update kernel against its plain version, bf16 and
-            f32, and its recipe instances (ADAMW_RECIPE_CASES: bf16 p with
-            an f32 master, m, v or alone; with and without the loss scale,
-            the clip factor, L1/L2 decay and the dynamics epilogue, whose
-            sums are checked too) on one 7B MLP weight;
+            runs of the ring's backward bit for bit; fp16 on the causal
+            MHA ring (timed) and the shards of 1000;
+6a. adamw — the AdamW update kernel against its plain version, bf16,
+            f32 and fp16 (a block of zero gradients unmoved), and its
+            recipe instances (ADAMW_RECIPE_CASES: bf16 p with an f32
+            master, m, v or alone; with and without the loss scale, the
+            clip factor, L1/L2 decay and the dynamics epilogue, whose sums
+            are checked too; ADAMW_FP16_CASES: fp16 p with an f32 master)
+            on one 7B MLP weight;
 6b. grad_norm — the gradient-norm kernel (kernel A) against its plain
             version: the gradients of 2 layers at 7B widths plus the
-            embedding and the head, bf16 and f32, without and with a
-            scale, grouped; edge lists; a planted NaN, Inf and finite
-            1e30; two launches bit for bit; torch._foreach_norm beside;
+            embedding and the head, bf16, f32 and fp16, without and with
+            a scale, grouped; edge lists; a planted NaN, Inf and finite
+            1e30 (fp16: 6e4, whose square overflows fp16 and is no flag);
+            two launches bit for bit; torch._foreach_norm beside;
 6c. wo_linear — the weight-only product (kernel C) against its plain
             version at LLaMA-2-7B's projections (4096 -> 4096, 4096 ->
             11008, 11008 -> 4096), int8 and int4 codes, bf16 and f32 x of
@@ -82,26 +92,35 @@ Phases, one JSON line each (any failed phase exits non-zero):
             rows included);
 8. k4, k5 — ragged paged attention (K4) and paged decode attention (K5)
             against their plain versions at LLaMA-2-7B attention shapes
-            (MHA, then GQA), over bf16 pools (bf16 q) and f32 pools (f32
-            q), each launched twice for the same bits; then their edges
-            for both pool types (``k4_edges``, ``k5_edges``): groups 1, 2,
+            (MHA, then GQA), over bf16 pools (bf16 q), fp16 pools (fp16 q)
+            and f32 pools (f32 q), each launched twice for the same bits;
+            then their edges for each pool type (``k4_edges``,
+            ``k5_edges``; fp16's on a small set): groups 1, 2,
             4 and 8 and head dim 64; for K5 lengths 1, bs, bs + 1, a
             split's span and one past it, the full 2048, and B 1; for K4
             an empty row, pad tokens (zeros), a fresh prefill, a chunk no
             multiple of the 64-pair tile, a chunk starting mid-page, a
             2-token prefill and a decode row at 2048; both also over
             64-token pages (MHA), the page size slice_online serves from;
-9. k4_int8, k5_int8 — the same over int8 pools, q in bf16 and f32, and
-            the same edges (``k4_int8_edges``, ``k5_int8_edges``). Each of
-            k4, k5, k4_int8 and k5_int8 reports ``device_ms`` beside the
+9. k4_int8, k5_int8 — the same over int8 pools, q in bf16, f32 and fp16
+            (read as the reference's kernels read it: f32 for K4, bf16
+            for K5), and the same edges (``k4_int8_edges``,
+            ``k5_int8_edges``). Each of k4, k5, k4_int8 and k5_int8 reports ``device_ms`` beside the
             single-call ``kernel_ms``: the summed device time of every
             kernel one call launches (tiles, split and merge), from
             torch.profiler's kernel events over 20 calls with the L2
             flushed before each;
+9a. lbfgs_equal — LBFGS with the strong-Wolfe line search on a seeded
+            4096 x 4096 least-squares problem, card against CPU: iterates
+            within 1e-5, evaluation counts and histories equal;
+9b. debugging — amp.debugging on the card: check_numerics' counts, and
+            FLAGS_check_nan_inf naming K1's wrapper at a planted Inf;
 10. serve_equal — LLaMA-2-7B widths, 1 layer, f32: tokens served on the
             card (kernels) equal those served on the CPU (plain versions),
             in four runs: float pools greedy, int8 pools greedy, float
-            pools sampled, float pools with the prefix cache;
+            pools sampled, float pools with the prefix cache; then the
+            card's model in fp16 from fp16 pools against the CPU's f32
+            greedy tokens (or an explained near tie);
 10a. serve_surface_equal — the same setting, the engine's surface card
             vs CPU: the legacy ladder (ragged=False) greedy over float and
             int8 pools (the insert's int8 codes bit for bit), with the
@@ -111,8 +130,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             exported, detached and adopted by a second engine, and a
             legacy engine after warmup. The legacy runs launch K5 and no
             K4;
-10b. frontend_equal — serve_equal's model and seed at 2 layers through
-            the port's ServingFrontend, card against CPU: (a) 2 ragged replicas, 8
+10b. frontend_equal — serve_equal's model and seed at EQUAL_LAYERS
+            through the port's ServingFrontend, card against CPU: (a) 2 ragged replicas, 8
             requests (4 interactive of 8-24 tokens, 4 batch of 100-300),
             16 new each: the CPU frontend's tokens and each device's
             single-engine serve's, each replica completing a request and
@@ -123,7 +142,8 @@ Phases, one JSON line each (any failed phase exits non-zero):
             (d) a queue bound of 2: Overloaded for the excess, (a)'s tokens
             for the admitted; (e) replicas that build the paged libraries
             themselves into an empty build directory, the heartbeat
-            deadline 1.5x the longer build: their beats go stale past it
+            deadline 1.2x the longer build of the two alone: their beats
+            go stale past it
             during the two builds, the monitor's lock probe spares them,
             none is killed. A differing request passes
             only at an explained near tie;
@@ -137,7 +157,7 @@ Phases, one JSON line each (any failed phase exits non-zero):
             `replica0-g1` serves a second load through K4 and K5; a late
             heartbeat of the dead incarnation is refused (its fence
             revoked, `supervisor.fenced_writes` up, its file unchanged);
-11. slice — LLaMA-2-7B's full width at SLICE_LAYERS (8) of its 32
+11. slice — LLaMA-2-7B's full width at SLICE_LAYERS (4) of its 32
             layers, bf16, seeded weights: 8
             requests through the ragged continuous-batching engine, with
             both kernels' launch counts taken over that run alone;
@@ -190,7 +210,7 @@ Phases, one JSON line each (any failed phase exits non-zero):
             device's greedy), and int8 and int4 weight-only greedy with
             kernel C's exact launches; then a growing-cache decode on K1
             (exact launches, logits against the CPU and the fixed cache);
-14f. generate — LLaMA-2-7B bf16 at GEN_LAYERS (8) of 32, bench.py
+14f. generate — LLaMA-2-7B bf16 at GEN_LAYERS (4) of 32, bench.py
             run_decode's
             traffic (B 8, prompts of 512, 256 new): tokens/s, decode ms a
             step, HBM share, peak memory and a profiled decode; then
@@ -212,17 +232,26 @@ Phases, one JSON line each (any failed phase exits non-zero):
             unexplained;
 16b. train_cp_equal — `train_equal` under context parallelism: B 1 x S
             1024, sep 4 (S_local 256), two DistributedTrainSteps on the
-            card and the CPU, the ring and then Ulysses, with the amplified
-            rule as in 16a; on the card the first step's loss equals the
+            card, the ring and then Ulysses, each against 16a's CPU run
+            (the same seed and tokens, no mesh), with the amplified rule
+            as in 16a; on the card the first step's loss equals the
             no-mesh loss within 1e-5 relative;
 16c. train_recipe_equal — the training recipe card against CPU: f32,
-            7B widths, 1 layer, B 1 x S 256, 4 TrainSteps under LLaMA 2's
+            7B widths, 2 layers, B 1 x S 256, 5 TrainSteps under LLaMA 2's
             AdamW, a warm-up + cosine schedule, a global-norm clip that
-            clips, a dynamic loss scaler whose first step overflows and
-            dynamics spilling every step: losses, gradients, parameters,
-            lr, skip and scale sequences, clip factors, dynamics sums and
-            exact launches (kernel A, kernel B's master-less general
-            instance);
+            clips, a dynamic loss scaler whose first and third steps
+            overflow (the scale halves on each and doubles at the fifth,
+            after two good steps) and dynamics spilling every step:
+            losses, gradients,
+            parameters, lr, skip and scale sequences, clip factors,
+            dynamics sums and exact launches (kernel A, kernel B's
+            master-less general instance);
+16e. train_fp16_equal — the same recipe in fp16 on the card
+            (decorate(O2, float16): fp16 parameters, f32 master weights)
+            against 16c's CPU f32 run: skip, scale and lr sequences
+            identical, losses, gradients and clip factors within fp16's
+            limits (FP16_LOSS_TOL, FP16_GRAD_TOL, FP16_FACTOR_TOL), exact
+            launches, every one the fp16 instances';
 16d. moe_equal — f32, bench.py MOE_RUNG's widths (hidden 1024, 16
             heads, 8 experts, top-2) at 2 layers: `train_equal`'s two
             TrainSteps (B 1, S 256) through make_loss_fn, with every
@@ -252,6 +281,11 @@ Phases, one JSON line each (any failed phase exits non-zero):
             memory of both, and two steps of each profiled;
 20. train_gqa — llama2_70b widths at 2 layers (GQA 64/8), recompute "dots",
             B 1, S 2048: 1 warm-up and 3 timed steps;
+20a. train_fp16 — LLaMA-2-7B widths in fp16 O2 with f32 master weights
+            and the GradScaler from 2^15, FP16_TRAIN_LAYERS (8) of 32
+            layers, B 2 x S 2048, 2 warm-up and 6 timed steps: step ms,
+            tokens/s, MFU beside `train`'s bf16 MFU, peak memory, skips and
+            the scale sequence, exact launches of the fp16 instances;
 21. train_recipe — LLaMA-2-7B widths cut to 16 layers, bf16, B 2, S
             2048: `train`'s plain recipe, then LLaMA 2's (f32 master
             weights, clip 1.0, warm-up + cosine, StepMetricsBus,
@@ -306,23 +340,31 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12,   # dense tensor-core bf16
+                  "torch.float16": 989e12,    # dense tensor-core fp16
                   "torch.float32": 67e12}     # f32 outside the tensor cores
-TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),  # (atol, rtol): bf16 output ulp
-             "torch.float32": (1e-4, 1e-4)}   # summation order only
+#: (atol, rtol) of a kernel's output against its plain version. bf16: a few
+#: output ulps (unit roundoff 2^-9). fp16: bf16's limits over 4, since
+#: fp16's unit roundoff is 2^-11 and the kernels round at the same points
+#: (P, dS, the output once) in either type. f32: summation order only.
+TOLERANCE = {"torch.bfloat16": (2e-2, 1e-2),
+             "torch.float16": (5e-3, 2.5e-3),
+             "torch.float32": (1e-4, 1e-4)}
 BS, D, HQ = 16, 128, 32            # LLaMA-2-7B attention: page 16, head 128
 PHASES = ("k1", "k2", "k3", "k6", "adamw", "grad_norm", "wo_linear",
           "moe_dispatch", "codec",
-          "k4", "k5", "k4_int8", "k5_int8", "serve_equal",
+          "k4", "k5", "k4_int8", "k5_int8", "lbfgs_equal", "debugging",
+          "serve_equal",
           "serve_surface_equal", "frontend_equal", "operator_equal",
           "slice", "profile",
           "slice_int8", "slice_sampled_prefix", "slice_surface",
-          "slice_online", "slice_operator", "generate_equal",
+          "slice_online", "slice_operator", "slice_fp16", "generate_equal",
           "generate",
           "train_equal", "train_packed_equal",
           "train_equal_s1024", "train_cp_equal", "train_recipe_equal",
+          "train_fp16_equal",
           "moe_equal", "train", "train_profile", "train_packed", "train_cp",
-          "train_gqa", "train_recipe", "moe_train", "moe_generate",
-          "train_operator")
+          "train_gqa", "train_fp16", "train_recipe", "moe_train",
+          "moe_generate", "train_operator")
 MAX_SEQS, MAX_LEN, CHUNK = 8, 2048, 256
 PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 #: depth cuts that keep the call inside its 1200 s budget on a slow host
@@ -341,10 +383,18 @@ PROFILE_NEW_TOKENS = 16   # profiles of slice_int8 and slice_sampled_prefix
 #: after a call of 868.0 s that family and `generate` went to 8 layers
 #: (the speculative draft to run_spec_decode's layers // 4 of them): the
 #: serving and generation phases are host-bound, their time scales with
-#: the layers' launches
+#: the layers' launches. When the fp16 phases joined (train_fp16_equal,
+#: train_fp16, slice_fp16, serve_equal's fp16 run, lbfgs_equal, debugging,
+#: the kernels' fp16 cases) after calls of 815.5 and 877.4 s:
+#: train_cp_equal holds its ring and Ulysses runs to train_equal_s1024's
+#: CPU run (the same seed and tokens, no mesh: the function the ring
+#: computes) instead of training the CPU under the mesh, train_fp16_equal
+#: takes train_recipe_equal's CPU run, frontend_equal went from 2 layers
+#: to EQUAL_LAYERS, and the `slice` family and `generate` from 8 layers to
+#: 4 (the speculative draft to 1)
 EQUAL_LAYERS = 1
-SLICE_LAYERS = 8
-GEN_LAYERS = 8
+SLICE_LAYERS = 4
+GEN_LAYERS = 4
 
 
 T0 = time.perf_counter()
@@ -426,15 +476,16 @@ def device_ms(fn, calls=20, warmup=2, clean=False):
     return sum(per_call.values()), per_call
 
 
-def compare(name, got, want, valid_rows):
-    """Max |got - want| over the valid rows; raises past the tolerance or
-    on a non-finite output anywhere."""
+def compare(name, got, want, valid_rows, tol=None):
+    """Max |got - want| over the valid rows; raises past the tolerance
+    (``tol``, by default TOLERANCE of got's dtype) or on a non-finite
+    output anywhere."""
     import torch
 
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     g, w = got[:valid_rows].float(), want[:valid_rows].float()
-    atol, rtol = TOLERANCE[str(got.dtype)]
+    atol, rtol = tol or TOLERANCE[str(got.dtype)]
     err = (g - w).abs()
     bad = err > atol + rtol * w.abs()
     if bad.any():
@@ -513,8 +564,8 @@ def pool_runs(pool):
 
 
 def make_pools(gen, hkv, pool, d=D, bs=BS):
-    """A K/V pool pair of type ``pool`` (int8, bfloat16, float32) of
-    ``bs``-token pages."""
+    """A K/V pool pair of type ``pool`` (int8, bfloat16, float16, float32)
+    of ``bs``-token pages."""
     import torch
 
     if pool == "int8":
@@ -526,14 +577,39 @@ def pool_label(pool):
     return " int8 pool" if pool == "int8" else f" {pool} pool"
 
 
-def k5_edges(seed, pool):
+#: fp16's small edge sets (the full matrices run bf16, f32 and int8):
+#: GQA 32/8 over 16-token pages, and MHA over 64-token pages
+FP16_EDGE_CONFIGS = ((8, 32, 128),)
+
+
+def k5_plain(q, kp, vp, lengths, pt, scale):
+    """K5's plain version on the inputs its kernel reads: as
+    ``_paged_math``, except that an fp16 q over an int8 pool is read as the
+    reference's kernel reads it (``q * scale`` in fp16 cast to bf16, the
+    output cast back to fp16: paddle_tpu/ops/paged_attention.py:175), as
+    the wrapper launches it. Returns (output, its tolerance: bf16's where
+    the output passed through bf16)."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.quantization import is_quantized
+
+    if is_quantized(kp) and q.dtype == torch.float16:
+        out = pa._paged_math((q * scale).to(torch.bfloat16), kp, vp,
+                             lengths, pt, 1.0).to(q.dtype)
+        return out, TOLERANCE["torch.bfloat16"]
+    return pa._paged_math(q, kp, vp, lengths, pt, scale), None
+
+
+def k5_edges(seed, pool, configs=EDGE_CONFIGS, dtypes=None):
     """K5 over pools of type ``pool`` at its edges (an int8 pool with q
     bf16 and f32, a float pool with q of its dtype), against the plain
     version within TOLERANCE, every output finite: per group and head dim,
     rows of length 1 (frozen at page 0), bs, bs + 1, a split's span and one
     past it, two spans and a few, the full MAX_LEN and one in between;
     then B 1; then the MHA rows over 64-token pages (``BS_WIDE``, the page
-    size slice_online serves from). Returns one row per case."""
+    size slice_online serves from). ``configs`` and ``dtypes`` (q's) cut
+    the matrix (fp16's small set). Returns one row per case."""
     import numpy as np
     import torch
 
@@ -542,7 +618,7 @@ def k5_edges(seed, pool):
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    cases = ([(c, False, BS) for c in EDGE_CONFIGS]
+    cases = ([(c, False, BS) for c in configs]
              + [((32, 32, 128), True, BS), ((32, 32, 128), False, BS_WIDE)])
     for (hkv, hq, d), single, bs in cases:
         splits, per = pa.kv_split_plan(MAX_LEN // bs, hkv,
@@ -561,24 +637,24 @@ def k5_edges(seed, pool):
         q32 = torch.randn((len(lengths), hq, d), generator=gen,
                           device="cuda")
         lens = torch.from_numpy(lengths).cuda()
-        for dtype in pool_runs(pool):
+        for dtype in dtypes or pool_runs(pool):
             q = q32.to(dtype)
             scale = d ** -0.5
             got = pa.paged_decode_attention(q, kp, vp, lens, pt)
             torch.cuda.synchronize()
-            want = pa._paged_math(q, kp, vp, lens, pt, scale)
+            want, tol = k5_plain(q, kp, vp, lens, pt, scale)
             case = (f"k5 edge hkv={hkv} hq={hq} d={d} B={len(lengths)}"
                     f" bs={bs} {dtype}{pool_label(pool)}")
             rows.append({"case": case, "lengths": lengths.tolist(),
                          "page_size": bs,
                          "splits": splits, "pages_per_split": per,
                          "max_abs_err": compare(case, got, want,
-                                                len(lengths))})
+                                                len(lengths), tol)})
         del kp, vp
     return rows
 
 
-def k4_edges(seed, pool):
+def k4_edges(seed, pool, configs=EDGE_CONFIGS, dtypes=None):
     """K4 over pools of type ``pool`` at its edges (q types as
     ``k5_edges``), against the plain version within TOLERANCE, every
     output finite and the pad tokens zero: per group and head dim, one
@@ -586,7 +662,8 @@ def k4_edges(seed, pool):
     (kv_len = q_len = 100), a chunk of 77 tokens (no multiple of a tile), a
     40-token chunk starting mid-page (kv 1010), a short decode row, a
     2-token prefill, and 3 pad tokens; then the MHA stream over 64-token
-    pages (``BS_WIDE``). Returns one row per case."""
+    pages (``BS_WIDE``). ``configs`` and ``dtypes`` as ``k5_edges``'s.
+    Returns one row per case."""
     import numpy as np
     import torch
 
@@ -601,14 +678,14 @@ def k4_edges(seed, pool):
     n_valid = int(cu[-1])
     T = n_valid + 3
     rows = []
-    cases = [(c, BS) for c in EDGE_CONFIGS] + [((32, 32, 128), BS_WIDE)]
+    cases = [(c, BS) for c in configs] + [((32, 32, 128), BS_WIDE)]
     for (hkv, hq, d), bs in cases:
         kp, vp = make_pools(gen, hkv, pool, d, bs)
         pt = page_table(rng, bs)
         q32 = torch.randn((T, hq, d), generator=gen, device="cuda")
         args_i = (torch.from_numpy(kv_lens).cuda(), pt,
                   torch.from_numpy(cu).cuda())
-        for dtype in pool_runs(pool):
+        for dtype in dtypes or pool_runs(pool):
             q = q32.to(dtype)
             scale = d ** -0.5
             got = rpa.ragged_paged_attention(q, kp, vp, *args_i)
@@ -636,18 +713,19 @@ def pool_row_bytes(hkv, quant, elt):
 def phase_k4(seed=1, quant=False):
     """6 decode rows, one 256-token prefill chunk and one empty row:
     S = 8 rows in a T = 264 stream (2 pad tokens), the mixed dispatch's
-    shapes; MHA then GQA (Hkv = 8), each over bf16 pools (bf16 q) and f32
-    pools (f32 q). ``quant``: the int8 variant over an int8 pool, with q in
-    bf16 and in f32. Each run is held to the plain version, launched twice
-    for the same bits and timed; then the edges (``k4_edges``) for each
-    pool type."""
+    shapes; MHA then GQA (Hkv = 8), each over bf16 pools (bf16 q), fp16
+    pools (fp16 q) and f32 pools (f32 q). ``quant``: the int8 variant over
+    an int8 pool, with q in bf16, in f32 and in fp16 (read in f32, as the
+    reference's kernel reads it). Each run is held to the plain version,
+    launched twice for the same bits and timed; then the edges
+    (``k4_edges``) for each pool type, fp16's on its small set."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     phase = "k4_int8" if quant else "k4"
-    kinds = ("int8",) if quant else ("bfloat16", "float32")
+    kinds = ("int8",) if quant else ("bfloat16", "float16", "float32")
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     T = CHUNK + MAX_SEQS
@@ -664,7 +742,8 @@ def phase_k4(seed=1, quant=False):
         q32 = torch.randn((T, HQ, D), generator=gen, device="cuda")
         for pool in kinds:
             kp, vp = make_pools(gen, hkv, pool)
-            for dtype in pool_runs(pool):
+            for dtype in pool_runs(pool) + ((torch.float16,) if quant
+                                            else ()):
                 q = q32.to(dtype)
                 args = (q, kp, vp, torch.from_numpy(kv_lens).cuda(), pt,
                         torch.from_numpy(cu).cuda())
@@ -706,7 +785,11 @@ def phase_k4(seed=1, quant=False):
             del kp, vp
     edges = []
     for pool in kinds:
-        cases = k4_edges(seed + 100, pool)
+        cases = (k4_edges(seed + 100, pool) if pool != "float16" else
+                 k4_edges(seed + 100, pool, FP16_EDGE_CONFIGS))
+        if quant:
+            cases += k4_edges(seed + 200, pool, FP16_EDGE_CONFIGS,
+                              (torch.float16,))
         emit({"phase": phase + "_edges", "pool": pool, "cases": cases})
         edges += cases
     rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
@@ -715,17 +798,19 @@ def phase_k4(seed=1, quant=False):
 
 def phase_k5(seed=2, quant=False):
     """B = 8 decode rows, kv lengths up to 2048; MHA then GQA (Hkv = 8),
-    each over bf16 pools (bf16 q) and f32 pools (f32 q). ``quant``: the
-    int8 variant over an int8 pool, with q in bf16 and in f32. Each run is
-    held to the plain version, launched twice for the same bits and timed;
-    then the edges (``k5_edges``) for each pool type."""
+    each over bf16 pools (bf16 q), fp16 pools (fp16 q) and f32 pools (f32
+    q). ``quant``: the int8 variant over an int8 pool, with q in bf16, in
+    f32 and in fp16 (cast to bf16 as the reference's kernel reads it,
+    ``k5_plain``). Each run is held to the plain version, launched twice
+    for the same bits and timed; then the edges (``k5_edges``) for each
+    pool type, fp16's on its small set."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
     phase = "k5_int8" if quant else "k5"
-    kinds = ("int8",) if quant else ("bfloat16", "float32")
+    kinds = ("int8",) if quant else ("bfloat16", "float16", "float32")
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     lengths = rng.randint(1, MAX_LEN + 1, MAX_SEQS).astype(np.int32)
@@ -737,7 +822,8 @@ def phase_k5(seed=2, quant=False):
         q32 = torch.randn((MAX_SEQS, HQ, D), generator=gen, device="cuda")
         for pool in kinds:
             kp, vp = make_pools(gen, hkv, pool)
-            for dtype in pool_runs(pool):
+            for dtype in pool_runs(pool) + ((torch.float16,) if quant
+                                            else ()):
                 q = q32.to(dtype)
                 args = (q, kp, vp, torch.from_numpy(lengths).cuda(), pt)
                 scale = D ** -0.5
@@ -745,8 +831,8 @@ def phase_k5(seed=2, quant=False):
                     pool_label(pool))
                 got = pa.paged_decode_attention(*args)
                 torch.cuda.synchronize()
-                want = pa._paged_math(*args, scale)
-                err = compare(name, got, want, MAX_SEQS)
+                want, tol = k5_plain(*args, scale)
+                err = compare(name, got, want, MAX_SEQS, tol)
                 ms = cuda_ms(lambda: pa.paged_decode_attention(*args))
                 dev_ms, dev_kernels = device_ms(
                     lambda: pa.paged_decode_attention(*args))
@@ -774,7 +860,11 @@ def phase_k5(seed=2, quant=False):
             del kp, vp
     edges = []
     for pool in kinds:
-        cases = k5_edges(seed + 100, pool)
+        cases = (k5_edges(seed + 100, pool) if pool != "float16" else
+                 k5_edges(seed + 100, pool, FP16_EDGE_CONFIGS))
+        if quant:
+            cases += k5_edges(seed + 200, pool, FP16_EDGE_CONFIGS,
+                              (torch.float16,))
         emit({"phase": phase + "_edges", "pool": pool, "cases": cases})
         edges += cases
     rows[0]["edge_max_abs_err"] = max(r["max_abs_err"] for r in edges)
@@ -850,7 +940,12 @@ def _counts():
             "ragged_paged_attention_int8":
                 ragged_paged_attention.launches_int8,
             "paged_decode_attention_int8":
-                paged_decode_attention.launches_int8}
+                paged_decode_attention.launches_int8,
+            # of the float launches, those of the fp16 instances
+            "ragged_paged_attention_fp16":
+                ragged_paged_attention.launches_fp16,
+            "paged_decode_attention_fp16":
+                paged_decode_attention.launches_fp16}
 
 
 def _reset_counts():
@@ -863,6 +958,8 @@ def _reset_counts():
     paged_decode_attention.launches = 0
     ragged_paged_attention.launches_int8 = 0
     paged_decode_attention.launches_int8 = 0
+    ragged_paged_attention.launches_fp16 = 0
+    paged_decode_attention.launches_fp16 = 0
     ragged_paged_attention.launches_by_thread.clear()
     paged_decode_attention.launches_by_thread.clear()
 
@@ -871,14 +968,17 @@ FLOAT_KERNELS = ("ragged_paged_attention", "paged_decode_attention")
 INT8_KERNELS = ("ragged_paged_attention_int8", "paged_decode_attention_int8")
 
 
-def check_launches(counts, int8):
+def check_launches(counts, int8, fp16=False):
     """The serving path ran through its kernels: both of the pool type's
-    launched, and none of the other pool type's."""
+    launched, and none of the other pool type's; ``fp16``: every float
+    launch was the fp16 instance's (none of bf16 or f32)."""
     ran, idle = ((INT8_KERNELS, FLOAT_KERNELS) if int8
                  else (FLOAT_KERNELS, INT8_KERNELS))
     if min(counts[k] for k in ran) < 1 or max(counts[k] for k in idle) > 0:
         raise AssertionError(f"expected launches of {ran} and none of "
                              f"{idle}: {counts}")
+    if fp16 and any(counts[k] != counts[k + "_fp16"] for k in FLOAT_KERNELS):
+        raise AssertionError(f"float launches other than fp16: {counts}")
 
 
 def _pool_codes_differing(gpu_eng, cpu_eng):
@@ -984,7 +1084,11 @@ def phase_serve_equal(seed=3):
     calls sharing a 64-token system prompt. The int8 run may differ only
     at near ties (``explain_divergences``); its `calibration` serves the
     CPU once more with every weight an ulp off and counts the requests
-    that diverge there, without a card."""
+    that diverge there, without a card. Then `fp16_greedy`: the card's
+    model cast to fp16 serves from fp16 pools, held to the CPU's f32
+    float_greedy tokens under the int8 run's rule (identical, or each
+    request's first differing token at an explained near tie), every
+    float launch the fp16 instances'."""
     import numpy as np
     import torch
 
@@ -1081,9 +1185,50 @@ def phase_serve_equal(seed=3):
                 raise AssertionError(f"serve_equal {name}: prefix hits "
                                      f"card/CPU {hits}")
         del engines
+        if name == "float_greedy":
+            greedy = want
+    rows.append(_serve_fp16_greedy(gpu_model, cpu_model, prompts, greedy,
+                                   base))
     del gpu_model
     torch.cuda.empty_cache()
     return rows
+
+
+def _serve_fp16_greedy(gpu_model, cpu_model, prompts, want, base):
+    """serve_equal's `fp16_greedy` run: ``gpu_model`` cast to fp16 on the
+    card against the CPU's f32 greedy tokens ``want``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.continuous import ContinuousBatchingEngine
+
+    gpu_model.to(torch.float16)
+    eng = ContinuousBatchingEngine(gpu_model, device="cuda",
+                                   prefill_chunk=64, **base)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = eng.serve(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    counts = _counts()
+    same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+    row = {"phase": "serve_equal", "run": "fp16_greedy",
+           "layers": EQUAL_LAYERS, "dtype": "float16 (card) vs float32",
+           "pools": str(eng.pools[0][0].dtype),
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": 16,
+           "identical": same, "kernels": counts,
+           "gpu_s": time.perf_counter() - t0,
+           "divergences": explain_divergences(gpu_model, cpu_model, got,
+                                              want, None)}
+    same = [s or any(d["request"] == i and d["explained"]
+                     for d in row["divergences"])
+            for i, s in enumerate(same)]
+    row["identical_or_near_tie"] = same
+    emit(row)
+    if not all(same) or eng.pools[0][0].dtype != torch.float16:
+        raise AssertionError(f"serve_equal fp16_greedy: tokens beyond near "
+                             f"ties {row['divergences']}")
+    check_launches(counts, False, fp16=True)
+    return row
 
 
 def slice_prompts(seed, vocab):
@@ -1129,14 +1274,16 @@ def _timed_serve(eng, prompts, new_tokens, ttfts=None, **serve_kw):
 
 
 def phase_slice(model, seed=0, new_tokens=64, kv_cache_dtype=None,
-                reference=None):
+                reference=None, phase=None):
     """LLaMA-2-7B's full width at SLICE_LAYERS of 32 layers, bf16, seeded
     weights: 8 requests
     of 32-1024 prompt tokens and 64 new tokens each, greedy. With
     ``kv_cache_dtype="int8"`` (phase `slice_int8`) the pools are int8 and
     ``prefill_chunk`` is left out (the int8 engine refuses it; its ragged
     chunk is 256 anyway); ``reference`` is the bf16 slice's (row, outputs),
-    for the pool size and the share of equal tokens."""
+    for the pool size and the share of equal tokens. ``phase``: the row's
+    name (`slice_fp16`: the model cast to fp16, every float launch the fp16
+    instances')."""
     import numpy as np
     import torch
 
@@ -1153,10 +1300,12 @@ def phase_slice(model, seed=0, new_tokens=64, kv_cache_dtype=None,
     prompts = slice_prompts(seed, model.config.vocab_size)
     eng.serve([prompts[0][:16]], max_new_tokens=2)   # warm-up
     out, wall, ttft, counts = _timed_serve(eng, prompts, new_tokens)
-    check_launches(counts, int8)
-    row = {"phase": "slice_int8" if int8 else "slice", "model": "llama2_7b",
-           "layers": model.config.num_hidden_layers, "dtype": "bfloat16",
-           "kv_cache_dtype": "int8" if int8 else "bfloat16",
+    dtype = str(next(model.parameters()).dtype).removeprefix("torch.")
+    check_launches(counts, int8, fp16=dtype == "float16")
+    row = {"phase": phase or ("slice_int8" if int8 else "slice"),
+           "model": "llama2_7b",
+           "layers": model.config.num_hidden_layers, "dtype": dtype,
+           "kv_cache_dtype": "int8" if int8 else dtype,
            "max_seqs": MAX_SEQS, "page_size": BS, "max_len": MAX_LEN,
            "decode_block": 8, "prefill_chunk": None if int8 else CHUNK,
            "ragged_chunk": eng._ragged_chunk,
@@ -1660,7 +1809,8 @@ def phase_slice_surface(model, reference, seed=0, new_tokens=64):
 PAGED_KERNELS = (("ragged_tile_kernel<", "ragged_paged_attention"),
                  ("paged_split_kernel<", "paged_decode_attention"),
                  ("split_merge_kernel<", "paged_split_merge"))
-POOL_FAMILY = {"PoolInt8": "_int8", "PoolBf16": "", "PoolF32": ""}
+POOL_FAMILY = {"PoolInt8": "_int8", "PoolBf16": "", "PoolF16": "",
+               "PoolF32": ""}
 
 
 def _family(name):
@@ -1675,14 +1825,15 @@ def _family(name):
             if tag not in POOL_FAMILY:
                 raise AssertionError(f"_family: no pool type in {name!r}")
             return family + POOL_FAMILY[tag]
-    # the forward's kernels (bf16 flash_fwd_hopper, f32 flash_fwd_f32) are
-    # templated <D, SEG, RING>, the bf16 gradients' <D, SEG, ACC>, the f32
-    # backward's <T, D, SEG>: SEG is K3's segment mask (its delta pass is
-    # K1's kernel), RING K6's merge, ACC the ring visits' f32 sums
-    for kernel, entry, n_lead in (("flash_fwd_hopper<", "fwd", 1),
+    # the forward's kernels (bf16 and fp16 flash_fwd_hopper <E, D, SEG,
+    # RING>, f32 flash_fwd_f32 <D, SEG, RING>), the 16-bit gradients'
+    # <E, D, SEG, ACC>, the f32 backward's <T, D, SEG>: SEG is K3's segment
+    # mask (its delta pass is K1's kernel), RING K6's merge, ACC the ring
+    # visits' f32 sums
+    for kernel, entry, n_lead in (("flash_fwd_hopper<", "fwd", 2),
                                   ("flash_fwd_f32<", "fwd", 1),
-                                  ("flash_dkdv_hopper<", "bwd_dkdv", 1),
-                                  ("flash_dq_hopper<", "bwd_dq", 1),
+                                  ("flash_dkdv_hopper<", "bwd_dkdv", 2),
+                                  ("flash_dq_hopper<", "bwd_dq", 2),
                                   ("flash_bwd_delta_kernel<", "bwd_delta", 2),
                                   ("flash_bwd_dkdv_kernel<", "bwd_dkdv", 2),
                                   ("flash_bwd_dq_kernel<", "bwd_dq", 2)):
@@ -1716,7 +1867,8 @@ def phase_profile(eng, prompts, new_tokens=64):
     return _device_profile(
         "profile", lambda: eng.serve(prompts, max_new_tokens=new_tokens))
 
-ROW_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+ROW_TOL = {"torch.bfloat16": 1e-2, "torch.float16": 2.5e-3,
+           "torch.float32": 1e-4}
 FEW_KEYS = 32      # query rows seeing fewer keys: see flash_case
 
 
@@ -1732,7 +1884,9 @@ def row_check(got, want, elementwise, spare=None):
     1.1e-3); the kernels round P and dS before their products and each
     output once, so a row of 128 values errs by some 2-5e-3 of its norm,
     and 1e-2 leaves a 2-5x margin while a kernel 10% off on any row fails
-    by 10x. f32: summation order only. ``elementwise``: also hold every
+    by 10x. fp16: the same argument at fp16's unit roundoff, 2^-11, four
+    times finer: 2.5e-3. f32: summation order only. ``elementwise``: also
+    hold every
     element to the (atol, rtol) of TOLERANCE. ``spare``: a bool per row;
     those rows past the limit are counted apart (``spared_rows``), not as
     failures. Returns the sizes compared, the largest ratio of a row's
@@ -1984,7 +2138,7 @@ def flash_case(gen, B, sq, sk, hq, hkv, causal, dtype, timed, segs=None,
     del given_o
     end_to_end = held(got[1:], want[1:], ("dq", "dk", "dv"), spare)
     splash = None
-    if hq != hkv and dtype == torch.bfloat16:
+    if hq != hkv and dtype != torch.float32:
         # the reference's splash kernel (K2; K3's GQA too) scales q in its
         # storage dtype before the products
         # (paddle_tpu/ops/flash_attention.py:161, :301); the port's kernels
@@ -2139,6 +2293,13 @@ def phase_flash(phase, hq, hkv, seed):
                        dtype=torch.bfloat16, timed=False)]
     cases += [dict(B=1, sq=300, sk=300, causal=True, dtype=torch.float32,
                    timed=False)]
+    # the fp16 instances at the training path's shape, timed, and (k1) at
+    # one edge: tails past every tile under a causal Sq < Sk
+    cases += [dict(B=2, sq=2048, sk=2048, causal=True, dtype=torch.float16,
+                   timed=True)]
+    if phase == "k1":
+        cases += [dict(edge="tails_causal", B=2, sq=1000, sk=1900,
+                       causal=True, dtype=torch.float16, timed=False)]
     bf16 = dict(dtype=torch.bfloat16, timed=False)
     small = (4, 4) if hq == hkv else (8, 1)    # B 1: 16 x Hq tiles < 132
     cases += [dict(edge="tails", B=2, sq=1000, sk=1900, causal=False, **bf16),
@@ -2162,7 +2323,43 @@ def phase_flash(phase, hq, hkv, seed):
     if phase == "k1":
         emit(concurrent_forwards(gen))
         growing_cache_edges(gen)
+        emit(fp16_overflow(gen))
     return rows
+
+
+def fp16_overflow(gen, B=1, S=512):
+    """The loss scaler's case on the fp16 instances: a backward whose dS =
+    P (dP - delta) passes fp16's 65504 (dO and V of size 300, so dP ~ 1e6
+    and the rows that see few keys keep a large P) rounds dS to inf, as the
+    reference's kernel does, so dQ holds inf; kernel A then flags the
+    gradient list [dq, dk, dv], which is what makes a scaled step skip.
+    The forward stays finite."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grad_norm as gn
+
+    def rand(shape, size=1.0):
+        return (size * torch.randn(shape, generator=gen, device="cuda")).to(
+            torch.float16)
+
+    q, k = rand((B, S, HQ, D)), rand((B, S, HQ, D))
+    v, do = rand((B, S, HQ, D), 300.0), rand((B, S, HQ, D), 300.0)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fa.FlashAttention.apply(qq, kk, vv, True, D ** -0.5)
+    out.backward(do)
+    grads = [qq.grad, kk.grad, vv.grad]
+    st = gn.grad_sumsq(grads, scale=torch.tensor(2.0 ** 15, device="cuda"))
+    torch.cuda.synchronize()
+    row = {"phase": "k1", "case": "fp16_overflow", "B": B, "S": S,
+           "out_finite": bool(torch.isfinite(out).all()),
+           "dq_nonfinite": int((~torch.isfinite(qq.grad)).sum()),
+           "flags": st.nonfinite.tolist(),
+           "any_nonfinite": int(st.any_nonfinite)}
+    if not (row["out_finite"] and row["dq_nonfinite"] > 0
+            and row["flags"][0] == 1 and row["any_nonfinite"] == 1):
+        raise AssertionError(f"fp16 overflow: {row}")
+    return row
 
 
 def concurrent_forwards(gen, n_cases=24, n_streams=4, reps=3):
@@ -2381,6 +2578,11 @@ def phase_k6(seed=12):
              dict(s_loc=256, hq=HQ, hkv=HQ, causal=True, dtype=torch.float32,
                   timed=False)]
     bf16 = dict(causal=True, dtype=torch.bfloat16, timed=False)
+    # the fp16 instance: the main ring (timed) and one edge
+    cases += [dict(s_loc=2048, hq=HQ, hkv=HQ, causal=True,
+                   dtype=torch.float16, timed=True),
+              dict(edge="tails", s_loc=1000, hq=HQ, hkv=HQ, causal=True,
+                   dtype=torch.float16, timed=False)]
     cases += [dict(edge="tails", s_loc=1000, hq=HQ, hkv=HQ, **bf16),
               dict(edge="d64", s_loc=2048, hq=HQ, hkv=HQ, d=64, **bf16),
               dict(edge="few_blocks", s_loc=2048, hq=4, hkv=4, **bf16)]
@@ -2476,7 +2678,7 @@ def phase_k3(seed=9):
     tF = importlib.import_module(
         "paddle_tpu_torch.nn.functional.flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     seg, _ = sft_rows(seed, 2, 2048)
     seg = torch.from_numpy(seg).cuda()
     small = torch.from_numpy(sft_rows(seed + 1, 1, 300, (20, 120))[0]).cuda()
@@ -2540,6 +2742,18 @@ def phase_k3(seed=9):
         ("packed_short_segments", dict(B=2, sq=300, sk=300, hq=HQ, hkv=HQ,
                                        causal=True, dtype=bf16, timed=False,
                                        segs=fa._packed_segments(seg_ones))),
+        # the fp16 instances: the training path's packed rows (timed), the
+        # varlen form and one edge (1-3 token segments)
+        ("packed", dict(B=2, sq=2048, sk=2048, hq=HQ, hkv=HQ, causal=True,
+                        dtype=f16, timed=True,
+                        segs=fa._packed_segments(seg),
+                        public=packed_entry(seg))),
+        ("varlen", dict(B=1, sq=tq, sk=tq, hq=HQ, hkv=HQ, causal=True,
+                        dtype=f16, timed=False, segs=varlen(cu_q, tq),
+                        public=varlen_entry(cu_q, True))),
+        ("packed_short_segments", dict(B=2, sq=300, sk=300, hq=HQ, hkv=HQ,
+                                       causal=True, dtype=f16, timed=False,
+                                       segs=fa._packed_segments(seg_ones))),
     ]
     rows = []
     for form, c in cases:
@@ -2558,9 +2772,15 @@ def phase_k3(seed=9):
 
 def phase_adamw(seed=8):
     """The AdamW update kernel against its plain version on one LLaMA-2-7B
-    MLP weight (11008 x 4096), bf16 and f32, after three updates from the
-    same moments; CUDA-event timings of the kernel, the plain version and
-    torch.optim.AdamW(fused=True).step() (the library time)."""
+    MLP weight (11008 x 4096), bf16, f32 and fp16, after three updates from
+    the same moments; CUDA-event timings of the kernel, the plain version
+    and torch.optim.AdamW(fused=True).step() (the library time). fp16's
+    gradients are of an fp16 gradient's size (0.05: 1e-3's square times
+    1 - beta2 would underflow fp16, in both tiers alike), and a block of
+    them is 0: with its zero moments that element's update is 0 / (0 +
+    eps), eps kept f32 as the reference keeps it. Then the master
+    instances (``_adamw_master``): bf16 p, and fp16 p on the fp16 recipe's
+    cases."""
     import numpy as np
     import torch
 
@@ -2568,13 +2788,17 @@ def phase_adamw(seed=8):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         shape = (11008, 4096)
         p0 = (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(
             dtype)
-        grads = [(1e-3 * torch.randn(shape, generator=gen,
-                                     device="cuda")).to(dtype)
+        g_size = 0.05 if dtype == torch.float16 else 1e-3
+        grads = [(g_size * torch.randn(shape, generator=gen,
+                                       device="cuda")).to(dtype)
                  for _ in range(3)]
+        if dtype == torch.float16:
+            for g in grads:
+                g[0, :256] = 0
         args = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
                     factor=float(np.float32(1) - np.float32(1e-4 * 0.01)))
         states = []
@@ -2595,7 +2819,8 @@ def phase_adamw(seed=8):
         # an ulp away and carry that into the next update: allow two ulps
         # of each value plus one ulp of the tensor's largest magnitude
         # (where a sum cancels), and count the elements that differ at all
-        ulp = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -24
+        ulp = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}.get(
+            dtype, 2 ** -24)
         err, differ = 0.0, 0
         for name, got, want in zip("pmv", *states):
             e, n = _ulp_check(f"adamw {dtype} {name}", got, want, ulp)
@@ -2620,11 +2845,18 @@ def phase_adamw(seed=8):
                "elements": 3 * n, "kernel_ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes, "ops": ops}
+        if dtype == torch.float16:
+            zero = states[0][0][0, :256] == p0[0, :256]
+            row["zero_gradient_elements_unmoved"] = bool(zero.all())
+            if not zero.all():
+                raise AssertionError("adamw fp16: an element with zero "
+                                     "gradients and moments moved")
         emit(row)
         rows.append(row)
         del states, grads, lib, lib_p
         torch.cuda.empty_cache()
     rows.append(_adamw_master(gen))
+    rows.append(_adamw_master(gen, torch.float16, ADAMW_FP16_CASES))
     return rows
 
 
@@ -2660,7 +2892,17 @@ ADAMW_RECIPE_CASES = (
 )
 
 
-def _adamw_master(gen):
+# The fp16 recipe's master instances (decorate O2 with GradScaler): scaled
+# and clipped, with and without the epilogue, and an unscaled clip whose
+# fp16 gradient times the factor rounds back to fp16.
+ADAMW_FP16_CASES = (
+    (True, True, True, None, True),
+    (True, True, True, None, False),
+    (True, False, True, "L1", True),
+)
+
+
+def _adamw_master(gen, p_dtype=None, cases=ADAMW_RECIPE_CASES):
     """Kernel B's training-recipe instances on one LLaMA-2-7B MLP weight
     (11008 x 4096), each case (``ADAMW_RECIPE_CASES``) after three updates
     against the plain version on the same inputs: a bf16 parameter with
@@ -2674,16 +2916,20 @@ def _adamw_master(gen):
     with scale and factor: the kernel without and with the epilogue, the
     plain version, and the library's two calls (``torch._fused_adamw_`` on
     the master, then ``p.copy_(master)``; no single PyTorch call computes
-    the update and the bf16 parameter)."""
+    the update and the bf16 parameter). ``p_dtype`` fp16: the same on an
+    fp16 parameter and gradient (p the master rounded to fp16, the rule in
+    fp16's ulp)."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.ops import adamw
     from paddle_tpu_torch.regularizer import L1Decay, L2Decay
 
+    p_dtype = p_dtype or torch.bfloat16
+    p_ulp = 2 ** -11 if p_dtype == torch.float16 else 2 ** -8
     shape = (11008, 4096)
     p0 = (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(
-        torch.bfloat16)
+        p_dtype)
     # the unscaled gradients' size: a scaled case sees them times the scale
     raw = [0.3 * torch.randn(shape, generator=gen, device="cuda")
            for _ in range(3)]
@@ -2693,9 +2939,8 @@ def _adamw_master(gen):
                 factor=float(np.float32(1) - np.float32(3e-4 * 0.1)))
     regs = {"L1": L1Decay(0.1), "L2": L2Decay(4.0)}
     err, differ, dyn_err, checked, timed = 0.0, 0, 0.0, [], None
-    for master_on, scaled, clipped, reg, dyn in ADAMW_RECIPE_CASES:
-        grads = [(x * 1024.0 if scaled else x).to(torch.bfloat16)
-                 for x in raw]
+    for master_on, scaled, clipped, reg, dyn in cases:
+        grads = [(x * 1024.0 if scaled else x).to(p_dtype) for x in raw]
         sc, fa = (scale if scaled else None), (factor if clipped else None)
         rg = regs.get(reg)
         states = []
@@ -2736,7 +2981,7 @@ def _adamw_master(gen):
         torch.cuda.synchronize()
         case = (f"master={master_on} scale={scaled} factor={clipped} "
                 f"reg={reg} dynamics={dyn}")
-        ulp = 2 ** -24 if master_on else 2 ** -8
+        ulp = 2 ** -24 if master_on else p_ulp
         for name, got, want in zip(("master", "m", "v"), states[0][1:],
                                    states[1][1:]):
             if got is None:
@@ -2744,10 +2989,10 @@ def _adamw_master(gen):
             e, n = _ulp_check(f"adamw {case} {name}", got, want, ulp)
             err, differ = max(err, e), differ + n
         if master_on and not torch.equal(states[0][0],
-                                         states[0][1].to(torch.bfloat16)):
+                                         states[0][1].to(p_dtype)):
             raise AssertionError(f"adamw {case}: p is not its master rounded")
         e, n = _ulp_check(f"adamw {case} p", states[0][0], states[1][0],
-                          2 ** -8)
+                          p_ulp)
         err, differ = max(err, e), differ + n
         checked.append(case)
         if master_on and scaled and clipped and reg is None:
@@ -2781,8 +3026,10 @@ def _adamw_master(gen):
     n = p0.numel()
     nbytes, ops = 28 * n, 30 * n
     b_ms, b_by = bound(nbytes, ops, "torch.float32")
+    short = "fp16" if p_dtype == torch.float16 else "bf16"
     row = {"phase": "adamw", "instance": "master", "shape": list(shape),
-           "dtype": "bf16 p, f32 master/m/v, bf16 g",
+           "p_dtype": str(p_dtype),
+           "dtype": f"{short} p, f32 master/m/v, {short} g",
            "cases": checked, "max_abs_err": err,
            "elements_differing": differ, "dynamics_max_rel_err": dyn_err,
            "kernel_ms": ms,
@@ -2846,10 +3093,12 @@ def _check_sumsq(name, got, want, rel=1e-6):
 def phase_grad_norm(seed=15):
     """Kernel A (the multi-tensor gradient norm) against its plain version
     on the card: the gradient list of 2 layers at LLaMA-2-7B widths plus
-    the embedding and the head, bf16 and f32, without a scale, with a
-    power-of-two scale and with 3.0, grouped as the dynamics group them;
-    edge lists (1 element, 7 elements, 1,000,003 elements, dtypes mixed);
-    a planted NaN, a planted Inf and a finite 1e30 whose square overflows.
+    the embedding and the head, bf16, f32 and fp16, without a scale, with
+    a power-of-two scale and with 3.0, grouped as the dynamics group them;
+    edge lists (1 element, 7 elements, 1,000,003 elements, dtypes mixed,
+    fp16 among them); a planted NaN, a planted Inf and a finite value
+    whose square overflows (1e30; in fp16 6e4, whose square overflows
+    fp16 but not the kernel's f32: no flag).
     Sums within 1e-6 relative, flags exact, two launches bit-identical.
     Times (bf16 list, no scale): the kernel, its plain version and
     ``torch._foreach_norm`` over the same list (the library call)."""
@@ -2891,21 +3140,22 @@ def phase_grad_norm(seed=15):
         worst, worst_abs = max(worst, rel), max(worst_abs, err)
         return a
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         grads = [(1e-3 * torch.randn(s, generator=gen, device="cuda")).to(
             dtype) for s in shapes.values()]
+        fp16 = dtype == torch.float16
         for scale in (None, 1024.0, 3.0):
             run(f"7b-2layers {dtype} scale {scale}", grads, scale, groups,
                 len(group_names))
         grads[3].view(-1)[1234] = float("nan")
         grads[7].view(-1)[0] = float("inf")
-        grads[-2].view(-1)[-1] = 1e30
+        grads[-2].view(-1)[-1] = 6e4 if fp16 else 1e30
         st = run(f"planted {dtype}", grads, 1024.0, groups, len(group_names))
         want = [int(i in (3, 7)) for i in range(len(grads))]
-        if st.nonfinite.tolist() != want or not torch.isinf(st.sums[-2]):
+        if st.nonfinite.tolist() != want or torch.isinf(st.sums[-2]) == fp16:
             raise AssertionError(f"grad_norm planted {dtype}: flags "
                                  f"{st.nonfinite.tolist()}, sums {st.sums}")
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             for t, i in ((grads[3], 1234), (grads[7], 0), (grads[-2], -1)):
                 t.view(-1)[i] = 0.0
             n_el = sum(t.numel() for t in grads)
@@ -2928,12 +3178,15 @@ def phase_grad_norm(seed=15):
              torch.randn(1_000_003, generator=gen, device="cuda"),
              torch.randn(1_000_003, generator=gen, device="cuda").to(
                  torch.bfloat16),
-             torch.randn(CHUNK_EDGE, generator=gen, device="cuda")]
+             torch.randn(CHUNK_EDGE, generator=gen, device="cuda"),
+             torch.randn(1_000_003, generator=gen, device="cuda").to(
+                 torch.float16)]
     for scale in (None, 2.0 ** 15, 3.0):
-        run(f"edges scale {scale}", edges, scale, [0, 1, 0, 1, 2], 3)
+        run(f"edges scale {scale}", edges, scale, [0, 1, 0, 1, 2, 1], 3)
         run(f"edges alone scale {scale}", edges[1:2], scale, None, 0)
-    rows[0].update(max_rel_err=worst, max_abs_err=worst_abs)
-    emit(rows[0])
+    for row in rows:    # bf16, then fp16
+        row.update(max_rel_err=worst, max_abs_err=worst_abs)
+        emit(row)
     return rows
 
 
@@ -2969,14 +3222,26 @@ def _flash_counts():
     return counts
 
 
+def _fp16_counts():
+    """Of ``_flash_counts``'s launches, those of the fp16 instances: the
+    flash entries', AdamW's and kernel A's (one with an fp16 tensor)."""
+    from paddle_tpu_torch.ops.adamw import adamw_update
+    from paddle_tpu_torch.ops.grad_norm import grad_sumsq
+
+    counts = {name: k.launches_fp16 for name, k in _flash_wrappers().items()}
+    counts["adamw_update"] = adamw_update.launches_fp16
+    counts["grad_sumsq"] = grad_sumsq.launches_fp16
+    return counts
+
+
 def _reset_flash_counts():
     from paddle_tpu_torch.ops.adamw import UpdateNorms, adamw_update
     from paddle_tpu_torch.ops.grad_norm import grad_sumsq
 
     for k in _flash_wrappers().values():
-        k.launches = 0
-    adamw_update.launches = 0
-    grad_sumsq.launches = 0
+        k.launches = k.launches_fp16 = 0
+    adamw_update.launches = adamw_update.launches_fp16 = 0
+    grad_sumsq.launches = grad_sumsq.launches_fp16 = 0
     UpdateNorms.reduces = 0
     _reset_moe_counts()
 
@@ -3327,7 +3592,8 @@ def _planted_faults(amp, opt):
 
 def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
                  grad_tol=1e-4, outlier_share=1e-5, context_parallel=False,
-                 sep=1, oracle_tol=1e-5, amplified=False, cfg=None):
+                 sep=1, oracle_tol=1e-5, amplified=False, cfg=None,
+                 cpu_run=None):
     """f32, LLaMA-2-7B widths, 1 layer, fused CE, recompute "full": one
     TrainStep per batch on the card (kernels) and on the CPU (plain
     versions) from the same weights, every gradient handed to the optimizer
@@ -3350,8 +3616,12 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     stay unexplained. ``cfg``: another 2-layer f32 config; an MoE one
     (``phase_moe_equal``) runs no block recompute, and its routing is held
     too: every layer's slots identical card vs CPU at every step, the aux
-    loss within ``MOE_AUX_TOL`` relative. Returns the row and the card's
-    model."""
+    loss within ``MOE_AUX_TOL`` relative. ``cpu_run``: the CPU's run of
+    the same seed and batches from an earlier call (its third return,
+    made with no mesh: the context-parallel phases hold the card's ring
+    and Ulysses to the CPU's plain attention over the whole row, the
+    function the ring computes), so that the CPU trains once for them.
+    Returns the row, the card's model and the CPU's run."""
     import torch
 
     from paddle_tpu_torch.distributed import build_mesh
@@ -3365,10 +3635,16 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
     moe = cfg.num_experts > 1
     meshes = {d: build_mesh(sep=sep, devices=[d] * sep)
               if context_parallel else None for d in ("cpu", "cuda:0")}
-    cpu_model, cpu_step = _trainer(cfg, seed, device="cpu", packed=packed,
-                                   mesh=meshes["cpu"])
-    gpu_model, gpu_step = _trainer(cfg, seed, packed=packed,
-                                   model=copy.deepcopy(cpu_model).to("cuda"),
+    if cpu_run is None:
+        cpu_model, cpu_step = _trainer(cfg, seed, device="cpu",
+                                       packed=packed, mesh=meshes["cpu"])
+        init = copy.deepcopy(cpu_model)
+    else:
+        cpu_model, cpu_step, init = (cpu_run["model"], cpu_run["step"],
+                                     cpu_run["init"])
+    card = copy.deepcopy(init).to("cuda")
+    card.config.context_parallel = context_parallel
+    gpu_model, gpu_step = _trainer(cfg, seed, packed=packed, model=card,
                                    mesh=meshes["cuda:0"])
     routes = {d: _record_routing(m) for d, m in (("cuda", gpu_model),
                                                  ("cpu", cpu_model))} \
@@ -3379,14 +3655,21 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
         with torch.no_grad():
             oracle["no_mesh_loss"] = float(gpu_model.eval()(
                 ids, labels=labels))
-    rec_gpu, rec_cpu = _record_gradients(gpu_step), _record_gradients(cpu_step)
+    rec_gpu = _record_gradients(gpu_step)
+    if cpu_run is None:
+        rec_cpu = _record_gradients(cpu_step)
     _reset_flash_counts()
     t0 = time.perf_counter()
     gpu = [float(gpu_step(*b)) for b in batches]
     counts = _flash_counts()
     t_gpu = time.perf_counter() - t0
-    cpu = [float(cpu_step(*b)) for b in batches]
-    t_cpu = time.perf_counter() - t0 - t_gpu
+    if cpu_run is None:
+        cpu = [float(cpu_step(*b)) for b in batches]
+        t_cpu = time.perf_counter() - t0 - t_gpu
+        cpu_run = {"model": cpu_model, "step": cpu_step, "init": init,
+                   "rec": rec_cpu, "losses": cpu, "s": t_cpu}
+    else:
+        rec_cpu, cpu, t_cpu = cpu_run["rec"], cpu_run["losses"], 0.0
     path = ("k3" if packed else "ulysses" if context_parallel == "ulysses"
             else "ring" if context_parallel else "k1")
     L = cfg.num_hidden_layers
@@ -3434,7 +3717,7 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
                                            for r in per.values()),
            "param_diff": per, "param_diff_worst": worst, "kernels": counts,
            "expected_kernels": want, "gpu_s": t_gpu, "cpu_s": t_cpu,
-           "routing": routing}
+           "cpu_run_shared": t_cpu == 0.0, "routing": routing}
     emit(row)
     if routing is not None and not routing["ok"]:
         raise AssertionError(f"{phase}: card and CPU route differently: "
@@ -3457,7 +3740,7 @@ def _train_equal(phase, seed, batches, packed=False, rel_tol=1e-4,
         raise AssertionError(f"{phase}: the context-parallel loss differs "
                              f"from the no-mesh loss: {oracle}")
     del gpu_step, rec_gpu, rec_cpu, cpu_model, cpu_step
-    return row, gpu_model
+    return row, gpu_model, cpu_run
 
 
 def phase_train_equal(seed=4, steps=2):
@@ -3467,7 +3750,7 @@ def phase_train_equal(seed=4, steps=2):
     from paddle_tpu_torch.models.llama import llama2_7b
 
     ids = _tokens(seed, llama2_7b().vocab_size, (steps, 1, 257))
-    _, model = _train_equal("train_equal", seed,
+    _, model, _ = _train_equal("train_equal", seed,
                             [(i[:, :-1], i[:, 1:]) for i in ids])
     del model
     gc.collect()
@@ -3508,7 +3791,7 @@ def phase_train_packed_equal(seed=10, steps=2, logit_tol=1e-4):
         seg, convs = cut_rows(seed + i, 1, 256)
         ids = _tokens(seed + i, vocab, (1, 256))
         batches.append((ids, seg, sft_labels(ids, seg, convs)))
-    row, model = _train_equal("train_packed_equal", seed, batches,
+    row, model, _ = _train_equal("train_packed_equal", seed, batches,
                               packed=True)
     model.eval()
     seg, _ = cut_rows(seed + steps, 1, 256)
@@ -3671,29 +3954,35 @@ def phase_train_equal_s1024(seed=13, steps=2, S=1024):
     (no mesh) at train_cp_equal's size, seed and tokens, B 1 x S 1024.
     Rule (a) alone, set at S 256, leaves outliers unexplained here on K1's
     unchanged path too; the row reports them beside what the amplified
-    rule explains and the planted faults it must catch."""
+    rule explains and the planted faults it must catch. Returns the CPU's
+    run, which train_cp_equal holds its ring and Ulysses to."""
     import torch
 
-    _, model = _train_equal("train_equal_s1024", seed,
-                            _cp_equal_batches(seed, steps, S),
-                            amplified=True)
+    _, model, cpu_run = _train_equal("train_equal_s1024", seed,
+                                     _cp_equal_batches(seed, steps, S),
+                                     amplified=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return cpu_run
 
 
-def phase_train_cp_equal(seed=13, steps=2, S=1024):
+def phase_train_cp_equal(seed=13, steps=2, S=1024, cpu_run=None):
     """``_train_equal`` under context parallelism: B 1 x S 1024 of seeded
     uniform tokens, sep 4 (S_local 256), the ring and then Ulysses, each
     with the no-mesh oracle on the card and the amplified rule, as
-    `train_equal_s1024` holds K1 at this size."""
+    `train_equal_s1024` holds K1 at this size. Both are held to
+    ``cpu_run`` where given: `train_equal_s1024`'s CPU run of the same
+    seed and tokens, with no mesh (the plain attention over the whole
+    row, which the ring computes); else to a CPU run under the same
+    mesh, the first call's, shared with the second."""
     import torch
 
     batches = _cp_equal_batches(seed, steps, S)
     for cp in (True, "ulysses"):
-        _, model = _train_equal("train_cp_equal", seed, batches,
-                                context_parallel=cp, sep=CP_SEP,
-                                amplified=True)
+        _, model, cpu_run = _train_equal(
+            "train_cp_equal", seed, batches, context_parallel=cp, sep=CP_SEP,
+            amplified=True, cpu_run=cpu_run)
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3871,30 +4160,32 @@ def _close(name, got, want, rel):
     return worst
 
 
-def phase_train_recipe_equal(seed=16, steps=4, S=256):
+def phase_train_recipe_equal(seed=16, steps=5, S=256):
     """The training recipe, card against CPU: f32, LLaMA-2-7B widths, 2
-    layers, recompute "full", fused CE, B 1 x S 256, 4 TrainSteps from
+    layers, recompute "full", fused CE, B 1 x S 256, 5 TrainSteps from
     the same weights and batches: LLaMA 2's AdamW (beta2 0.95, eps 1e-5,
     decay 0.1 off the norms), LinearWarmup(CosineAnnealingDecay) with 2
     warm-up steps, ClipGradByGlobalNorm at 1e-3 (below every step's norm,
     so that it clips), f32 master weights off (f32 parameters), a
     dynamic GradScaler (2^15, halved after one bad step, doubled after two
-    good ones) whose first step overflows (``_overflowing_loss``), and
-    PADDLE_DYNAMICS=1 spilling every step. Held: the losses (steps 2-4),
-    gradients and parameters to train_equal's limits with rule (a); the
-    lr sequence, the skip pattern and the scale sequence identical; the
-    clip factor within 1e-5; the dynamics spills' grad_sq and upd_sq per
-    group within 1e-4 relative; exact launches: K1, kernel A once a step
-    and once more on the skipped step (the parameters' norms), kernel B
-    once per parameter of each update, one dynamics reduction an
-    update."""
+    good ones) whose first and third steps overflow
+    (``_overflowing_loss``), so that its scale halves twice and doubles
+    at the fifth step, and PADDLE_DYNAMICS=1 spilling every step.
+    Held: the finite steps' losses, gradients and parameters to
+    train_equal's limits with rule (a); the lr sequence, the skip pattern
+    and the scale sequence identical, the scale falling and growing on
+    the card; the clip factor within 1e-5; the
+    dynamics spills' grad_sq and upd_sq per group within 1e-4 relative;
+    exact launches: K1, kernel A once a step and once more on each
+    skipped step (the parameters' norms), kernel B once per parameter of
+    each update, one dynamics reduction an update. Returns the row and
+    what `train_fp16_equal` holds its card run to: the initial weights,
+    the batches and the CPU's run."""
     import os
 
     import numpy as np
     import torch
 
-    from paddle_tpu_torch.amp import GradScaler
-    from paddle_tpu_torch.jit_api import TrainStep
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
     os.environ["PADDLE_DYNAMICS"] = "1"
@@ -3903,45 +4194,24 @@ def phase_train_recipe_equal(seed=16, steps=4, S=256):
                     fuse_linear_cross_entropy=True)
     cfg.num_hidden_layers = 2
     ids = _tokens(seed, cfg.vocab_size, (steps, 1, S + 1))
-    mult = [np.array([OVERFLOW if i == 0 else 1.0], np.float32)
-            for i in range(steps)]
+    mult = [np.array([OVERFLOW if i in RECIPE_OVERFLOWS else 1.0],
+                     np.float32) for i in range(steps)]
     batches = [(i[:, :-1], i[:, 1:], m) for i, m in zip(ids, mult)]
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    init = copy.deepcopy(cpu_model)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     runs = {}
     for tier, model in (("cuda", gpu_model), ("cpu", cpu_model)):
-        opt = _recipe_optimizer(model, peak_lr=1e-4, warmup=2, total=10,
-                                clip=1e-3, master=False)
-        scaler = GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
-                            decr_every_n_nan_or_inf=1)
-        step = TrainStep(model, _overflowing_loss(cfg), opt, n_labels=2,
-                         scaler=scaler, device=tier)
-        rec = _record_gradients(step)
-        if tier == "cuda":
-            _reset_flash_counts()
-        out = {"losses": [], "lr": [], "skipped": [], "scale": [],
-               "factor": [], "grad_sq": [], "upd_sq": [], "rec": rec,
-               "step": step, "t0": time.perf_counter()}
-        for b in batches:
-            out["lr"].append(opt.get_lr())
-            out["losses"].append(float(step(*b)))
-            out["skipped"].append(step.last_skipped)
-            out["scale"].append(float(step._scaler_state["scale"]))
-            out["factor"].append(float(step.last_stats.factor))
-            out["grad_sq"].append(step._dynamics.last["grad_sq"])
-            out["upd_sq"].append(step._dynamics.last["upd_sq"])
-        if tier == "cuda":
-            torch.cuda.synchronize()
-            out["kernels"] = _flash_counts()
-        out["s"] = time.perf_counter() - out["t0"]
-        runs[tier] = out
+        runs[tier] = _recipe_run(cfg, model, batches, tier)
     del os.environ["PADDLE_DYNAMICS"], os.environ["PADDLE_DYNAMICS_EVERY_STEPS"]
     g, c = runs["cuda"], runs["cpu"]
     n_params = len(list(cpu_model.parameters()))
-    want = _expected_counts(2, steps, n_params, updates=steps - 1,
-                            dyn_skips=1)
-    rel = [abs(a - b) / abs(b) for a, b in zip(g["losses"][1:],
-                                              c["losses"][1:])]
+    skips = [i in RECIPE_OVERFLOWS for i in range(steps)]
+    want = _expected_counts(2, steps, n_params,
+                            updates=steps - len(RECIPE_OVERFLOWS),
+                            dyn_skips=len(RECIPE_OVERFLOWS))
+    rel = [abs(a - b) / abs(b) for a, b, sk in zip(g["losses"], c["losses"],
+                                                  skips) if not sk]
     grad_rel = _grad_report(g["rec"], c["rec"])
     worst_grad = max(((r, k, n) for k, st in enumerate(grad_rel, 2)
                       for n, r in st.items()))
@@ -3965,17 +4235,19 @@ def phase_train_recipe_equal(seed=16, steps=4, S=256):
            "gpu_s": g["s"], "cpu_s": c["s"]}
     try:
         if not all(np.isinf(x) or np.isnan(x)
-                   for x in (g["losses"][0], c["losses"][0])):
-            raise AssertionError(f"the first step did not overflow: "
-                                 f"{g['losses'][0]}, {c['losses'][0]}")
-        if g["skipped"] != c["skipped"] or g["skipped"] != [True] + [
-                False] * (steps - 1):
+                   for i in RECIPE_OVERFLOWS
+                   for x in (g["losses"][i], c["losses"][i])):
+            raise AssertionError(f"steps {RECIPE_OVERFLOWS} did not "
+                                 f"overflow: {g['losses']}, {c['losses']}")
+        if g["skipped"] != c["skipped"] or g["skipped"] != skips:
             raise AssertionError(f"skips {g['skipped']} vs {c['skipped']}")
         if g["lr"] != c["lr"] or g["scale"] != c["scale"]:
             raise AssertionError(f"lr {g['lr']} vs {c['lr']}, scale "
                                  f"{g['scale']} vs {c['scale']}")
         if not max(g["scale"][:1]) < 2.0 ** 15:
             raise AssertionError(f"the scale did not fall: {g['scale']}")
+        if not g["scale"][-1] == 2 * g["scale"][-2]:
+            raise AssertionError(f"the scale did not grow: {g['scale']}")
         row["factor_rel_err"] = _close("clip factor", g["factor"][1:],
                                        c["factor"][1:], 1e-5)
         if not max(g["factor"][1:]) < 1.0:
@@ -3996,7 +4268,163 @@ def phase_train_recipe_equal(seed=16, steps=4, S=256):
             raise AssertionError(f"launches {g['kernels']}, expected {want}")
     finally:
         emit(row)
-    del runs, g, c, gpu_model, cpu_model
+    shared = {"cfg": cfg, "init": init, "batches": batches, "cpu": c,
+              "expected_kernels": want}
+    del runs, g, gpu_model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, shared
+
+
+#: the steps (0-based) whose loss train_recipe_equal and train_fp16_equal
+#: multiply past f32's range: over 5 steps the scale halves at steps 0
+#: and 2 and doubles at step 4, after two good steps
+RECIPE_OVERFLOWS = (0, 2)
+
+
+def _recipe_run(cfg, model, batches, tier, fp16=False):
+    """train_recipe_equal's recipe on ``model`` over ``batches`` on
+    ``tier``: LLaMA 2's AdamW (peak lr 1e-4, 2 warm-up steps of 10, clip
+    1e-3) and a GradScaler (2^15, doubled after two good steps, halved
+    after each bad one); ``fp16``: the model and optimizer through
+    ``amp.decorate(level="O2", dtype="float16")`` first (fp16 parameters,
+    f32 master weights). Returns the per-step record (losses, lr, skips,
+    scales, clip factors, dynamics sums, the gradients the updates took,
+    launches and fp16 launches on the card)."""
+    import torch
+
+    from paddle_tpu_torch.amp import GradScaler, decorate
+    from paddle_tpu_torch.jit_api import TrainStep
+
+    opt = _recipe_optimizer(model, peak_lr=1e-4, warmup=2, total=10,
+                            clip=1e-3, master=False)
+    if fp16:
+        model, opt = decorate(model, opt, level="O2", dtype="float16")
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
+                        decr_every_n_nan_or_inf=1)
+    step = TrainStep(model, _overflowing_loss(cfg), opt, n_labels=2,
+                     scaler=scaler, device=tier)
+    rec = _record_gradients(step)
+    if tier == "cuda":
+        _reset_flash_counts()
+    out = {"losses": [], "lr": [], "skipped": [], "scale": [],
+           "factor": [], "grad_sq": [], "upd_sq": [], "rec": rec,
+           "step": step, "t0": time.perf_counter()}
+    for b in batches:
+        out["lr"].append(opt.get_lr())
+        out["losses"].append(float(step(*b)))
+        out["skipped"].append(step.last_skipped)
+        out["scale"].append(float(step._scaler_state["scale"]))
+        out["factor"].append(float(step.last_stats.factor))
+        out["grad_sq"].append(step._dynamics.last["grad_sq"])
+        out["upd_sq"].append(step._dynamics.last["upd_sq"])
+    if tier == "cuda":
+        torch.cuda.synchronize()
+        out["kernels"] = _flash_counts()
+        out["kernels_fp16"] = _fp16_counts()
+    out["s"] = time.perf_counter() - out["t0"]
+    return out
+
+
+#: train_fp16_equal's limits, fp16 O2 on the card against f32 on the
+#: CPU. fp16 rounds each stored activation, weight and gradient with unit
+#: roundoff u = 2^-11 (the weights start rounded too); a 2-layer forward
+#: and backward rounds some ten times along any path, so a per-token
+#: quantity errs by ~10 u. The loss, an f32 mean over 256 tokens whose
+#: terms err independently (~10 u / 16), within 2 u (1e-3); each
+#: parameter's gradient, a sum over the tokens of such terms, in relative
+#: norm within 20 u (1e-2); the clip factor, from the norm over every
+#: gradient, within 2 u (1e-3). An H100 read 2.2e-5, 4.5e-3 and 1e-4 or
+#: less at 4 steps. The gradient's limit, about twice its reading, is the
+#: one that tells fp16 from bf16: a path that rounded at bf16's 2^-9
+#: would read some 4 x 4.5e-3 = 1.8e-2 there and fail.
+FP16_LOSS_TOL, FP16_GRAD_TOL, FP16_FACTOR_TOL = 1e-3, 1e-2, 1e-3
+
+
+def phase_train_fp16_equal(shared):
+    """train_recipe_equal's recipe in fp16 on the card
+    (``decorate(level="O2", dtype="float16")``: fp16 parameters, f32
+    master weights; the GradScaler from 2^15, the loss multiplied past
+    f32's range at steps 1 and 3) from the same initial weights and
+    batches (7B widths, 2 layers, B 1 x S 256, 5 steps), held to
+    train_recipe_equal's CPU f32 run (``shared``): the skip pattern and
+    the scale and lr sequences identical; the finite steps' losses within
+    FP16_LOSS_TOL relative, every gradient an update took within
+    FP16_GRAD_TOL in relative norm, the clip factor within
+    FP16_FACTOR_TOL; the master weights f32 and the parameters fp16;
+    exact launches, every flash entry, AdamW and kernel A launch the fp16
+    instances'."""
+    import os
+
+    import numpy as np
+    import torch
+
+    os.environ["PADDLE_DYNAMICS"] = "1"
+    os.environ["PADDLE_DYNAMICS_EVERY_STEPS"] = "1"
+    cfg, c = shared["cfg"], shared["cpu"]
+    model = copy.deepcopy(shared["init"]).to("cuda")
+    try:
+        g = _recipe_run(cfg, model, shared["batches"], "cuda", fp16=True)
+    finally:
+        del os.environ["PADDLE_DYNAMICS"]
+        del os.environ["PADDLE_DYNAMICS_EVERY_STEPS"]
+    opt = g["step"].optimizer
+    masters = [s["master_weight"] for s in opt._accumulators.values()
+               if "master_weight" in s]
+    finite = [i for i, sk in enumerate(c["skipped"]) if not sk]
+    rel = [abs(g["losses"][i] - c["losses"][i]) / abs(c["losses"][i])
+           for i in finite]
+    grad_rel = _grad_report(g["rec"], c["rec"])
+    worst_grad = max((r, k, n) for k, st in enumerate(grad_rel, 1)
+                     for n, r in st.items())
+    factor_rel = [abs(g["factor"][i] - c["factor"][i]) / c["factor"][i]
+                  for i in finite]
+    want = shared["expected_kernels"]
+    fp16_kernels = {k: v for k, v in g["kernels_fp16"].items() if v}
+    row = {"phase": "train_fp16_equal", "layers": cfg.num_hidden_layers,
+           "dtype": "float16 O2 (card) vs float32 (CPU)",
+           "B": 1, "S": shared["batches"][0][0].shape[1],
+           "losses_gpu": g["losses"], "losses_cpu": c["losses"],
+           "rel_err": rel, "loss_tol": FP16_LOSS_TOL,
+           "skipped": g["skipped"], "scale": g["scale"], "lr": g["lr"],
+           "factor_gpu": g["factor"], "factor_cpu": c["factor"],
+           "factor_rel_err": factor_rel,
+           "grad_rel_worst": {"rel": worst_grad[0], "update": worst_grad[1],
+                              "param": worst_grad[2]},
+           "grad_rel_median": [statistics.median(st.values())
+                               for st in grad_rel],
+           "grad_tol": FP16_GRAD_TOL,
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+           "master_dtypes": sorted({str(m.dtype) for m in masters}),
+           "kernels": g["kernels"], "kernels_fp16": fp16_kernels,
+           "expected_kernels": want, "gpu_s": g["s"]}
+    emit(row)
+    if g["skipped"] != c["skipped"] or g["scale"] != c["scale"] \
+            or g["lr"] != c["lr"]:
+        raise AssertionError(f"train_fp16_equal: skips {g['skipped']} / "
+                             f"{c['skipped']}, scales {g['scale']} / "
+                             f"{c['scale']}, lr {g['lr']} / {c['lr']}")
+    if not all(np.isfinite(g["losses"][i]) for i in finite) \
+            or max(rel) > FP16_LOSS_TOL:
+        raise AssertionError(f"train_fp16_equal: losses {g['losses']} vs "
+                             f"{c['losses']}")
+    if worst_grad[0] > FP16_GRAD_TOL or max(factor_rel) > FP16_FACTOR_TOL:
+        raise AssertionError(f"train_fp16_equal: gradients {worst_grad}, "
+                             f"clip factors {factor_rel}")
+    if row["param_dtypes"] != ["torch.float16"] or row["master_dtypes"] != [
+            "torch.float32"] or len(masters) != len(list(model.parameters())):
+        raise AssertionError(f"train_fp16_equal: parameters "
+                             f"{row['param_dtypes']}, masters "
+                             f"{row['master_dtypes']}")
+    if g["kernels"] != want:
+        raise AssertionError(f"train_fp16_equal: launches {g['kernels']}, "
+                             f"expected {want}")
+    fp16_want = {k: v for k, v in want.items()
+                 if k in g["kernels_fp16"] and v}
+    if fp16_kernels != fp16_want:
+        raise AssertionError(f"train_fp16_equal: fp16 launches "
+                             f"{fp16_kernels}, expected {fp16_want}")
+    del g, model, masters, opt
     gc.collect()
     torch.cuda.empty_cache()
     return row
@@ -4084,6 +4512,235 @@ def phase_train_recipe(seed=17, warmup=2, timed=5):
     gc.collect()
     torch.cuda.empty_cache()
     return row, plain
+
+
+#: train_fp16's depth cut from 32: fp16 parameters and gradients, f32
+#: master weights and moments take 16 bytes a parameter, about 107 GB at
+#: 32 layers
+FP16_TRAIN_LAYERS = 8
+
+
+def phase_train_fp16(bf16_row=None, seed=25, warmup=2, timed=6):
+    """LLaMA-2-7B's widths in fp16 through ``decorate(level="O2",
+    dtype="float16")`` (fp16 parameters, f32 master weights) with the
+    dynamic GradScaler from its default 2^15, AdamW lr 1e-4 and decay 0.01,
+    recompute "full", fused linear CE, B 2 x S 2048, FP16_TRAIN_LAYERS of 32
+    layers, ``warmup`` + ``timed`` steps. Reports step ms, tokens/s, MFU
+    (``flops_per_token`` x tokens/s / 989e12, fp16's dense rate being
+    bf16's), peak memory, the skipped steps and the scale sequence, beside
+    `train`'s bf16 MFU (``bf16_row``, 32 layers). Held: finite losses of
+    the updated steps, peak memory under 80 GB, exact launches over the
+    timed steps (K1 twice a layer a step forward and once each backward
+    entry, kernel A once a step, AdamW's master instance once per
+    parameter an update), every one the fp16 instances'."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.amp import GradScaler, decorate
+    from paddle_tpu_torch.jit_api import TrainStep
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM, LlamaPretrainingCriterion, llama2_7b,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama2_7b(dtype="float16", use_recompute=True,
+                    recompute_policy="full", fuse_linear_cross_entropy=True)
+    cfg.num_hidden_layers = FP16_TRAIN_LAYERS
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01)
+    model, opt = decorate(model, opt, level="O2", dtype="float16")
+    step = TrainStep(model, LlamaPretrainingCriterion(cfg), opt,
+                     scaler=GradScaler(), device="cuda")
+    batches = _token_batches(seed, cfg.vocab_size, warmup + timed, 2, 2048)
+    losses, skipped, scales = [], [], []
+
+    def run(b):
+        losses.append(float(step(*b)))
+        skipped.append(step.last_skipped)
+        scales.append(float(step._scaler_state["scale"]))
+
+    for b in batches[:warmup]:
+        run(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        run(b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, fp16 = _flash_counts(), _fp16_counts()
+    updates = timed - sum(skipped[warmup:])
+    n_params = len(list(model.parameters()))
+    want = _expected_counts(cfg.num_hidden_layers, timed, n_params,
+                            updates=updates)
+    B, S = batches[0][0].shape
+    tok_s = B * S * timed / wall
+    flops = LlamaForCausalLM.flops_per_token(cfg, seq_len=S)
+    row = {"phase": "train_fp16", "layers": cfg.num_hidden_layers,
+           "dtype": "float16 (O2, f32 master weights)", "B": B, "S": S,
+           "warmup_steps": warmup, "timed_steps": timed,
+           "params": model.num_parameters(), "wall_s": wall,
+           "step_ms": wall / timed * 1e3, "tokens_per_s": tok_s,
+           "mfu": flops * tok_s / 989e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "skipped": skipped, "scale": scales,
+           "kernels": counts, "kernels_fp16": fp16,
+           "expected_kernels": want,
+           "bf16_train_mfu": bf16_row["mfu"] if bf16_row else None,
+           "bf16_train_layers": bf16_row["layers"] if bf16_row else None}
+    emit(row)
+    kept = [x for x, sk in zip(losses, skipped) if not sk]
+    if not kept or not all(np.isfinite(kept)):
+        raise AssertionError(f"train_fp16: losses {losses}, skips {skipped}")
+    if row["peak_mem_gb"] >= 80:
+        raise AssertionError(f"train_fp16: peak {row['peak_mem_gb']} GB")
+    if counts != want:
+        raise AssertionError(f"train_fp16: launches {counts}, expected "
+                             f"{want}")
+    if any(fp16[k] != want[k] for k in fp16):
+        raise AssertionError(f"train_fp16: fp16 launches {fp16}, expected "
+                             f"{want}")
+    del model, step, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lbfgs_equal(seed=26, n=4096, steps=2):
+    """LBFGS with the strong-Wolfe line search (lr 1, 3 iterations a step,
+    history 5) on a seeded least-squares problem, f(x) = ||A x - b||^2 / n
+    with A = I + G / (4 sqrt(n)) [n x n] (G standard normal: singular
+    values within about [0.5, 1.5]) and b standard normal, from x = 0,
+    ``steps`` steps on the card and on the CPU from the same f32 data.
+    Held: every iterate within 1e-5 of the CPU's, relative to its largest
+    element; the closure's evaluation counts and the (s, y) history
+    lengths equal; the losses within 1e-5 relative."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.optimizer import LBFGS
+
+    rng = np.random.RandomState(seed)
+    a = (np.eye(n) + rng.randn(n, n) / (4 * np.sqrt(n))).astype(np.float32)
+    b = rng.randn(n).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        A, B = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        x = torch.zeros(n, device=dev, requires_grad=True)
+        opt = LBFGS(learning_rate=1.0, max_iter=3, history_size=5,
+                    line_search_fn="strong_wolfe", parameters=[x])
+        calls = [0]
+
+        def closure():
+            calls[0] += 1
+            r = A @ x - B
+            loss = (r * r).sum() / n
+            loss.backward()
+            return loss
+
+        t0 = time.perf_counter()
+        losses, iterates, evals = [], [], []
+        for _ in range(steps):
+            losses.append(float(opt.step(closure).detach()))
+            iterates.append(x.detach().cpu().numpy().copy())
+            evals.append(calls[0])
+        runs[dev] = {"losses": losses, "x": iterates, "evals": evals,
+                     "history": len(opt._s_hist),
+                     "s": time.perf_counter() - t0}
+    g, c = runs["cuda"], runs["cpu"]
+    rel = [float(np.abs(xg - xc).max() / np.abs(xc).max())
+           for xg, xc in zip(g["x"], c["x"])]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(g["losses"],
+                                                    c["losses"])]
+    row = {"phase": "lbfgs_equal", "n": n, "steps": steps,
+           "losses_gpu": g["losses"], "losses_cpu": c["losses"],
+           "iterate_rel_err": rel, "loss_rel_err": loss_rel,
+           "evals_gpu": g["evals"], "evals_cpu": c["evals"],
+           "history_gpu": g["history"], "history_cpu": c["history"],
+           "gpu_s": g["s"], "cpu_s": c["s"]}
+    emit(row)
+    if max(rel) > 1e-5 or max(loss_rel) > 1e-5 or g["evals"] != c[
+            "evals"] or g["history"] != c["history"]:
+        raise AssertionError(f"lbfgs_equal: {row}")
+    return row
+
+
+def phase_debugging(seed=27):
+    """``amp.debugging`` on the card: ``check_numerics`` on a card tensor
+    with a planted NaN, two Infs and zeros counts (1, 2, zeros) and raises
+    under CHECK_NAN_INF_AND_ABORT; with FLAGS_check_nan_inf on, a planted
+    Inf in V makes K1's output non-finite and the per-op check names the
+    kernel wrapper's output (level 0: FloatingPointError; level 1: one
+    warning), the operations inside the wrapper unchecked; a K3 varlen
+    call whose first sequence has no key (its rows 0, their lse -inf, a
+    residual and no output) passes the check at level 0; the flag off
+    again removes the check."""
+    import warnings
+
+    import torch
+
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.framework import nan_inf, set_flags
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randn(4096, generator=gen, device="cuda")
+    t[0], t[1], t[2] = float("nan"), float("inf"), -float("inf")
+    t[3:8] = 0
+    counts = [int(x) for x in debugging.check_numerics(
+        t, debug_mode=debugging.DebugMode.CHECK_NAN_INF)]
+    try:
+        debugging.check_numerics(t, "planted", "t")
+        aborted = False
+    except FloatingPointError:
+        aborted = True
+    q, k, v = (torch.randn(1, 256, HQ, D, generator=gen, device="cuda").to(
+        torch.float16) for _ in range(3))
+    v[0, 10, 3, 7] = float("inf")
+    q3, k3, v3 = (torch.randn(256, HQ, D, generator=gen, device="cuda").to(
+        torch.float16) for _ in range(3))
+    cu_q = torch.tensor([0, 128, 256], dtype=torch.int32, device="cuda")
+    cu_k = torch.tensor([0, 0, 256], dtype=torch.int32, device="cuda")
+    raised, warned, raised_k3, out3 = None, [], None, None
+    try:
+        set_flags({"check_nan_inf": True, "check_nan_inf_level": 0})
+        try:
+            fa.flash_attention_fwd(q, k, v, causal=True)
+        except FloatingPointError as e:
+            raised = str(e)
+        set_flags({"check_nan_inf_level": 1})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fa.flash_attention_fwd(q, k, v, causal=True)
+        warned = [str(w.message) for w in caught]
+        set_flags({"check_nan_inf_level": 0})
+        try:
+            out3 = fa.flash_attention_varlen_fwd(q3, k3, v3, cu_q, cu_k,
+                                                 causal=True)
+        except FloatingPointError as e:
+            raised_k3 = str(e)
+    finally:
+        set_flags({"check_nan_inf": False, "check_nan_inf_level": 0})
+    row = {"phase": "debugging", "check_numerics": counts,
+           "aborted": aborted, "raised": raised, "warned": warned,
+           "out_nonfinite": int((~torch.isfinite(out)).sum()),
+           "k3_empty_keys_raised": raised_k3,
+           "k3_empty_rows_zero": out3 is not None
+           and bool((out3[:128] == 0).all()),
+           "k3_finite": out3 is not None
+           and bool(torch.isfinite(out3).all()),
+           "check_off_after": not nan_inf.active()}
+    emit(row)
+    want = "Operator flash_attention_fwd output 0 contains"
+    if (counts != [1, 2, 5] or not aborted or not raised
+            or not raised.startswith(want) or len(warned) != 1
+            or not warned[0].startswith(want) or not row["out_nonfinite"]
+            or raised_k3 or not row["k3_empty_rows_zero"]
+            or not row["k3_finite"] or not row["check_off_after"]):
+        raise AssertionError(f"debugging: {row}")
+    return row
 
 
 def phase_train_gqa(seed=5):
@@ -5136,7 +5793,7 @@ def phase_moe_equal(seed=21, steps=2, S=256):
 
     cfg = _moe_cfg(MOE_RUNG_WIDTHS, 2, fuse_linear_cross_entropy=True)
     ids = _tokens(seed, cfg.vocab_size, (steps, 1, S + 1))
-    row, gpu_model = _train_equal("moe_equal", seed,
+    row, gpu_model, _ = _train_equal("moe_equal", seed,
                                   [(i[:, :-1], i[:, 1:]) for i in ids],
                                   cfg=cfg)
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
@@ -5432,15 +6089,17 @@ def _near_tie_check(name, got, want, gpu_model, cpu_model):
     return {"identical": same, "divergences": div}
 
 
-def fe_cold_build(load, gpu_model, cpu_model, want, build_s):
+def fe_cold_build(load, gpu_model, cpu_model, want):
     """A frontend whose replicas build both paged libraries themselves:
     the build directory is a fresh, empty one, so each replica's first
     dispatch waits for `nvcc` under `_COMPILE_LOCK`, one library after the
-    other. The heartbeat deadline is 1.5x the longer build (``build_s``:
-    each library's seconds in the build phase; where that phase found a
-    library built already, both are built once more to time them): every
-    single hold of the lock stays younger than the deadline while a
-    replica's beat goes stale past it (the two builds' sum), so the
+    other. The heartbeat deadline is 1.2x the longer build, each library
+    timed by a build of the two alone first (in the build phase every
+    source compiles beside the others, which stretches a small library's
+    seconds past what it takes alone): every single hold of the lock stays
+    younger than the deadline while a replica's beat goes stale past it
+    (the two builds' sum, which the monitor reaches with a margin whenever
+    the shorter build takes a fifth of the longer or more), so the
     monitor must spare the replicas through its lock probe (the frontend's
     default misses and a 1 s check), kill none, and the requests complete
     with (a)'s tokens."""
@@ -5453,13 +6112,12 @@ def fe_cold_build(load, gpu_model, cpu_model, want, build_s):
     libs = ("ragged_paged_attention", "paged_attention")
     old_dir = _build.BUILD_DIR
     try:
-        if not all(build_s.get(n) for n in libs):
-            _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="build_probe_"))
-            build_s = {n: b["seconds"] for n, b in _build.build(libs).items()}
+        _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="build_probe_"))
+        build_s = {n: b["seconds"] for n, b in _build.build(libs).items()}
         _build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="build_cold_"))
         for n in libs:
             _build._LIBS.pop(n, None)
-        deadline = 1.5 * max(build_s[n] for n in libs)
+        deadline = 1.2 * max(build_s[n] for n in libs)
         dead0 = _serving_counter("serving.replica_dead")
         spared0 = _serving_counter("serving.replica_spared")
         builds0 = {n: compilemem.ledger.report()["by_key"].get(
@@ -5474,7 +6132,7 @@ def fe_cold_build(load, gpu_model, cpu_model, want, build_s):
     builds = {n: compilemem.ledger.report()["by_key"][f"build.{n}"]
               ["count"] - builds0[n] for n in libs}
     row = {"run": "cold_build",
-           "build_phase_s": {n: build_s[n] for n in libs},
+           "build_alone_s": {n: build_s[n] for n in libs},
            "heartbeat_deadline_s": deadline, "wall_s": wall,
            "builds": builds,
            "replicas_dead": _serving_counter("serving.replica_dead") - dead0,
@@ -5491,8 +6149,8 @@ def fe_cold_build(load, gpu_model, cpu_model, want, build_s):
     return row
 
 
-def phase_frontend_equal(build_s, seed=3):
-    """f32, LLaMA-2-7B widths, 2 layers, serve_equal's seed: the port's
+def phase_frontend_equal(seed=3):
+    """f32, LLaMA-2-7B widths, EQUAL_LAYERS, serve_equal's seed: the port's
     ServingFrontend on the card against the same frontend on the CPU.
     (a) blended over 2 ragged engines (async, prefill_chunk 64), 8
     requests (4 interactive of 8-24 tokens, 4 batch of 100-300) of 16 new
@@ -5521,7 +6179,7 @@ def phase_frontend_equal(build_s, seed=3):
     from paddle_tpu_torch.testing import chaos
 
     cfg = llama2_7b()
-    cfg.num_hidden_layers = 2
+    cfg.num_hidden_layers = EQUAL_LAYERS
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     load = fe_load(seed, cfg.vocab_size)
@@ -5537,8 +6195,8 @@ def phase_frontend_equal(build_s, seed=3):
     card_s = time.perf_counter() - t0
     card_serve = fe_engines(gpu_model, "cuda", n=1)[0].serve(prompts,
                                                              FE_NEW)
-    blended = {"phase": "frontend_equal", "run": "blended", "layers": 2,
-               "dtype": "float32",
+    blended = {"phase": "frontend_equal", "run": "blended",
+               "layers": EQUAL_LAYERS, "dtype": "float32",
                "prompt_lens": [len(p) for p in prompts],
                "classes": [c for _, c in load], "new_tokens": FE_NEW,
                "card_s": card_s, "replicas": reps,
@@ -5642,7 +6300,7 @@ def phase_frontend_equal(build_s, seed=3):
     worker.start()
     try:
         # (e) replicas that build their kernels themselves
-        cold = fe_cold_build(load, gpu_model, cpu_model, card, build_s)
+        cold = fe_cold_build(load, gpu_model, cpu_model, card)
     finally:
         worker.join(900)
         torch.set_num_threads(threads)
@@ -6614,7 +7272,8 @@ def kernel_table(rows):
                       "launches": rows.get(main_phase, {}).get(
                           "kernels", {}).get(name),
                       "max_abs_err": max(r["max_abs_err"]
-                                         for r in rows[phase]),
+                                         for r in rows[phase]
+                                         if r["dtype"] != "torch.float16"),
                       "ms": main_row["kernel_ms"],
                       "plain_ms": main_row["plain_ms"],
                       "bound_ms": main_row["bound_ms"],
@@ -6629,6 +7288,12 @@ def kernel_table(rows):
                       "f32_device_ms": [
                           r["device_ms"] for r in rows[phase]
                           if r["dtype"] == "torch.float32"],
+                      # int8 pools: an fp16 q, read as the reference's
+                      # kernel reads it (f32 for K4, bf16 for K5)
+                      "fp16_q_device_ms": [
+                          r["device_ms"] for r in rows[phase]
+                          if r["dtype"] == "torch.float16"
+                          and r["pool"] == "int8"],
                       # the legacy ladder (K5 alone), warmup and LoRA
                       "slice_surface_launches": {
                           r["run"]: r["kernels"][name]
@@ -6652,7 +7317,8 @@ def kernel_table(rows):
                if entry == "fwd" else
                "paddle_tpu_torch/ops/csrc/flash_attention_bwd.cu")
         main_row = rows["k1"][0]    # MHA, B 2, S 2048, causal, bf16
-        flash_rows = rows["k1"] + rows.get("k2", [])
+        flash_rows = [r for r in rows["k1"] + rows.get("k2", [])
+                      if r["dtype"] != "torch.float16"]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": "paddle_tpu/ops/flash_attention.py:81",
                "launches": rows.get("train", {}).get("kernels", {}).get(name),
@@ -6681,7 +7347,7 @@ def kernel_table(rows):
     # K3: the timed cases are packed MHA (the main path's shape), packed
     # GQA 64/8 and varlen
     timed = {(r["form"], r["hkv"]): r for r in rows.get("k3", [])
-             if "kernel_ms" in r}
+             if "kernel_ms" in r and r["dtype"] == "torch.bfloat16"}
     for entry, keys in errs.items():
         if "k3" not in rows:
             break
@@ -6725,7 +7391,8 @@ def kernel_table(rows):
                 "flash_attention_ring_fwd"),
             "max_abs_err": max(max(r["max_abs_err"]["o"],
                                    r["max_abs_err"]["entry_o"])
-                               for r in rows["k6"]),
+                               for r in rows["k6"]
+                               if r["dtype"] != "torch.float16"),
             "ms": main_row["kernel_ms"]["fwd"],
             "plain_ms": main_row["plain_ms"]["fwd"],
             "bound_ms": main_row["bounds"]["fwd"]["bound_ms"],
@@ -6835,7 +7502,7 @@ def kernel_table(rows):
             table.append(row)
     if "adamw" in rows:
         main_row = next(r for r in rows["adamw"]
-                        if r.get("instance") == "master")
+                        if r.get("p_dtype") == "torch.bfloat16")
         table.append({
             "name": "adamw_update_master", "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/adamw.cu",
@@ -6861,11 +7528,133 @@ def kernel_table(rows):
             "launches": rows.get("train", {}).get("kernels", {}).get(
                 "adamw_update"),
             "max_abs_err": max(r["max_abs_err"] for r in rows["adamw"]
-                               if "instance" not in r),
+                               if "instance" not in r
+                               and r["dtype"] != "torch.float16"),
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+    table += fp16_kernel_rows(rows)
+    return table
+
+
+def fp16_kernel_rows(rows):
+    """The kernel line's entries of the fp16 instances (each at its main
+    shape, fp16): launches over fp16's main paths, `train_fp16` (K1's
+    entries, AdamW's master instance, kernel A) and `slice_fp16` (K4, K5);
+    K3, K6 and AdamW's plain instance have no fp16 phase of their own
+    (null), each held to its plain version in its kernel phase."""
+    table = []
+
+    def fp16(phase, **match):
+        return next((r for r in rows.get(phase, [])
+                     if r.get("dtype") == "torch.float16"
+                     and all(r.get(k) == v for k, v in match.items())), None)
+
+    def line(name, src, ref, launches, r, err, bound=None, library=None,
+             **extra):
+        b = bound or r
+        return {"name": name, "route": "cuda",
+                "source": f"paddle_tpu_torch/ops/csrc/{src}",
+                "replaces": ref, "launches": launches, "max_abs_err": err,
+                "ms": r["kernel_ms"] if not isinstance(r["kernel_ms"], dict)
+                else None, "plain_ms": r["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": library, "dtype": "torch.float16", **extra}
+
+    serving = rows.get("slice_fp16", {}).get("kernels", {})
+    for name, phase, src, ref in (
+            ("ragged_paged_attention", "k4", "ragged_paged_attention.cu",
+             "paddle_tpu/ops/ragged_paged_attention.py:258"),
+            ("paged_decode_attention", "k5", "paged_common.cuh",
+             "paddle_tpu/ops/paged_attention.py:155")):
+        r = fp16(phase, hkv=HQ)
+        if r is None:
+            continue
+        table.append(line(name + "_fp16", src, ref,
+                          serving.get(name + "_fp16"), r, max(
+                              x["max_abs_err"] for x in rows[phase]
+                              if x["dtype"] == "torch.float16"),
+                          device_ms=r["device_ms"],
+                          gqa_device_ms=fp16(phase, hkv=8)["device_ms"]))
+    train = rows.get("train_fp16", {}).get("kernels_fp16", {})
+    for phase, prefix, src_fwd, ref, fwd_name in (
+            ("k1", "flash_attention_", "flash_attention_fwd.cu",
+             "paddle_tpu/ops/flash_attention.py:81", "fwd"),
+            ("k3", "flash_attention_seg_", "flash_attention_fwd.cu",
+             "paddle_tpu/ops/flash_attention.py:277", "fwd")):
+        main = next((r for r in rows.get(phase, [])
+                     if r["dtype"] == "torch.float16" and "kernel_ms" in r),
+                    None)
+        if main is None:
+            continue
+        for entry, keys in (("fwd", ("o",)), ("bwd_delta", ("delta",)),
+                            ("bwd_dkdv", ("dk", "dv")), ("bwd_dq", ("dq",))):
+            name = prefix + entry
+            err = max(r["max_abs_err"][k] for r in rows[phase]
+                      + rows.get("k2", []) if r["dtype"] == "torch.float16"
+                      and "max_abs_err" in r and isinstance(
+                          r["max_abs_err"], dict) for k in keys
+                      if k in r["max_abs_err"])
+            table.append({
+                "name": name + "_fp16", "route": "cuda",
+                "source": "paddle_tpu_torch/ops/csrc/" + (
+                    src_fwd if entry == "fwd" else "flash_attention_bwd.cu"),
+                "replaces": ref,
+                "launches": train.get(name) if phase == "k1" else None,
+                "max_abs_err": err, "ms": main["kernel_ms"][entry],
+                "plain_ms": main["plain_ms"][entry],
+                "bound_ms": main["bounds"][entry]["bound_ms"],
+                "bound_by": main["bounds"][entry]["bound_by"],
+                "library_ms": (main["library_ms"]["fwd"] if entry == "fwd"
+                               else None),
+                "dtype": "torch.float16",
+                "bwd_ms": main["kernel_ms"]["bwd"],
+                "library_bwd_ms": main["library_ms"]["bwd"],
+                **({"gqa_ms": fp16("k2")["kernel_ms"][entry]}
+                   if phase == "k1" and fp16("k2") else {})})
+    ring = next((r for r in rows.get("k6", [])
+                 if r["dtype"] == "torch.float16" and "kernel_ms" in r), None)
+    if ring is not None:
+        table.append({
+            "name": "flash_attention_ring_fwd_fp16", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            "replaces": "paddle_tpu/ops/ring_attention.py:125",
+            "launches": None,
+            "max_abs_err": max(max(r["max_abs_err"]["o"],
+                                   r["max_abs_err"]["entry_o"])
+                               for r in rows["k6"]
+                               if r["dtype"] == "torch.float16"),
+            "ms": ring["kernel_ms"]["fwd"],
+            "plain_ms": ring["plain_ms"]["fwd"],
+            "bound_ms": ring["bounds"]["fwd"]["bound_ms"],
+            "bound_by": ring["bounds"]["fwd"]["bound_by"],
+            "library_ms": ring["library_ms"]["fwd"], "dtype": "torch.float16",
+            "fwd_bwd_ms": ring["kernel_ms"]["fwd_bwd"]})
+    plain = fp16("adamw")
+    master = next((r for r in rows.get("adamw", [])
+                   if r.get("p_dtype") == "torch.float16"), None)
+    if plain is not None:
+        table.append(line(
+            "adamw_update_fp16", "adamw.cu",
+            "paddle_tpu/optimizer/optimizers.py:51 (XLA-fused in the "
+            "compiled step; no Pallas kernel)", None, plain,
+            plain["max_abs_err"], library=plain["library_ms"]))
+    if master is not None:
+        table.append(line(
+            "adamw_update_master_fp16", "adamw.cu",
+            "paddle_tpu/optimizer/optimizer.py:161 (AdamW on f32 master "
+            "weights, XLA-fused; no Pallas kernel)",
+            train.get("adamw_update"), master, master["max_abs_err"],
+            library=master["library_ms"]))
+    norm = fp16("grad_norm")
+    if norm is not None:
+        table.append(line(
+            "grad_sumsq_fp16", "grad_norm.cu",
+            "paddle_tpu/jit_api.py:328 (unscale, finite check and "
+            "nn/clip.py:55 global norm, XLA-fused; no Pallas kernel)",
+            train.get("grad_sumsq"), norm, norm["max_abs_err"],
+            library=norm["library_ms"]))
     return table
 
 
@@ -6938,18 +7727,22 @@ def main(argv=None):
         rows["k4_int8"] = phase_k4(quant=True)
     if runs("k5_int8"):
         rows["k5_int8"] = phase_k5(quant=True)
+    if runs("lbfgs_equal"):
+        rows["lbfgs_equal"] = phase_lbfgs_equal()
+    if runs("debugging"):
+        rows["debugging"] = phase_debugging()
     if runs("serve_equal"):
         phase_serve_equal()
     if runs("serve_surface_equal"):
         rows["serve_surface_equal"] = phase_serve_surface_equal()
     if runs("frontend_equal"):
-        rows["frontend_equal"] = phase_frontend_equal(
-            {n: b["seconds"] for n, b in built.items()})
+        rows["frontend_equal"] = phase_frontend_equal()
     if runs("operator_equal"):
         rows["operator_equal"] = phase_operator_equal()
     serving = [p for p in ("slice", "profile", "slice_int8",
                            "slice_sampled_prefix", "slice_surface",
-                           "slice_online", "slice_operator") if runs(p)]
+                           "slice_online", "slice_operator", "slice_fp16")
+               if runs(p)]
     if serving:
         from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
 
@@ -6976,6 +7769,13 @@ def main(argv=None):
             rows["slice_online"] = phase_slice_online(model)
         if runs("slice_operator"):
             rows["slice_operator"] = phase_slice_operator(model)
+        if runs("slice_fp16"):
+            # the slice's model and traffic in fp16 (the weights rounded
+            # from bf16), beside the bf16 slice's row
+            model.to(torch.float16)
+            rows["slice_fp16"], eng, _, _ = phase_slice(
+                model, reference=ref, phase="slice_fp16")
+            del eng
         # free the serving model and engines before training; cuBLAS
         # keeps a workspace for each (thread handle, stream) it ran on,
         # in the caching allocator (every engine runs on a stream of its
@@ -7004,12 +7804,18 @@ def main(argv=None):
         phase_train_equal()
     if runs("train_packed_equal"):
         phase_train_packed_equal()
+    s1024 = None
     if runs("train_equal_s1024"):
-        phase_train_equal_s1024()
+        s1024 = phase_train_equal_s1024()
     if runs("train_cp_equal"):
-        phase_train_cp_equal()
-    if runs("train_recipe_equal"):
-        rows["train_recipe_equal"] = phase_train_recipe_equal()
+        phase_train_cp_equal(cpu_run=s1024)
+    del s1024
+    if runs("train_recipe_equal") or runs("train_fp16_equal"):
+        # train_fp16_equal holds the card's fp16 run to this CPU run
+        rows["train_recipe_equal"], shared = phase_train_recipe_equal()
+        if runs("train_fp16_equal"):
+            rows["train_fp16_equal"] = phase_train_fp16_equal(shared)
+        del shared
     if runs("moe_equal"):
         rows["moe_equal"] = phase_moe_equal()
     if runs("train") or runs("train_packed") or runs("train_cp"):
@@ -7026,6 +7832,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if runs("train_gqa"):
         rows["train_gqa"] = phase_train_gqa()
+    if runs("train_fp16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows["train_fp16"] = phase_train_fp16(rows.get("train"))
     if runs("train_recipe"):
         rows["train_recipe"], rows["train_recipe_plain"] = \
             phase_train_recipe()

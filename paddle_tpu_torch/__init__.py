@@ -29,8 +29,27 @@ Slice 13 redesigns the weight-only product for Hopper. Slice 14 completes
 the serving engine (``inference.continuous``: the ``ragged=False``
 ladder, per-request LoRA adapters with their registry in ``serving``,
 sampling overrides, ``warmup``, the online and handoff hooks) and ports
-the Predictor and Config (``inference``).
+the Predictor and Config (``inference``). Slice 15 ports the online
+serving control plane (``serving.ServingFrontend`` with its scheduler,
+router, brownout, breaker, tenancy, handoff transports and KV fabric) and
+the observability it reads; slice 16 its operator plane (the replica
+supervisor with its generation fences, ``/statusz``, the hang watchdog,
+the flight recorder, the fleet snapshots). Slice 17 runs fp16 through
+training and serving (fp16 instances of the flash, AdamW, gradient-norm
+and paged kernels, so ``amp.decorate(level="O2", dtype="float16")`` with
+the dynamic ``amp.GradScaler`` trains on the card and the engine serves
+an fp16 model from fp16 pools), and ports ``optimizer.LBFGS``, the flag
+registry and dtype names (``framework``) and ``amp.debugging``.
 """
-from . import device
+from . import device, framework
+from .framework.dtype import (
+    bfloat16, bool, complex64, complex128, finfo, float16, float32, float64,
+    get_default_dtype, iinfo, int8, int16, int32, int64, set_default_dtype,
+    uint8,
+)
+from .framework.flags import get_flags, set_flags
 
-__all__ = ["device"]
+__all__ = ["device", "framework", "set_flags", "get_flags",
+           "get_default_dtype", "set_default_dtype", "iinfo", "finfo",
+           "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+           "bfloat16", "float32", "float64", "complex64", "complex128"]

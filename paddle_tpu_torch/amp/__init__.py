@@ -1,14 +1,17 @@
 """AMP of the port (counterpart of ``paddle_tpu/amp``): ``auto_cast`` and
-``decorate``, and the dynamic loss scaler. ``amp.debugging`` comes in a
-later slice (ROADMAP.md)."""
+``decorate`` (bf16 or fp16; O2 keeps f32 master weights), the dynamic
+loss scaler, and ``debugging`` (``check_numerics`` and the per-op
+NaN/Inf scan behind ``FLAGS_check_nan_inf``)."""
 import torch
 
+from . import debugging
 from .auto_cast import (
     auto_cast, autocast, decorate, is_autocast_enabled, white_list,
 )
 from .grad_scaler import AmpScaler, GradScaler
 
 __all__ = ["auto_cast", "autocast", "decorate", "GradScaler", "AmpScaler",
+           "debugging",
            "is_autocast_enabled", "white_list", "is_bfloat16_supported",
            "is_float16_supported"]
 
@@ -19,6 +22,8 @@ def is_bfloat16_supported(place=None):
 
 
 def is_float16_supported(place=None):
-    """fp16 is a card's type: True with CUDA. The port's kernels take f32
-    and bf16 only; fp16 instances come later (ROADMAP.md)."""
+    """fp16 is a card's type: True with CUDA. The training and serving
+    kernels have fp16 instances (the flash kernels, AdamW, the gradient
+    norm, the paged kernels); the weight-only product and the MoE kernels
+    take f32 and bf16 only (ROADMAP.md section 1 item 3)."""
     return torch.cuda.is_available()

@@ -71,7 +71,10 @@ the chaos sites ``serve.prefill`` (a failed prefill retires its own slot
 alone) and ``serve.decode`` (inside the decode dispatch's bounded retry),
 the serving goodput split, the device-time plane (``PADDLE_DEVPROF``), the
 compile ledger (a program family's first dispatch, keyed as the
-reference's programs are) and OOM forensics.
+reference's programs are) and OOM forensics. Under
+``FLAGS_check_nan_inf`` ``serve``, ``step`` and ``warmup`` run unchecked,
+as the reference's compiled programs do (``framework.nan_inf``). The
+pools take the model's dtype (f32, bf16 or fp16) unless they are int8.
 """
 import functools
 import hashlib
@@ -84,6 +87,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..framework.nan_inf import suspended as _unchecked
 from ..generation import (
     _make_sampler, gumbel_noise, prompt_bucket, request_keys,
 )
@@ -1041,6 +1045,7 @@ class ContinuousBatchingEngine:
     # ---- warmup -------------------------------------------------------------
     @_joined
     @_on_engine_stream
+    @_unchecked()
     def warmup(self, prompt_lens=None, do_sample=False, temperature=1.0,
                top_k=0, top_p=1.0, shared_prefix_lens=(), buckets=None,
                sampling=None, lora_ranks=()):
@@ -1747,6 +1752,7 @@ class ContinuousBatchingEngine:
 
     # ---- stepping -------------------------------------------------------------
     @_on_engine_stream
+    @_unchecked()
     def step(self):
         """One scheduling round: sweep cancellations, (legacy) land one
         prefill chunk per mid-prefill slot, advance the dispatch pipeline,
@@ -2150,6 +2156,7 @@ class ContinuousBatchingEngine:
 
     @_joined
     @_on_engine_stream
+    @_unchecked()
     def serve(self, prompts, max_new_tokens, eos_token_id=None,
               do_sample=False, temperature=1.0, top_k=0, top_p=1.0, seed=0,
               on_token=None, request_timeout_s=None, sampling_overrides=None,

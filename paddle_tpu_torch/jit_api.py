@@ -21,6 +21,8 @@ counting the n steps of ``run_steps``), and the guard's check commits a
 ``nonfinite`` flight-record bundle, with the dynamics' provenance, when it
 finds new skips. Device profiling, the compile ledger and ``run_steps`` as
 one captured program come in a later slice of the port (ROADMAP.md).
+Under ``FLAGS_check_nan_inf`` a step runs unchecked, as the reference's
+compiled program does (``framework.nan_inf``).
 """
 import math
 
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .framework.nan_inf import suspended as _unchecked
 from .utils.envs import env_int
 from .nn.clip import ClipGradByGlobalNorm
 from .observability import flightrec as _flightrec
@@ -383,12 +386,14 @@ class TrainStep:
         self._dynamics.spill(self._dyn_state, step=self._calls)
         self._dyn_state = self._dynamics.reset_window(self._dyn_state)
 
+    @_unchecked()
     def __call__(self, *batch):
         loss = self._step(batch)
         self._calls += 1
         self._after(loss, batch)
         return loss
 
+    @_unchecked()
     def run_steps(self, *batch, n, stacked=False):
         """n steps; with ``stacked`` each batch array carries a leading [n]
         dim, one batch per step, else the same batch every step. As the

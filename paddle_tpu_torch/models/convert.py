@@ -67,8 +67,9 @@ def load_paddle_tpu_state(model, arrays):
 def export_paddle_tpu_state(model):
     """The inverse of ``load_paddle_tpu_state``: {name: np.ndarray} in the
     reference's layout (Linear weights and int8 codes transposed back to
-    [in, out]), f32 for every floating tensor (bf16 values widen exactly),
-    the codes int8."""
+    [in, out]), f32 for every floating tensor (bf16 and fp16 values widen
+    exactly), the codes int8. An fp16 model's weights go back through
+    ``load_paddle_tpu_state`` bit for bit (numpy keeps fp16 as it is)."""
     state, linear = _state(model)
     out = {}
     for name, p in state.items():

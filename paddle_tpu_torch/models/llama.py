@@ -66,12 +66,13 @@ _CP_MASK = ("context_parallel attention is causal-only: padding masks are "
             "not supported on the ring path (pack sequences instead)")
 _PACKED_MASK = ("packed segment_ids and attention_mask are exclusive — give "
                 "padding its own segment id instead")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 class LlamaConfig:
-    """The reference's config, field for field. ``dtype`` ("float32" or
-    "bfloat16") is the parameter dtype of the port's model.
+    """The reference's config, field for field. ``dtype`` ("float32",
+    "bfloat16" or "float16") is the parameter dtype of the port's model.
     ``context_parallel``: False, True or "ring" (ring attention over the
     mesh's sep axis), or "ulysses" (the all-to-all pair); inert without a
     mesh whose sep axis exceeds 1. ``num_experts > 1`` makes every MLP a

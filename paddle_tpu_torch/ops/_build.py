@@ -84,13 +84,26 @@ def build(names=None):
             ledger.untrack(tok)
             raise
         procs[name] = (proc, tmp, path, time.perf_counter(), tok)
-    failed = []
-    for name, (proc, tmp, path, t0, tok) in procs.items():
+    # each nvcc's output is drained by a thread of its own, so that a
+    # source's seconds and breadcrumb end when its own nvcc does
+    done = {}
+
+    def wait(name, proc, tok):
         try:
             log, _ = proc.communicate()
         finally:
             ledger.untrack(tok)
-        secs = time.perf_counter() - t0
+        done[name] = (log, time.perf_counter())
+
+    waiters = [threading.Thread(target=wait, args=(n, p[0], p[4]),
+                                daemon=True) for n, p in procs.items()]
+    for w in waiters:
+        w.start()
+    failed = []
+    for w, (name, (proc, tmp, path, t0, _)) in zip(waiters, procs.items()):
+        w.join()
+        log, t1 = done[name]
+        secs = t1 - t0
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
@@ -121,16 +134,24 @@ def library(name):
         return lib
 
 
-def count_launch(fn, attr="launches"):
+def count_launch(fn, attr="launches", like=None):
     """Add one to the wrapper ``fn``'s launch count ``attr`` and to its
     count for the calling thread (``fn.launches_by_thread[(attr,
     thread ident)]``), under one lock: serving replicas launch from threads
-    of their own, and a lost increment would undercount."""
+    of their own, and a lost increment would undercount. A launch whose
+    tensor ``like`` (or one of the list ``like``) is fp16 ran the kernel's
+    fp16 instance and is counted in ``fn.launches_fp16`` too, so that a
+    path can show which instances it ran."""
     me = threading.get_ident()
+    likes = [] if like is None else (
+        [like] if isinstance(like, torch.Tensor) else like)
+    fp16 = any(t.dtype == torch.float16 for t in likes)
+    attrs = (attr, "launches_fp16") if fp16 else (attr,)
     with _COUNT_LOCK:
-        setattr(fn, attr, getattr(fn, attr) + 1)
-        per = fn.launches_by_thread
-        per[(attr, me)] = per.get((attr, me), 0) + 1
+        per = fn.__dict__.setdefault("launches_by_thread", {})
+        for a in attrs:
+            setattr(fn, a, getattr(fn, a) + 1)
+            per[(a, me)] = per.get((a, me), 0) + 1
 
 
 def entry(name, symbol, argtypes):
@@ -143,7 +164,26 @@ def entry(name, symbol, argtypes):
 
 
 # dtype codes of the C entries (attention_common.cuh: ptt::DType)
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
+
+
+#: the codes of the kernels that have no fp16 instance yet: kernel C
+#: (weight_only_linear.cu) and kernels D/E (moe_dispatch.cu), whose C
+#: entries refuse any other code
+NO_FP16 = ("an fp16 instance of this kernel is ROADMAP section 1 item 3's "
+           "remainder")
+F32_BF16_CODES = {k: v for k, v in DTYPE_CODES.items()
+                  if k != "torch.float16"}
+
+
+def check_dtype(kernel, t, codes=None):
+    """Raise ValueError unless ``t``'s dtype has a code in ``codes`` (by
+    default DTYPE_CODES: f32, bf16, fp16; ints, f64 and the rest are
+    refused)."""
+    codes = DTYPE_CODES if codes is None else codes
+    extra = f" ({NO_FP16})" if t.dtype == torch.float16 else ""
+    check(str(t.dtype) in codes, kernel,
+          f"dtype {t.dtype} not in {sorted(codes)}{extra}")
 
 
 def check(ok, kernel, what):
@@ -153,11 +193,11 @@ def check(ok, kernel, what):
 
 
 def pool_operands(kernel, q, k_pages, v_pages):
-    """Validate a K/V pool pair for a kernel of query ``q``: both float in
-    q's dtype, or both int8 ``QuantizedTensor``s (int8 codes, f32 scales
-    ``[Hkv, P, bs, 1]``). Returns the data pointers in the C entry's order
-    (k, v; or k codes, k scales, v codes, v scales) and the weight shape
-    ``(Hkv, P, bs, D)``."""
+    """Validate a K/V pool pair for a kernel of query ``q`` (f32, bf16 or
+    fp16): both float in q's dtype, or both int8 ``QuantizedTensor``s
+    (int8 codes, f32 scales ``[Hkv, P, bs, 1]``). Returns the data pointers
+    in the C entry's order (k, v; or k codes, k scales, v codes, v scales)
+    and the weight shape ``(Hkv, P, bs, D)``."""
     from .quantization import is_quantized
 
     quant = is_quantized(k_pages)
@@ -183,8 +223,7 @@ def pool_operands(kernel, q, k_pages, v_pages):
         check(tuple(v_pages.shape) == shape, kernel,
               "pools must be [Hkv, P, bs, D]")
     check(q.is_cuda, kernel, "q must be a CUDA tensor")
-    check(str(q.dtype) in DTYPE_CODES, kernel,
-          f"dtype {q.dtype} not in {sorted(DTYPE_CODES)}")
+    check_dtype(kernel, q)
     check(len(shape) == 4, kernel, "pools must be [Hkv, P, bs, D]")
     for t in tensors:
         check(t.device == q.device, kernel, "operands must share q's device")

@@ -8,32 +8,41 @@ CPU tensor runs the plain version ``_adamw_plain``, the same arithmetic as
 separate PyTorch operations. There is no fallback between them.
 
 The same kernel takes the training recipe's options beside p, g, m and v:
-an f32 ``master`` weight of a bf16 p (then m and v are f32 and the rule
-runs on the master, whose bf16 rounding lands in p), the gradient
-transform of the reference's step (``scale``, the loss scaler's unscale, and
-``grad_factor``, the global-norm clip's factor, both one f32 on the device;
-``transform_grad``), the L1 or L2 ``regularization`` on the updated weight,
-and ``norms``, an ``UpdateNorms`` that collects each parameter's
-sum p_old^2 and sum (p_new - p_old)^2 for the dynamics telemetry.
+an f32 ``master`` weight of a bf16 or fp16 p (then m and v are f32 and the
+rule runs on the master, whose rounding to p's dtype lands in p), the
+gradient transform of the reference's step (``scale``, the loss scaler's
+unscale, and ``grad_factor``, the global-norm clip's factor, both one f32
+on the device; ``transform_grad``), the L1 or L2 ``regularization`` on the
+updated weight, and ``norms``, an ``UpdateNorms`` that collects each
+parameter's sum p_old^2 and sum (p_new - p_old)^2 for the dynamics
+telemetry.
 
 The rounding points are those of the reference's compiled step, checked
-element for element against it in bf16: each product with a Python scalar
-in the parameter's dtype (the scalar rounded to that dtype first, so a
-beta2 of 0.999 is 1.0 for bf16 moments), the moment sums and everything
-after them in f32, rounded once where m, v and p are stored.
+element for element against it in bf16 (in fp16 the moments part by an
+ulp of their terms where the reference's CPU program rounds b1 m + (1 -
+b1) g once and the two terms cancel): each product with a
+Python scalar in the parameter's dtype (the scalar rounded to that dtype
+first, so a beta2 of 0.999 is 1.0 for bf16 moments and 0.99902 for fp16
+ones), the moment sums and everything after them in f32, rounded once
+where m, v and p are stored. ``eps`` stays f32 in every dtype: the
+reference adds it to sqrt(v / bc2), which the f32 bias correction makes
+f32, so fp16's 1e-8 (below half its smallest subnormal) is not rounded to
+0, and a zero gradient over zero moments updates by 0 / 1e-8 = 0.
 """
 import ctypes
+import inspect
 
 import numpy as np
 import torch
 
 from ..regularizer import L1Decay, L2Decay
+from ..framework.nan_inf import checked
 from . import _build
 from .grad_norm import finish_math
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
              + [ctypes.c_float] * 9
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_longlong, ctypes.c_void_p])
 _REDUCE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -123,13 +132,16 @@ def _check_operands(name, p, g, m, v, master):
     chk(m.dtype == base.dtype and v.dtype == base.dtype, name,
         "m and v must have the updated weight's dtype")
     if master is not None:
-        chk(master.dtype == torch.float32 and p.dtype == torch.bfloat16,
-            name, "a master weight is f32 for a bf16 parameter")
+        chk(master.dtype == torch.float32
+            and p.dtype in (torch.bfloat16, torch.float16), name,
+            "a master weight is f32 for a bf16 or fp16 parameter")
     for t in (p, g, m, v) + ((master,) if master is not None else ()):
-        chk(str(t.dtype) in _build.DTYPE_CODES, name,
-            f"dtype {t.dtype} not in {sorted(_build.DTYPE_CODES)}")
+        _build.check_dtype(name, t)
         chk(t.is_contiguous(), name, "operands must be contiguous")
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
+    g16 = torch.bfloat16 if p.dtype == torch.float32 else p.dtype
+    chk(g.dtype in (torch.float32, g16), name,
+        f"the gradient must be f32 or {g16} for a {p.dtype} parameter")
     chk(p.numel() > 0, name, "empty parameter")
 
 
@@ -152,14 +164,23 @@ def _adamw_cuda(p, g, m, v, args, master=None, scale=None, grad_factor=None,
             master.data_ptr() if master is not None else None, p.numel(),
             *_scalars(base, *args), _build.DTYPE_CODES[str(base.dtype)],
             _build.DTYPE_CODES[str(g.dtype)],
+            _build.DTYPE_CODES[str(p.dtype)],
             scale.data_ptr() if scale is not None else None,
             grad_factor.data_ptr() if grad_factor is not None else None,
             kind, _in(reg.coeff, base.dtype) if kind else 0.0, part, n_part,
             stride, torch.cuda.current_stream(p.device).cuda_stream)
     _build.check_status(rc, name)
-    adamw_update.launches += 1
+    _build.count_launch(adamw_update, like=p)
 
 
+def _in_place(args, kwargs, result):
+    """adamw_update's outputs: p, m and v, and the master where given."""
+    a = inspect.signature(adamw_update).bind(*args, **kwargs).arguments
+    return tuple(a[k] for k in ("p", "m", "v", "master")
+                 if a.get(k) is not None)
+
+
+@checked("adamw_update", _in_place)
 @torch.no_grad()
 def adamw_update(p, g, m, v, lr, beta1, beta2, eps, step, factor=1.0,
                  master=None, scale=None, grad_factor=None,
@@ -179,7 +200,7 @@ def adamw_update(p, g, m, v, lr, beta1, beta2, eps, step, factor=1.0,
                     regularization, norms)
 
 
-adamw_update.launches = 0
+adamw_update.launches = adamw_update.launches_fp16 = 0
 
 
 class UpdateNorms:

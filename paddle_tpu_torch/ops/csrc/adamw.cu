@@ -20,12 +20,18 @@
 // from contracting a product and a sum into one FMA, which would round
 // once where the reference rounds twice.
 // What bounds it on the H100: bytes. Each element reads p, g, m, v and
-// writes p, m, v once (14 bytes in bf16); some 20 flops per element are
-// far below the card's rate. The same kernel takes the training recipe's
-// gradient unscale, clip and regularization in registers and f32 master
-// weights: a bf16 parameter with an f32 master, m and v reads g, master,
-// m, v and writes master, m, v and p, 28 bytes an element; the f32
-// gradients those transforms make are never stored.
+// writes p, m, v once (14 bytes in bf16 or fp16); some 20 flops per
+// element are far below the card's rate. The same kernel takes the
+// training recipe's gradient unscale, clip and regularization in registers
+// and f32 master weights: a bf16 or fp16 parameter with an f32 master, m
+// and v reads g, master, m, v and writes master, m, v and p, 28 bytes an
+// element; the f32 gradients those transforms make are never stored.
+// Every instance is the same code over the element types: T (m and v; p
+// without a master) f32, bf16 or fp16, G (the gradient) f32 or the
+// parameter's 16-bit type, P (p beside a master) bf16 or fp16. In fp16 the
+// scalars b1, 1 - b1, b2, 1 - b2 and factor round to fp16 as in bf16; eps
+// stays f32, as in the reference, whose bias-corrected sqrt(v) is f32
+// before eps is added.
 
 #include "sumsq_common.cuh"
 
@@ -68,8 +74,9 @@ __device__ __forceinline__ float adam_step(float p, float gi, float& m,
 //   x = x + coeff * base   L2 (reg 1) or coeff * sign(base) (reg 2), each
 //                          product and the sum rounded to T
 // then adam_step in T's rounding points; a master instance stores the f32
-// master and its bf16 rounding into p. The scale and the factor are read
-// from device memory, so the host never waits for the clip or the scaler.
+// master and its rounding to P (bf16 or fp16) into p. The scale and the factor
+// are read from device memory, so the host never waits for the clip or the
+// scaler.
 // With kDyn each block also sums p_old^2 and (p_new - p_old)^2 over the
 // stored p (the dynamics' param_sq and upd_sq, dynamics.py:239-242) in f64
 // and writes one partial of each: part[b] and part[part_stride + b]; grid ==
@@ -154,14 +161,15 @@ __device__ __forceinline__ float ex_element(float base, float gv, float& mv,
                       s.lr, s.bc1, s.bc2, s.eps);
 }
 
-template <typename T, typename G, bool kMaster, bool kDyn>
+// kMaster: p is P beside an f32 master (T f32); else p is T.
+template <typename T, typename G, typename PM, bool kMaster, bool kDyn>
 __global__ void __launch_bounds__(kThreads)
     adamw_kernel(void* __restrict__ p_, const G* __restrict__ g,
                     T* __restrict__ m, T* __restrict__ v,
                     float* __restrict__ master, long long n, Scalars s,
                     GradIn gin, double* __restrict__ part,
                     long long part_stride) {
-  using P = std::conditional_t<kMaster, __nv_bfloat16, T>;
+  using P = std::conditional_t<kMaster, PM, T>;
   P* p = static_cast<P*>(p_);
   const Unscale u(gin.scale);
   const float f = gin.factor != nullptr ? *gin.factor : 1.f;
@@ -228,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename G, bool kMaster>
+template <typename T, typename G, typename PM, bool kMaster>
 cudaError_t launch(void* p, const void* g, void* m, void* v, float* master,
                    long long n, const Scalars& s, const GradIn& gin,
                    double* part, int n_part, long long stride,
@@ -239,54 +247,75 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, float* master,
     blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   }
   if (part != nullptr)
-    adamw_kernel<T, G, kMaster, true><<<blocks, kThreads, 0, stream>>>(
+    adamw_kernel<T, G, PM, kMaster, true><<<blocks, kThreads, 0, stream>>>(
         p, static_cast<const G*>(g), static_cast<T*>(m), static_cast<T*>(v),
         master, n, s, gin, part, stride);
   else
-    adamw_kernel<T, G, kMaster, false><<<blocks, kThreads, 0, stream>>>(
+    adamw_kernel<T, G, PM, kMaster, false><<<blocks, kThreads, 0, stream>>>(
         p, static_cast<const G*>(g), static_cast<T*>(m), static_cast<T*>(v),
         master, n, s, gin, part, stride);
   return cudaGetLastError();
 }
 
+// The instance for the gradient's type g_dtype (T, PM and kMaster fixed):
+// f32, or the parameter's 16-bit type (P beside a master; bf16 beside an
+// f32 parameter).
+template <typename T, typename PM, bool kMaster>
+cudaError_t launch_gt(int g_dtype, void* p, const void* g, void* m, void* v,
+                      float* master, long long n, const Scalars& s,
+                      const GradIn& gin, double* part, int n_part,
+                      long long stride, cudaStream_t stream) {
+  using G16 = std::conditional_t<
+      kMaster, PM,
+      std::conditional_t<std::is_same_v<T, float>, __nv_bfloat16, T>>;
+  constexpr int kG16 = std::is_same_v<G16, __half> ? kFloat16 : kBFloat16;
+  if (g_dtype == kG16)
+    return launch<T, G16, PM, kMaster>(p, g, m, v, master, n, s, gin, part,
+                                       n_part, stride, stream);
+  if (g_dtype == kFloat32)
+    return launch<T, float, PM, kMaster>(p, g, m, v, master, n, s, gin, part,
+                                         n_part, stride, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t launch_g(int g_dtype, void* p, const void* g, void* m, void* v,
-                     float* master, long long n, const Scalars& s,
-                     const GradIn& gin, double* part, int n_part,
-                     long long stride, cudaStream_t stream) {
+cudaError_t launch_g(int g_dtype, int p_dtype, void* p, const void* g,
+                     void* m, void* v, float* master, long long n,
+                     const Scalars& s, const GradIn& gin, double* part,
+                     int n_part, long long stride, cudaStream_t stream) {
   if (master != nullptr) {
     if constexpr (std::is_same_v<T, float>) {
-      if (g_dtype == kBFloat16)
-        return launch<float, __nv_bfloat16, true>(p, g, m, v, master, n, s,
-                                                  gin, part, n_part, stride,
-                                                  stream);
-      return launch<float, float, true>(p, g, m, v, master, n, s, gin, part,
-                                        n_part, stride, stream);
+      if (p_dtype == kBFloat16)
+        return launch_gt<float, __nv_bfloat16, true>(
+            g_dtype, p, g, m, v, master, n, s, gin, part, n_part, stride,
+            stream);
+      if (p_dtype == kFloat16)
+        return launch_gt<float, __half, true>(g_dtype, p, g, m, v, master, n,
+                                              s, gin, part, n_part, stride,
+                                              stream);
     }
     return cudaErrorInvalidValue;
   }
-  if (g_dtype == kBFloat16)
-    return launch<T, __nv_bfloat16, false>(p, g, m, v, master, n, s, gin,
-                                           part, n_part, stride, stream);
-  return launch<T, float, false>(p, g, m, v, master, n, s, gin, part, n_part,
-                                 stride, stream);
+  return launch_gt<T, T, false>(g_dtype, p, g, m, v, master, n, s, gin, part,
+                                n_part, stride, stream);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. dtype: m and v's type (0 f32, 1 bf16; p's too,
-// without a master); a master instance takes an f32 master, m and v and a
-// bf16 p; p, m, v and the master are updated in place. g_dtype: the
-// gradient's type. scale, factor: device f32 or null. reg: 0 none, 1 L2,
-// 2 L1, reg_coeff rounded to the moments' type. part: the dynamics
-// epilogue's n_part f64 partials of p_old^2 at part and of
-// (p_new - p_old)^2 at part + stride, or null (then the grid is sized by n
-// alone). Every pointer 16-byte aligned, n elements each. Launches on
-// `stream`, allocates nothing, returns cudaGetLastError().
+// Plain C entry for ctypes. dtype: m and v's type (0 f32, 1 bf16, 2 fp16; p's
+// too, without a master); a master instance takes an f32 master, m and v and a
+// bf16 or fp16 p (p_dtype); p, m, v and the master are updated in place.
+// g_dtype: the gradient's type (0, 1 or 2). scale, factor: device f32 or null.
+// reg: 0 none, 1 L2, 2 L1, reg_coeff rounded to the moments' type. part: the
+// dynamics epilogue's n_part f64 partials of p_old^2 at part and of (p_new -
+// p_old)^2 at part + stride, or null (then the grid is sized by n alone).
+// Every pointer 16-byte aligned, n elements each. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 extern "C" int adamw_update_launch(
     void* p, const void* g, void* m, void* v, float* master, long long n,
     float b1, float c1, float b2, float c2, float factor, float lr, float bc1,
-    float bc2, float eps, int dtype, int g_dtype, const float* scale,
+    float bc2, float eps, int dtype, int g_dtype, int p_dtype,
+    const float* scale,
     const float* gfactor, int reg, float reg_coeff, double* part, int n_part,
     long long stride, void* stream) {
   if (n < 1 || (part != nullptr && n_part < 1)) return cudaErrorInvalidValue;
@@ -294,11 +323,14 @@ extern "C" int adamw_update_launch(
   const GradIn gin{scale, gfactor, reg, reg_coeff};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_g<float>(g_dtype, p, g, m, v, master, n, s, gin, part,
-                           n_part, stride, st);
+    return launch_g<float>(g_dtype, p_dtype, p, g, m, v, master, n, s, gin,
+                           part, n_part, stride, st);
   if (dtype == kBFloat16)
-    return launch_g<__nv_bfloat16>(g_dtype, p, g, m, v, master, n, s, gin,
-                                   part, n_part, stride, st);
+    return launch_g<__nv_bfloat16>(g_dtype, p_dtype, p, g, m, v, master, n, s,
+                                   gin, part, n_part, stride, st);
+  if (dtype == kFloat16)
+    return launch_g<__half>(g_dtype, p_dtype, p, g, m, v, master, n, s, gin,
+                            part, n_part, stride, st);
   return cudaErrorInvalidValue;
 }
 

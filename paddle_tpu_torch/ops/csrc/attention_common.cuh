@@ -7,13 +7,14 @@
 // the 32 lanes of a warp, lane l owning the contiguous elements
 // [l * D/32, (l+1) * D/32). Neighbouring lanes therefore read neighbouring
 // addresses, and a lane's slice is one 8- or 16-byte load for D = 128
-// (bf16, f32).
+// (bf16 or fp16, f32).
 //
 // The paged kernels' pool types and their conversions are in
 // paged_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,12 +22,13 @@
 
 namespace ptt {
 
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -38,9 +40,26 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+// Round to nearest, never saturating: a value past fp16's 65504 becomes inf
+// (an overflowing fp16 gradient must reach the gradient-norm kernel's flag).
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// Two f32 values rounded to a pair of T, stored at p (4-byte aligned).
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>)
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(lo, hi);
+  else if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
 
 // Round through the storage type: `q * scale` in the plain version is a
-// product in q's dtype, so a bf16 q is rounded to bf16 after scaling.
+// product in q's dtype, so a bf16 or fp16 q is rounded to it after scaling.
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));

@@ -29,9 +29,10 @@
 // TFLOP/s bf16 (0.139 and 0.104 ms at B 2, S 2048, 32 heads of 128, causal);
 // their bytes take a tenth of that.
 //
-// Design (bf16; D 64 or 128), after the forward (flash_attention_fwd.cu):
-// blocks of three warpgroups, warpgroup 2 a TMA producer (one thread) and
-// warpgroups 0 and 1 consumers, their registers split by setmaxnreg; tensor
+// Design (bf16 or fp16; D 64 or 128), after the forward
+// (flash_attention_fwd.cu): blocks of three warpgroups, warpgroup 2 a TMA
+// producer (one thread) and warpgroups 0 and 1 consumers, their registers
+// split by setmaxnreg; tensor
 // maps over the paddle layout (boxes of 64 elements, 128-byte swizzle; rows
 // past Sq or Sk arrive as zeros) feed wgmma from shared memory, and every
 // score-sized tile (S, P, dP, dS) lives in registers only.
@@ -72,8 +73,10 @@
 //   and dP = dO V^T (m64n128k16) from shared memory, P and dS in registers
 //   with each row's lse and delta, dQ += dS K with dS the register A operand
 //   and K the MN-major B operand.
-// - P and dS are rounded to bf16 before their products (as the TPU kernel
-//   rounds them); dS is formed from the unrounded P; every sum is f32.
+// - P and dS are rounded to the storage type before their products (as the
+//   TPU kernel rounds them; an fp16 dS past 65504 becomes inf, and so does
+//   dQ: the loss scaler's skip rests on it); dS is formed from the
+//   unrounded P; every sum is f32.
 // - The mask is a policy, as in the forward: K1/K2 mask only the stages that
 //   cross a warpgroup's causal diagonal or run past Sq or Sk, and never load
 //   tiles wholly past the diagonal; K3 compares segment ids and positions on
@@ -83,11 +86,11 @@
 //   16-byte aligned box start (tma_load_row): an unaligned one faulted. A
 //   query row that sees no key has lse -inf: lse_log2 makes it 0, its
 //   masked scores are -inf, and its P, dS and dQ come out exactly 0.
-// - The epilogue is a policy: K1/K2/K3 write dK, dV and dQ in bf16 straight
+// - The epilogue is a policy: K1/K2/K3 write dK, dV and dQ in E straight
 //   from the accumulators (each quad of threads 16 contiguous bytes of a
 //   row); K6's visits (ACC) add them into the ring's f32 sums instead (dQ
 //   of the resident shard, dK and dV travelling with the visiting one), each
-//   block owning its rows, so the visit's gradients never exist in bf16 and
+//   block owning its rows, so the visit's gradients never exist in E and
 //   no add pass follows. Staging through shared memory for TMA stores is
 //   later work.
 // - Departures from a fuller FA3 backward: one K/V tile per dK/dV block at a
@@ -456,7 +459,7 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
 }
 
 
-// -- the bf16 gradients: TMA, wgmma, warp specialisation ---------------------
+// -- the bf16 and fp16 gradients: TMA, wgmma, warp specialisation ------------
 
 namespace hop {
 
@@ -482,7 +485,7 @@ constexpr int kBlock64 = 64 * 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
-  void* out0;          // dK/dV: dk; dQ: dq. bf16, or (ACC) f32 sums added to
+  void* out0;          // dK/dV: dk; dQ: dq. E, or (ACC) f32 sums added to
   void* out1;          // dK/dV: dv
   const float* lse;    // [B, Hq, Sq]: dQ reads its rows' lse and delta here
   const float* delta;
@@ -499,11 +502,11 @@ __device__ __forceinline__ float lse_log2(float lse) {
 }
 
 // Add a thread's two accumulator rows into f32 sums (ACC) or write them in
-// bf16: `base` + off[r] is element col_in of row rows[r]; rows at or past
+// E: `base` + off[r] is element col_in of row rows[r]; rows at or past
 // `n` are dropped. Register i of an m64nDk16 accumulator is row r
 // = (i >> 1) & 1, column 8 (i >> 2) + col_in + (i & 1). Each row's loads
 // are issued before its stores.
-template <int D, bool ACC>
+template <typename E, int D, bool ACC>
 __device__ __forceinline__ void store_rows(void* base, const size_t (&off)[2],
                                            const int (&rows)[2], int n,
                                            const float (&x)[D / 2]) {
@@ -522,11 +525,10 @@ __device__ __forceinline__ void store_rows(void* base, const size_t (&off)[2],
             make_float2(acc[j].x + x[4 * j + 2 * r],
                         acc[j].y + x[4 * j + 2 * r + 1]);
     } else {
-      __nv_bfloat16* p = static_cast<__nv_bfloat16*>(base) + off[r];
+      E* p = static_cast<E*>(base) + off[r];
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) =
-            __floats2bfloat162_rn(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+        store_pair<E>(p + 8 * j, x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -602,8 +604,8 @@ __device__ __forceinline__ int2 query_tiles(const Args& a, const KvWork& t) {
 // thread issues the TMA loads). lse and delta ([B, Hq, Sq] f32) and K3's
 // query ids and positions ([B, Sq] int32) come as 1-D tensor maps with
 // boxes of 64 + kRowSlack (tma_load_row); other kernels ignore the two id
-// maps.
-template <int D, bool SEG, bool ACC>
+// maps. E: __nv_bfloat16 or __half.
+template <typename E, int D, bool SEG, bool ACC>
 __global__ void __launch_bounds__(kThreadsH, 1)
     flash_dkdv_hopper(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap do_map,
@@ -792,7 +794,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
             for (int ks = 0; ks < D / 16; ++ks) {
               const int ca = ((ks / 4) * kBlock128 + (ks % 4) * 32) >> 4;
               const int cb = ((ks / 4) * kBlock64 + (ks % 4) * 32) >> 4;
-              wgmma_ss_n64(s, k_desc + ca, q_desc + cb, ks > 0);
+              wgmma_ss_n64<E>(s, k_desc + ca, q_desc + cb, ks > 0);
             }
             wgmma_commit();
           }
@@ -804,7 +806,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
             for (int ks = 0; ks < D / 16; ++ks) {
               const int ca = ((ks / 4) * kBlock128 + (ks % 4) * 32) >> 4;
               const int cb = ((ks / 4) * kBlock64 + (ks % 4) * 32) >> 4;
-              wgmma_ss_n64(dp, v_desc + ca, do_desc + cb, ks > 0);
+              wgmma_ss_n64<E>(dp, v_desc + ca, do_desc + cb, ks > 0);
             }
             wgmma_commit();
           }
@@ -899,7 +901,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
           wgmma_wait<0>();  // dP^T has landed
           fence_regs(dp);
           // P^T and dS^T = P^T (dP^T - delta) (from the unrounded P^T, each
-          // column its query row's delta), rounded to bf16 in the A
+          // column its query row's delta), rounded to E in the A
           // operand's layout. Both are formed before dV's products are
           // issued: keeping P^T live beside dK, dV, S^T and dP^T while dV's
           // products run needs more than the consumers' registers, and
@@ -914,8 +916,8 @@ __global__ void __launch_bounds__(kThreadsH, 1)
 #pragma unroll
             for (int k = 0; k < 2; ++k) {
               const int i = 4 * jj + 2 * k;
-              p16[2 * jj + k] = pack_bf16(s[i], s[i + 1]);
-              ds16[2 * jj + k] = pack_bf16(s[i] * (dp[i] - d0),
+              p16[2 * jj + k] = pack16<E>(s[i], s[i + 1]);
+              ds16[2 * jj + k] = pack16<E>(s[i] * (dp[i] - d0),
                                            s[i + 1] * (dp[i + 1] - d1));
             }
           }
@@ -930,18 +932,18 @@ __global__ void __launch_bounds__(kThreadsH, 1)
             const uint32_t frag[4] = {p16[4 * kk], p16[4 * kk + 1],
                                       p16[4 * kk + 2], p16[4 * kk + 3]};
             if constexpr (D == 128)
-              wgmma_rs_n128(dv, frag, do_mn + kk * (2048 >> 4));
+              wgmma_rs_n128<E>(dv, frag, do_mn + kk * (2048 >> 4));
             else
-              wgmma_rs_n64(dv, frag, do_mn + kk * (2048 >> 4));
+              wgmma_rs_n64<E>(dv, frag, do_mn + kk * (2048 >> 4));
           }
 #pragma unroll
           for (int kk = 0; kk < kQStep / 16; ++kk) {
             const uint32_t frag[4] = {ds16[4 * kk], ds16[4 * kk + 1],
                                       ds16[4 * kk + 2], ds16[4 * kk + 3]};
             if constexpr (D == 128)
-              wgmma_rs_n128(dk, frag, q_mn + kk * (2048 >> 4));
+              wgmma_rs_n128<E>(dk, frag, q_mn + kk * (2048 >> 4));
             else
-              wgmma_rs_n64(dk, frag, q_mn + kk * (2048 >> 4));
+              wgmma_rs_n64<E>(dk, frag, q_mn + kk * (2048 >> 4));
           }
           wgmma_commit();
           wgmma_wait<0>();
@@ -966,8 +968,8 @@ __global__ void __launch_bounds__(kThreadsH, 1)
       for (int k = 0; k < 2; ++k)
         row_off[k] =
             (((size_t)t.b * a.sk + keys[k]) * hkv + t.hk) * D + col_in;
-      store_rows<D, ACC>(a.out0, row_off, keys, a.sk, dk);
-      store_rows<D, ACC>(a.out1, row_off, keys, a.sk, dv);
+      store_rows<E, D, ACC>(a.out0, row_off, keys, a.sk, dk);
+      store_rows<E, D, ACC>(a.out1, row_off, keys, a.sk, dv);
       ++wi;
     }
   }
@@ -1016,7 +1018,8 @@ __device__ __forceinline__ int2 key_tiles(const Args& a, const Work& w) {
 // produces (each work tile's Q and dO, then the K/V ring). K3 also takes
 // the key ids and positions ([B, Sk] int32) as 1-D tensor maps with boxes
 // of 128 + kRowSlack (tma_load_row); other kernels ignore those two maps.
-template <int D, bool SEG, bool ACC>
+// E: __nv_bfloat16 or __half.
+template <typename E, int D, bool SEG, bool ACC>
 __global__ void __launch_bounds__(kThreadsH, 1)
     flash_dq_hopper(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap do_map,
@@ -1155,7 +1158,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
           const int cb = ((ks / 4) * kBlock128 + (ks % 4) * 32) >> 4;
-          wgmma_ss_n128(s, q_desc + cb, k_desc + cb, ks > 0);
+          wgmma_ss_n128<E>(s, q_desc + cb, k_desc + cb, ks > 0);
         }
         wgmma_commit();
         mbar_wait(&v_full[st], ph);
@@ -1163,7 +1166,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
           const int cb = ((ks / 4) * kBlock128 + (ks % 4) * 32) >> 4;
-          wgmma_ss_n128(dp, do_desc + cb, v_desc + cb, ks > 0);
+          wgmma_ss_n128<E>(dp, do_desc + cb, v_desc + cb, ks > 0);
         }
         wgmma_commit();
         wgmma_wait<1>();  // S has landed; dP may still run
@@ -1216,12 +1219,12 @@ __global__ void __launch_bounds__(kThreadsH, 1)
           s[i] = ex2(fmaf(s[i], a.scale_log2, -lse2[(i >> 1) & 1]));
         wgmma_wait<0>();  // dP has landed
         fence_regs(dp);
-        // dS = P (dP - delta) from the unrounded P, rounded to bf16, already
+        // dS = P (dP - delta) from the unrounded P, rounded to E, already
         // in the A operand's layout
         uint32_t ds16[32];
 #pragma unroll
         for (int m = 0; m < 32; ++m)
-          ds16[m] = pack_bf16(s[2 * m] * (dp[2 * m] - dl[m & 1]),
+          ds16[m] = pack16<E>(s[2 * m] * (dp[2 * m] - dl[m & 1]),
                               s[2 * m + 1] * (dp[2 * m + 1] - dl[m & 1]));
         // dQ += dS K: 8 k-steps of 16 keys, K the MN-major B operand
         const uint64_t k_mn = sw128_desc(Kt, kBlock128, 1024);
@@ -1231,9 +1234,9 @@ __global__ void __launch_bounds__(kThreadsH, 1)
           const uint32_t frag[4] = {ds16[4 * kk], ds16[4 * kk + 1],
                                     ds16[4 * kk + 2], ds16[4 * kk + 3]};
           if constexpr (D == 128)
-            wgmma_rs_n128(dq, frag, k_mn + kk * (2048 >> 4));
+            wgmma_rs_n128<E>(dq, frag, k_mn + kk * (2048 >> 4));
           else
-            wgmma_rs_n64(dq, frag, k_mn + kk * (2048 >> 4));
+            wgmma_rs_n64<E>(dq, frag, k_mn + kk * (2048 >> 4));
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -1251,7 +1254,7 @@ __global__ void __launch_bounds__(kThreadsH, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         row_off[r] = (((size_t)t.b * sq + rows[r]) * a.hq + t.h) * D + col_in;
-      store_rows<D, ACC>(a.out0, row_off, rows, sq, dq);
+      store_rows<E, D, ACC>(a.out0, row_off, rows, sq, dq);
     }
   }
 }
@@ -1276,7 +1279,7 @@ Args make_args(void* out0, void* out1, const void* lse, const void* delta,
               scale, scale * kLog2e, segs};
 }
 
-template <int D, bool SEG, bool ACC>
+template <typename E, int D, bool SEG, bool ACC>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, int batch, int sq, int sk, int hq,
@@ -1285,13 +1288,13 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   const size_t n_rows = (size_t)batch * hq * sq;
   CUtensorMap q_map, do_map, k_map, v_map, lse_map, delta_map, seg_q_map,
       pos_q_map, seg_k_map, pos_k_map;
-  cudaError_t err = paddle_layout_map(&q_map, q, batch, sq, hq, D, kQStep);
+  cudaError_t err = paddle_layout_map<E>(&q_map, q, batch, sq, hq, D, kQStep);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&do_map, dout, batch, sq, hq, D, kQStep);
+    err = paddle_layout_map<E>(&do_map, dout, batch, sq, hq, D, kQStep);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&k_map, k, batch, sk, hkv, D, kKeys);
+    err = paddle_layout_map<E>(&k_map, k, batch, sk, hkv, D, kKeys);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&v_map, v, batch, sk, hkv, D, kKeys);
+    err = paddle_layout_map<E>(&v_map, v, batch, sk, hkv, D, kKeys);
   const int row_box = kQStep + kRowSlack;
   if (err == cudaSuccess) err = float32_map(&lse_map, lse, n_rows, row_box);
   if (err == cudaSuccess)
@@ -1309,7 +1312,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if (!SEG) seg_q_map = pos_q_map = seg_k_map = pos_k_map = lse_map;
   const size_t smem = DkDvSmem<D, SEG>::kBytes;
-  err = cudaFuncSetAttribute(flash_dkdv_hopper<D, SEG, ACC>,
+  err = cudaFuncSetAttribute(flash_dkdv_hopper<E, D, SEG, ACC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   int sms = 0;
@@ -1323,7 +1326,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   // one block per work tile, handed to the SMs as they free, since its
   // work follows its segments
   dim3 grid((unsigned)(SEG || n_work < sms ? n_work : sms), 1, 1);
-  flash_dkdv_hopper<D, SEG, ACC><<<grid, kThreadsH, smem, stream>>>(
+  flash_dkdv_hopper<E, D, SEG, ACC><<<grid, kThreadsH, smem, stream>>>(
       q_map, do_map, k_map, v_map, lse_map, delta_map, seg_q_map, pos_q_map,
       seg_k_map, pos_k_map,
       make_args(dk, dv, lse, delta, batch, sq, sk, hq, hkv, causal, scale,
@@ -1331,20 +1334,20 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D, bool SEG, bool ACC>
+template <typename E, int D, bool SEG, bool ACC>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int batch, int sq, int sk, int hq, int hkv,
                       int causal, float scale, Segments segs,
                       cudaStream_t stream) {
   CUtensorMap q_map, do_map, k_map, v_map, seg_k_map, pos_k_map;
-  cudaError_t err = paddle_layout_map(&q_map, q, batch, sq, hq, D, kRows);
+  cudaError_t err = paddle_layout_map<E>(&q_map, q, batch, sq, hq, D, kRows);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&do_map, dout, batch, sq, hq, D, kRows);
+    err = paddle_layout_map<E>(&do_map, dout, batch, sq, hq, D, kRows);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&k_map, k, batch, sk, hkv, D, kKStep);
+    err = paddle_layout_map<E>(&k_map, k, batch, sk, hkv, D, kKStep);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&v_map, v, batch, sk, hkv, D, kKStep);
+    err = paddle_layout_map<E>(&v_map, v, batch, sk, hkv, D, kKStep);
   if (SEG && err == cudaSuccess)
     err = int32_map(&seg_k_map, segs.seg_k, (size_t)batch * sk,
                     kKStep + kRowSlack);
@@ -1354,7 +1357,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if (!SEG) seg_k_map = pos_k_map = k_map;  // unread
   const size_t smem = DqSmem<D, SEG>::kBytes;
-  err = cudaFuncSetAttribute(flash_dq_hopper<D, SEG, ACC>,
+  err = cudaFuncSetAttribute(flash_dq_hopper<E, D, SEG, ACC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   int sms = 0;
@@ -1363,7 +1366,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const long long n_work = (long long)((sq + kRows - 1) / kRows) * hq * batch;
   if (n_work > INT_MAX) return cudaErrorInvalidValue;
   dim3 grid((unsigned)(n_work < sms ? n_work : sms), 1, 1);
-  flash_dq_hopper<D, SEG, ACC><<<grid, kThreadsH, smem, stream>>>(
+  flash_dq_hopper<E, D, SEG, ACC><<<grid, kThreadsH, smem, stream>>>(
       q_map, do_map, k_map, v_map, seg_k_map, pos_k_map,
       make_args(dq, nullptr, lse, delta, batch, sq, sk, hq, hkv, causal,
                 scale, segs));
@@ -1372,9 +1375,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace hop
 
-// The dtype alone picks the gradient kernels: bf16 runs the Hopper kernels
-// (ACC: adding into f32 sums), f32 the CUDA-core ones (which write their
-// own outputs; f32 sums are refused).
+// The dtype alone picks the gradient kernels: bf16 and fp16 run the Hopper
+// kernels' instances (ACC: adding into f32 sums), f32 the CUDA-core ones
+// (which write their own outputs; f32 sums are refused).
 struct Grad {
   const void *q, *k, *v, *dout, *lse, *delta;
   void* out0;  // dk (dK/dV) or dq
@@ -1385,17 +1388,16 @@ struct Grad {
   cudaStream_t stream;
 };
 
-template <bool DKDV, int D, bool SEG, bool ACC>
+template <typename E, bool DKDV, int D, bool SEG, bool ACC>
 cudaError_t run_hopper(const Grad& g) {
   if constexpr (DKDV)
-    return hop::launch_dkdv<D, SEG, ACC>(
+    return hop::launch_dkdv<E, D, SEG, ACC>(
         g.q, g.k, g.v, g.dout, g.lse, g.delta, g.out0, g.out1, g.batch, g.sq,
         g.sk, g.hq, g.hkv, g.causal, g.scale, g.segs, g.stream);
   else
-    return hop::launch_dq<D, SEG, ACC>(g.q, g.k, g.v, g.dout, g.lse, g.delta,
-                                       g.out0, g.batch, g.sq, g.sk, g.hq,
-                                       g.hkv, g.causal, g.scale, g.segs,
-                                       g.stream);
+    return hop::launch_dq<E, D, SEG, ACC>(
+        g.q, g.k, g.v, g.dout, g.lse, g.delta, g.out0, g.batch, g.sq, g.sk,
+        g.hq, g.hkv, g.causal, g.scale, g.segs, g.stream);
 }
 
 template <bool DKDV, int D, bool SEG>
@@ -1412,15 +1414,25 @@ cudaError_t run_f32(const Grad& g) {
 }
 
 // K3 (SEG) never accumulates: only K6's ring visits do, on K1's entries.
+template <typename E, bool DKDV, bool SEG>
+cudaError_t run_hopper_typed(int head_dim, bool acc, const Grad& g) {
+  if (!acc) {
+    if (head_dim == 64) return run_hopper<E, DKDV, 64, SEG, false>(g);
+    if (head_dim == 128) return run_hopper<E, DKDV, 128, SEG, false>(g);
+  } else if constexpr (!SEG) {
+    if (head_dim == 64) return run_hopper<E, DKDV, 64, false, true>(g);
+    if (head_dim == 128) return run_hopper<E, DKDV, 128, false, true>(g);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <bool DKDV, bool SEG>
 cudaError_t run_grad(int dtype, int head_dim, bool acc, const Grad& g) {
-  if (dtype == kBFloat16 && !acc) {
-    if (head_dim == 64) return run_hopper<DKDV, 64, SEG, false>(g);
-    if (head_dim == 128) return run_hopper<DKDV, 128, SEG, false>(g);
-  } else if (dtype == kBFloat16 && !SEG) {
-    if (head_dim == 64) return run_hopper<DKDV, 64, false, true>(g);
-    if (head_dim == 128) return run_hopper<DKDV, 128, false, true>(g);
-  } else if (dtype == kFloat32 && !acc) {
+  if (dtype == kBFloat16)
+    return run_hopper_typed<__nv_bfloat16, DKDV, SEG>(head_dim, acc, g);
+  if (dtype == kFloat16)
+    return run_hopper_typed<__half, DKDV, SEG>(head_dim, acc, g);
+  if (dtype == kFloat32 && !acc) {
     if (head_dim == 64) return run_f32<DKDV, 64, SEG>(g);
     if (head_dim == 128) return run_f32<DKDV, 128, SEG>(g);
   }
@@ -1448,8 +1460,8 @@ Segments segments(const void* seg_q, const void* pos_q, const void* seg_k,
 // out, dout, dq [batch, seq_q, num_q_heads, head_dim]; k, v, dk, dv
 // [batch, seq_k, num_kv_heads, head_dim]; lse and delta [batch,
 // num_q_heads, seq_q] f32; contiguous, 16-byte aligned, one dtype (0 f32,
-// 1 bf16) for the tensors in the paddle layout. Each launches on `stream`,
-// allocates nothing and returns cudaGetLastError().
+// 1 bf16, 2 fp16) for the tensors in the paddle layout. Each launches on
+// `stream`, allocates nothing and returns cudaGetLastError().
 
 // delta = rowsum(dout * out) in f32.
 extern "C" int flash_attention_bwd_delta_launch(const void* out,
@@ -1471,11 +1483,17 @@ extern "C" int flash_attention_bwd_delta_launch(const void* out,
   if (dtype == kBFloat16 && head_dim == 128)
     return launch_delta<__nv_bfloat16, 128>(out, dout, delta, batch, seq_q,
                                             num_q_heads, s);
+  if (dtype == kFloat16 && head_dim == 64)
+    return launch_delta<__half, 64>(out, dout, delta, batch, seq_q,
+                                    num_q_heads, s);
+  if (dtype == kFloat16 && head_dim == 128)
+    return launch_delta<__half, 128>(out, dout, delta, batch, seq_q,
+                                     num_q_heads, s);
   return cudaErrorInvalidValue;
 }
 
-// dk, dv from the forward's lse and the delta pass. `accumulate` (bf16
-// only): dk and dv are f32 sums of k's shape that the kernel adds the
+// dk, dv from the forward's lse and the delta pass. `accumulate` (bf16 and
+// fp16 only): dk and dv are f32 sums of k's shape that the kernel adds the
 // gradients to (K6's ring visits) instead of writing them in the input
 // dtype.
 extern "C" int flash_attention_bwd_dkdv_launch(

@@ -24,10 +24,10 @@
 // fewer bytes than the tensor cores need time (0.0695 ms of products
 // against 0.0100 ms of bytes at B 2, S 2048, 32 heads of 128, causal).
 //
-// Design (bf16; D 64 or 128): work tiles of (128 query rows, query head,
-// batch), walked by a persistent grid of one block of three warpgroups per
-// SM (161 KB of shared memory at D 128). Query head h reads kv head
-// h / group, which is all GQA needs: no expanded K/V.
+// Design (bf16 or fp16, an instance each; D 64 or 128): work tiles of (128
+// query rows, query head, batch), walked by a persistent grid of one block
+// of three warpgroups per SM (161 KB of shared memory at D 128). Query head
+// h reads kv head h / group, which is all GQA needs: no expanded K/V.
 // - Warpgroup 2 produces: after setmaxnreg lowers it to 40 registers, one
 //   thread loads each work tile's Q and then its K/V tiles of 128 keys into
 //   a ring of two stages with TMA (tensor maps over the paddle layout,
@@ -41,8 +41,9 @@
 //   m64n128k16 from shared memory (both operands K-major), the f32 scores
 //   in registers; the mask on the tiles that need it; the online softmax in
 //   registers (row max and sum by two shuffles among a row's four threads,
-//   scale * log2(e) folded into one FMA before exp2); P rounded to bf16 (as
-//   the TPU kernel rounds p before its P.V product) and fed as the register
+//   scale * log2(e) folded into one FMA before exp2); P rounded to the
+//   storage type (as the TPU kernel rounds p to q's dtype before its P.V
+//   product) and fed as the register
 //   A operand of O += P V (wgmma m64nDk16, V the transposed B operand from
 //   shared memory); O rescaled in registers. The row sum is over the
 //   unrounded p. No S, P or per-row factor goes through shared memory, and
@@ -69,8 +70,8 @@
 //   converted per block: the union of its two 64-row entries, lo / 2 and
 //   ceil(hi / 2)); a warpgroup whose own 64 rows see none of a visited
 //   key tile (its own 64-row entry) skips that tile's products.
-// - The epilogue is a policy: K1/K2/K3 write O (bf16) and lse from the
-//   registers; K6 merges into the ring's running state (below).
+// - The epilogue is a policy: K1/K2/K3 write O (bf16 or fp16) and lse from
+//   the registers; K6 merges into the ring's running state (below).
 //
 // K6 (RING): the same tile loop for one ring visit (causal = the diagonal
 // visit, bottom-right aligned with Sq == Sk; a full visit passes causal 0).
@@ -288,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// -- the bf16 forward: TMA, wgmma, warp specialisation -----------------------
+// -- the bf16 and fp16 forward: TMA, wgmma, warp specialisation --------------
 
 namespace hop {
 
@@ -327,7 +328,7 @@ struct Smem {
 };
 
 struct Args {
-  __nv_bfloat16* out;  // RING: null except on the ring's last visit
+  void* out;           // E; RING: null except on the ring's last visit
   float* lse;          // RING: the ring's lse_acc
   int batch, sq, sk, hq, group, causal;
   float scale_log2;    // scale * log2(e): the softmax runs in base 2
@@ -356,8 +357,8 @@ __device__ __forceinline__ int2 key_tiles(const Args& a, const Work& w) {
 // at a time beside the K/V ring). K3 also takes the key ids and positions
 // ([B, Sk] int32, flattened) as 1-D tensor maps with boxes of 128 +
 // kRowSlack (tma_load_row, hopper.cuh); other kernels ignore those two
-// maps.
-template <int D, bool SEG, bool RING>
+// maps. E, the element type of Q, K, V and O: __nv_bfloat16 or __half.
+template <typename E, int D, bool SEG, bool RING>
 __global__ void __launch_bounds__(kThreadsH, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -504,8 +505,8 @@ __global__ void __launch_bounds__(kThreadsH, 1)
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
           const int cb = (ks / 4) * kBlockBytes + (ks % 4) * 32;
-          wgmma_ss_n128(s, sw128_desc(Qw + cb, 16, 1024),
-                        sw128_desc(Kt + cb, 16, 1024), ks > 0);
+          wgmma_ss_n128<E>(s, sw128_desc(Qw + cb, 16, 1024),
+                           sw128_desc(Kt + cb, 16, 1024), ks > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -580,12 +581,12 @@ __global__ void __launch_bounds__(kThreadsH, 1)
         }
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-        // P rounded to bf16 (as the TPU kernel rounds p before P.V),
-        // already in the A operand's layout
+        // P rounded to E (as the TPU kernel rounds p to q's dtype before
+        // P.V), already in the A operand's layout
         uint32_t p16[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i)
-          p16[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+          p16[i] = pack16<E>(s[2 * i], s[2 * i + 1]);
 
         mbar_wait(&v_full[st], ph);
         wgmma_fence();
@@ -595,9 +596,9 @@ __global__ void __launch_bounds__(kThreadsH, 1)
                                     p16[4 * kk + 2], p16[4 * kk + 3]};
           const uint64_t dv = sw128_desc(Vt + kk * 2048, kBlockBytes, 1024);
           if constexpr (D == 128)
-            wgmma_rs_n128(o, frag, dv);
+            wgmma_rs_n128<E>(o, frag, dv);
           else
-            wgmma_rs_n64(o, frag, dv);
+            wgmma_rs_n64<E>(o, frag, dv);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -619,13 +620,12 @@ __global__ void __launch_bounds__(kThreadsH, 1)
         for (int r = 0; r < 2; ++r) {
           if (rows[r] >= sq) continue;
           const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-          __nv_bfloat16* orow =
-              a.out + (((size_t)b * sq + rows[r]) * a.hq + h) * D + col_in;
+          E* orow = static_cast<E*>(a.out) +
+                    (((size_t)b * sq + rows[r]) * a.hq + h) * D + col_in;
 #pragma unroll
           for (int j = 0; j < D / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-                __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
-                                      o[4 * j + 2 * r + 1] * inv);
+            store_pair<E>(orow + 8 * j, o[4 * j + 2 * r] * inv,
+                          o[4 * j + 2 * r + 1] * inv);
           if ((lane & 3) == 0)
             a.lse[lse_row + rows[r]] =
                 l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : -INFINITY;
@@ -677,8 +677,8 @@ __global__ void __launch_bounds__(kThreadsH, 1)
             x.x = fmaf(keep[r], acc[j].x, x.x);
             x.y = fmaf(keep[r], acc[j].y, x.y);
             if (a.out != nullptr)
-              *reinterpret_cast<__nv_bfloat162*>(a.out + row_off + 8 * j) =
-                  __floats2bfloat162_rn(x.x, x.y);
+              store_pair<E>(static_cast<E*>(a.out) + row_off + 8 * j, x.x,
+                            x.y);
             else
               *reinterpret_cast<float2*>(a.ring.o_acc + row_off + 8 * j) =
                   x;
@@ -689,18 +689,18 @@ __global__ void __launch_bounds__(kThreadsH, 1)
   }
 }
 
-template <int D, bool SEG, bool RING>
+template <typename E, int D, bool SEG, bool RING>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int sq, int sk, int hq, int group,
                    int causal, float scale, Segments segs, Ring ring,
                    cudaStream_t stream) {
   const int hkv = hq / group;
   CUtensorMap q_map, k_map, v_map, seg_k_map, pos_k_map;
-  cudaError_t err = paddle_layout_map(&q_map, q, batch, sq, hq, D, kRows);
+  cudaError_t err = paddle_layout_map<E>(&q_map, q, batch, sq, hq, D, kRows);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&k_map, k, batch, sk, hkv, D, kKeys);
+    err = paddle_layout_map<E>(&k_map, k, batch, sk, hkv, D, kKeys);
   if (err == cudaSuccess)
-    err = paddle_layout_map(&v_map, v, batch, sk, hkv, D, kKeys);
+    err = paddle_layout_map<E>(&v_map, v, batch, sk, hkv, D, kKeys);
   if (SEG && err == cudaSuccess)
     err = int32_map(&seg_k_map, segs.seg_k, (size_t)batch * sk,
                     kKeys + kRowSlack);
@@ -710,11 +710,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   if (!SEG) seg_k_map = pos_k_map = k_map;  // unread
   const size_t smem = Smem<D, SEG>::kBytes;
-  err = cudaFuncSetAttribute(flash_fwd_hopper<D, SEG, RING>,
+  err = cudaFuncSetAttribute(flash_fwd_hopper<E, D, SEG, RING>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const Args args{static_cast<__nv_bfloat16*>(out),
+  const Args args{out,
                   static_cast<float*>(lse),
                   batch,
                   sq,
@@ -735,7 +735,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long n_work = (long long)((sq + kRows - 1) / kRows) * hq * batch;
   if (n_work > INT_MAX) return cudaErrorInvalidValue;
   dim3 grid((unsigned)(n_work < sms ? n_work : sms), 1, 1);
-  flash_fwd_hopper<D, SEG, RING><<<grid, kThreadsH, smem, stream>>>(
+  flash_fwd_hopper<E, D, SEG, RING><<<grid, kThreadsH, smem, stream>>>(
       q_map, k_map, v_map, seg_k_map, pos_k_map, args);
   return cudaGetLastError();
 }
@@ -762,8 +762,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// The dtype alone picks the loop: bf16 runs the Hopper kernel, f32 the
-// CUDA-core one.
+// The dtype alone picks the loop: bf16 and fp16 run the Hopper kernel's
+// instances, f32 the CUDA-core one.
 template <bool SEG, bool RING = false>
 cudaError_t launch_typed(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, void* out, void* lse,
@@ -782,11 +782,21 @@ cudaError_t launch_typed(int dtype, int head_dim, const void* q,
     return launch_f32<128, SEG, RING>(q, k, v, out, lse, batch, sq, sk, hq,
                                       group, causal, scale, segs, ring, s);
   if (dtype == kBFloat16 && head_dim == 64)
-    return hop::launch<64, SEG, RING>(q, k, v, out, lse, batch, sq, sk, hq,
-                                      group, causal, scale, segs, ring, s);
+    return hop::launch<__nv_bfloat16, 64, SEG, RING>(
+        q, k, v, out, lse, batch, sq, sk, hq, group, causal, scale, segs,
+        ring, s);
   if (dtype == kBFloat16 && head_dim == 128)
-    return hop::launch<128, SEG, RING>(q, k, v, out, lse, batch, sq, sk, hq,
-                                       group, causal, scale, segs, ring, s);
+    return hop::launch<__nv_bfloat16, 128, SEG, RING>(
+        q, k, v, out, lse, batch, sq, sk, hq, group, causal, scale, segs,
+        ring, s);
+  if (dtype == kFloat16 && head_dim == 64)
+    return hop::launch<__half, 64, SEG, RING>(q, k, v, out, lse, batch, sq,
+                                              sk, hq, group, causal, scale,
+                                              segs, ring, s);
+  if (dtype == kFloat16 && head_dim == 128)
+    return hop::launch<__half, 128, SEG, RING>(q, k, v, out, lse, batch, sq,
+                                               sk, hq, group, causal, scale,
+                                               segs, ring, s);
   return cudaErrorInvalidValue;
 }
 
@@ -794,9 +804,9 @@ cudaError_t launch_typed(int dtype, int head_dim, const void* q,
 
 // Plain C entries for ctypes. q/out [batch, seq_q, num_q_heads, head_dim] and
 // k/v [batch, seq_k, num_kv_heads, head_dim], contiguous, one dtype (0 f32,
-// 1 bf16), 16-byte aligned; lse [batch, num_q_heads, seq_q] f32. num_kv_heads
-// must divide num_q_heads. Each launches on `stream`, allocates nothing and
-// returns cudaGetLastError().
+// 1 bf16, 2 fp16), 16-byte aligned; lse [batch, num_q_heads, seq_q] f32.
+// num_kv_heads must divide num_q_heads. Each launches on `stream`,
+// allocates nothing and returns cudaGetLastError().
 
 // K1/K2: a causal call needs seq_q <= seq_k (every query row sees a key).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,

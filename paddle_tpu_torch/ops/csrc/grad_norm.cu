@@ -17,18 +17,20 @@
 //
 // Each flag comes from the elements themselves, not from the sum: a finite
 // bf16 gradient whose square overflows f32 makes an infinite sum but no
-// flag, as the reference checks isfinite on the elements.
+// flag, as the reference checks isfinite on the elements. An fp16 element
+// is squared in f32, where no finite one overflows; only a NaN or an inf
+// element (an fp16 backward that overflowed) sets its flag.
 //
-// Design: a table of (pointer, length, dtype) rows, f32 or bf16 elements,
-// cut into chunks of kChunk elements, one block per chunk (a block finds
-// its tensor by a binary search over the chunk starts). A thread reads
+// Design: a table of (pointer, length, dtype) rows, f32, bf16 or fp16
+// elements, cut into chunks of kChunk elements, one block per chunk (a block
+// finds its tensor by a binary search over the chunk starts). A thread reads
 // 16-byte vectors, neighbouring threads neighbouring vectors, squares each
-// element in f32 (x = g / scale rounded to f32, then x * x rounded to f32,
-// the reference's rounding points) and accumulates in f64; the block's
-// tree writes one f64 partial and one flag. The finishing pass reduces
-// them in a fixed order, so two launches give the same bits.
+// element in f32 (x = g / scale rounded to f32, then x * x rounded to f32, the
+// reference's rounding points) and accumulates in f64; the block's tree writes
+// one f64 partial and one flag. The finishing pass reduces them in a fixed
+// order, so two launches give the same bits.
 // What bounds it on the H100: bytes. Each element is read once (2 bytes in
-// bf16); a few operations per element are far below the card's rate.
+// bf16 and fp16); a few operations per element are far below the card's rate.
 
 #include "sumsq_common.cuh"
 
@@ -90,9 +92,12 @@ __global__ void __launch_bounds__(kThreads)
   double acc = 0.0;
   int bad = 0;
   const void* ptr = reinterpret_cast<const void*>(meta[t]);
-  if (meta[2 * n_tensors + t] == kBFloat16)
+  const long long dtype = meta[2 * n_tensors + t];
+  if (dtype == kBFloat16)
     chunk_sumsq(static_cast<const __nv_bfloat16*>(ptr), lo, hi, n, u, acc,
                 bad);
+  else if (dtype == kFloat16)
+    chunk_sumsq(static_cast<const __half*>(ptr), lo, hi, n, u, acc, bad);
   else
     chunk_sumsq(static_cast<const float*>(ptr), lo, hi, n, u, acc, bad);
   bad = __syncthreads_or(bad);
@@ -106,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Plain C entry for ctypes. `meta` is the device table above (the tensors
-// 16-byte aligned, contiguous, f32 or bf16, starts[t] the first chunk of
+// 16-byte aligned, contiguous, f32, bf16 or fp16, starts[t] the first chunk of
 // tensor t, ceil(numel / kChunk) chunks each, starts[n] == n_chunks; group
 // index per tensor, or -1), `scale` a device f32 or null, `part` and `bad`
 // n_chunks scratch entries, `out` n_tensors + n_groups + 3 floats and

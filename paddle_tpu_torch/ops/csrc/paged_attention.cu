@@ -87,7 +87,7 @@ int decode(const paged::PoolArgs& pool, bool quant, const void* q,
 
 // Plain C entry for ctypes. Pointers are device pointers of contiguous
 // tensors, each 16-byte aligned: q/out [batch, num_kv_heads * group,
-// head_dim] f32 or bf16 (dtype), pools [num_kv_heads, num_pages,
+// head_dim] f32, bf16 or fp16 (dtype), pools [num_kv_heads, num_pages,
 // page_size, head_dim] in q's dtype, lengths [batch] int32, page_indices
 // [batch, pages_per_seq] int32; group 1, 2, 4 or 8; page_size a multiple
 // of 16. The split kernel over num_splits splits of pages_per_split pages

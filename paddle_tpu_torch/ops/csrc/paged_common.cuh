@@ -8,10 +8,10 @@
 // merge are templated on them, as K4's tile kernel is):
 // - PoolInt8: the reference's QuantizedTensor, int8 codes and one f32
 //   scale per row ([Hkv, P, bs, 1]); a value is code * scale / 127.5;
-// - PoolBf16, PoolF32: rows in q's storage type, no scales.
+// - PoolBf16, PoolF16, PoolF32: rows in q's storage type, no scales.
 //
 // What bounds both kernels on the H100 is bytes: a K/V row costs D + 4
-// bytes (int8), 2 D (bf16) or 4 D (f32) and is used for a handful of
+// bytes (int8), 2 D (bf16, fp16) or 4 D (f32) and is used for a handful of
 // products per byte (2 G per element, G <= 8 query heads a kv head), far
 // below the ~295 operations a byte where tensor cores would matter. The
 // design keeps many pages in flight and does little per byte:
@@ -84,6 +84,13 @@ __device__ __forceinline__ void bf16x2(uint32_t w, float* f) {
   f[1] = __uint_as_float(w & 0xffff0000u);
 }
 
+// Two fp16 elements of a 32-bit word to f32 (exact).
+__device__ __forceinline__ void f16x2(uint32_t w, float* f) {
+  const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  f[0] = v.x;
+  f[1] = v.y;
+}
+
 // -- pool types ------------------------------------------------------------------
 
 // kBytes: bytes of an element; kScaled: per-row scales beside the codes
@@ -128,6 +135,31 @@ struct PoolBf16 {
       bf16x2(w.y, f + 2);
     } else {
       bf16x2(*reinterpret_cast<const uint32_t*>(p), f);
+    }
+  }
+};
+
+// fp16 rows: PoolBf16's ring and stages, each pair converted by one
+// __half22float2.
+struct PoolF16 {
+  static constexpr int kBytes = 2;
+  static constexpr bool kScaled = false;
+  static constexpr int kStages = 8;
+  __device__ static __forceinline__ void cvt16(const uint4& w, float* f) {
+    f16x2(w.x, f);
+    f16x2(w.y, f + 2);
+    f16x2(w.z, f + 4);
+    f16x2(w.w, f + 6);
+  }
+  template <int N>
+  __device__ static __forceinline__ void vals(const unsigned char* p,
+                                              float* f) {
+    if constexpr (N == 4) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      f16x2(w.x, f);
+      f16x2(w.y, f + 2);
+    } else {
+      f16x2(*reinterpret_cast<const uint32_t*>(p), f);
     }
   }
 };
@@ -737,7 +769,8 @@ cudaError_t launch_split_dim(int head_dim, int group, const SplitArgs& a,
 }
 
 // The split kernel (and merge) for q type `dtype` and `head_dim` over an
-// int8 pool (`quant`: q bf16 or f32) or a float pool of q's type.
+// int8 pool (`quant`: q bf16 or f32) or a float pool of q's type (f32,
+// bf16 or fp16).
 inline cudaError_t decode_splits(const SplitArgs& a, bool quant,
                                  int num_kv_heads, int group, int head_dim,
                                  int dtype, cudaStream_t stream) {
@@ -747,12 +780,16 @@ inline cudaError_t decode_splits(const SplitArgs& a, bool quant,
   if (quant && dtype == kBFloat16)
     return launch_split_dim<PoolInt8, __nv_bfloat16>(head_dim, group, a,
                                                      num_kv_heads, stream);
+  if (quant) return cudaErrorInvalidValue;  // an fp16 q over int8 codes
   if (dtype == kFloat32)
     return launch_split_dim<PoolF32, float>(head_dim, group, a, num_kv_heads,
                                             stream);
   if (dtype == kBFloat16)
     return launch_split_dim<PoolBf16, __nv_bfloat16>(head_dim, group, a,
                                                      num_kv_heads, stream);
+  if (dtype == kFloat16)
+    return launch_split_dim<PoolF16, __half>(head_dim, group, a,
+                                             num_kv_heads, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -10,8 +10,8 @@
 // the row, read from the pool [Hkv, num_pages, page_size, D] through
 // page_indices[b, :]. kv_lens counts the tokens after this step's writes.
 // Query head hq reads kv head hq / group (GQA). cu_q_lens[0] must be 0.
-// The pool is int8 (codes and one f32 scale per row, K4-int8) or q's type
-// (bf16 or f32).
+// The pool is int8 (codes and one f32 scale per row, K4-int8; q bf16 or
+// f32) or q's type (bf16, fp16 or f32).
 //
 // The TPU kernel walks rows one after another through a sequential grid
 // into one shared VMEM accumulator. Blocks on Hopper run in no order, so
@@ -37,9 +37,11 @@
 //   bulk-copy ring, as K5's, was built here first for int8 and timed
 //   slower on the card: 128 blocks each walking 57-69 pages in order want
 //   many threads' copies in flight, not one thread's);
-// - bf16 q: S = Q.K^T and O += P.V on tensor cores, mma.sync m16n8k16 in
-//   bf16 with f32 accumulation, the K and V rows read by ldmatrix from
-//   swizzled bf16 rows (16-byte chunk c of row r at c ^ (r % 8)). A bf16
+// - bf16 or fp16 q: S = Q.K^T and O += P.V on tensor cores, mma.sync
+//   m16n8k16 in q's type with f32 accumulation (the fp16 instance is the
+//   bf16 one with .f16 operands and fp16 rounding), the K and V rows read
+//   by ldmatrix from swizzled 16-bit rows (16-byte chunk c of row r at
+//   c ^ (r % 8)). A bf16 or fp16
 //   pool's chunks land there directly: the step buffers are the copies'
 //   ring (three stages a group), with no staging and no conversion pass.
 //   An int8 pool's chunks land in staging slots, and the group converts
@@ -79,13 +81,22 @@ struct TileArgs {
   float scale;
 };
 
+// D += A B in f32, A and B pairs of E (__nv_bfloat16 or __half).
+template <typename E>
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (is_f16<E>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
@@ -132,7 +143,7 @@ constexpr int kStepPieces = P::kBytes == 4 ? 1 : 2;
 // hands its accumulators to group 0 in its own region.
 template <typename P, typename T, int D>
 struct TileSmem {
-  static constexpr bool kTC = std::is_same_v<T, __nv_bfloat16>;
+  static constexpr bool kTC = !std::is_same_v<T, float>;  // bf16, fp16 q
   static constexpr int kPieces = kStepPieces<P>;
   static constexpr size_t kRows = kPieceRows;
   // int8: a step buffer, a staging slot (one piece)
@@ -365,24 +376,23 @@ __global__ void __launch_bounds__(kTileThreads)
   const int last_row = min(wr * 16 + 15, (t1 - t0) * G - 1);
   const int warp_lim = last_row < wr * 16 ? 0 : base_lim + t0 + last_row / G;
 
-  uint32_t qa[kTC ? KS : 1][4];  // bf16 q: the A fragments of Q.K^T
+  uint32_t qa[kTC ? KS : 1][4];  // 16-bit q: the A fragments of Q.K^T
   if constexpr (kTC) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = wr * 16 + g + 8 * i;
       const bool live = tok[i] < t1;
-      const __nv_bfloat16* qrow =
+      const T* qrow =
           qg + ((size_t)(live ? tok[i] : t0) * hq + (size_t)h * G + row % G) *
                    D;
 #pragma unroll
       for (int s = 0; s < KS; ++s)
 #pragma unroll
         for (int hi = 0; hi < 2; ++hi) {
-          const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-              qrow + 16 * s + 8 * hi + 2 * t);
+          const T* x = qrow + 16 * s + 8 * hi + 2 * t;
           qa[s][i + 2 * hi] =
-              live ? pack_bf16(__low2float(x) * a.scale,
-                               __high2float(x) * a.scale)
+              live ? pack16<T>(to_float(x[0]) * a.scale,
+                               to_float(x[1]) * a.scale)
                    : 0u;
         }
     }
@@ -434,10 +444,10 @@ __global__ void __launch_bounds__(kTileThreads)
               for (int hc = 0; hc < 2; ++hc)
                 *reinterpret_cast<uint4*>(dst +
                                           16 * ((2 * cc + hc) ^ (row & 7))) =
-                    make_uint4(pack_bf16(f[8 * hc], f[8 * hc + 1]),
-                               pack_bf16(f[8 * hc + 2], f[8 * hc + 3]),
-                               pack_bf16(f[8 * hc + 4], f[8 * hc + 5]),
-                               pack_bf16(f[8 * hc + 6], f[8 * hc + 7]));
+                    make_uint4(pack16<T>(f[8 * hc], f[8 * hc + 1]),
+                               pack16<T>(f[8 * hc + 2], f[8 * hc + 3]),
+                               pack16<T>(f[8 * hc + 4], f[8 * hc + 5]),
+                               pack16<T>(f[8 * hc + 6], f[8 * hc + 7]));
             }
           } else {
             reinterpret_cast<uint4*>(buf + (size_t)p * ir * D)[idx] = kw;
@@ -492,8 +502,8 @@ __global__ void __launch_bounds__(kTileThreads)
             uint32_t b0, b1, b2, b3;
             ldsm_x4(kbase + 16 * ((2 * s + ((lane >> 3) & 1)) ^ (krow & 7)),
                     b0, b1, b2, b3);
-            mma_16816(sc[2 * hh], qa[s], b0, b1);
-            mma_16816(sc[2 * hh + 1], qa[s], b2, b3);
+            mma_16816<T>(sc[2 * hh], qa[s], b0, b1);
+            mma_16816<T>(sc[2 * hh + 1], qa[s], b2, b3);
           }
         }
       } else {
@@ -584,10 +594,11 @@ __global__ void __launch_bounds__(kTileThreads)
 #pragma unroll
         for (int hh = 0; hh < NK / 16; ++hh) {
           // keys kb + 16 hh .. + 15 as the A fragment of P.V
-          const uint32_t pa[4] = {pack_bf16(sc[2 * hh][0], sc[2 * hh][1]),
-                                  pack_bf16(sc[2 * hh][2], sc[2 * hh][3]),
-                                  pack_bf16(sc[2 * hh + 1][0], sc[2 * hh + 1][1]),
-                                  pack_bf16(sc[2 * hh + 1][2], sc[2 * hh + 1][3])};
+          const uint32_t pa[4] = {
+              pack16<T>(sc[2 * hh][0], sc[2 * hh][1]),
+              pack16<T>(sc[2 * hh][2], sc[2 * hh][3]),
+              pack16<T>(sc[2 * hh + 1][0], sc[2 * hh + 1][1]),
+              pack16<T>(sc[2 * hh + 1][2], sc[2 * hh + 1][3])};
           // their V rows, transposed: lane l addresses row 8 ((l / 8) % 2)
           // + l % 8 of them, chunk 2 jj + l / 16
           const int vrow = kb + 16 * hh + 8 * ((lane >> 3) & 1) + (lane & 7);
@@ -598,8 +609,8 @@ __global__ void __launch_bounds__(kTileThreads)
             uint32_t b0, b1, b2, b3;
             ldsm_x4_t(vbase + 16 * ((2 * jj + (lane >> 4)) ^ (vrow & 7)), b0,
                       b1, b2, b3);
-            mma_16816(o[2 * jj], pa, b0, b1);
-            mma_16816(o[2 * jj + 1], pa, b2, b3);
+            mma_16816<T>(o[2 * jj], pa, b0, b1);
+            mma_16816<T>(o[2 * jj + 1], pa, b2, b3);
           }
         }
       } else {
@@ -677,7 +688,7 @@ __global__ void __launch_bounds__(kTileThreads)
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
-            pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+            pack16<T>(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
     } else {
       float ov[DQ];
 #pragma unroll
@@ -718,7 +729,8 @@ int ragged(const pg::PoolArgs& pool, bool quant, const void* q,
            int pages_per_split, float scale, int dtype, void* stream) {
   if (page_size % kPieceRows != 0 || (head_dim != 64 && head_dim != 128) ||
       (group != 1 && group != 2 && group != 4 && group != 8) ||
-      (dtype != kFloat32 && dtype != kBFloat16))
+      (dtype != kFloat32 && dtype != kBFloat16 && dtype != kFloat16) ||
+      (quant && dtype == kFloat16))  // an fp16 q over int8 codes: none
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TileArgs ta{pool,
@@ -741,6 +753,8 @@ int ragged(const pg::PoolArgs& pool, bool quant, const void* q,
                                                        num_kv_heads, s);
   else if (dtype == kFloat32)
     err = launch_tile_dim<pg::PoolF32, float>(head_dim, ta, num_kv_heads, s);
+  else if (dtype == kFloat16)
+    err = launch_tile_dim<pg::PoolF16, __half>(head_dim, ta, num_kv_heads, s);
   else
     err = launch_tile_dim<pg::PoolBf16, __nv_bfloat16>(head_dim, ta,
                                                        num_kv_heads, s);
@@ -767,7 +781,7 @@ int ragged(const pg::PoolArgs& pool, bool quant, const void* q,
 
 // Plain C entry for ctypes. Pointers are device pointers of contiguous
 // tensors, each 16-byte aligned: q/out [num_tokens, num_kv_heads * group,
-// head_dim] f32 or bf16 (dtype), pools [num_kv_heads, num_pages,
+// head_dim] f32, bf16 or fp16 (dtype), pools [num_kv_heads, num_pages,
 // page_size, head_dim] in q's dtype, kv_lens [num_seqs] int32,
 // page_indices [num_seqs, pages_per_seq] int32, cu_q_lens [num_seqs + 1]
 // int32; group 1, 2, 4 or 8; page_size a multiple of 16. Two or three

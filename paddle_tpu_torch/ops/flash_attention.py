@@ -21,27 +21,35 @@ CPU tensor runs the plain version (``_attention_math``, ``_segment_math``)
 through autograd; a CUDA tensor goes through ``FlashAttention`` (or
 ``SegmentFlashAttention``), whose forward launches the forward kernel
 (``csrc/flash_attention_fwd.cu``, which also saves the row log-sum-exp:
-for bf16 a persistent Hopper kernel of TMA loads and wgmma products, for
-f32 a CUDA-core tile loop) and
+for bf16 and fp16 a persistent Hopper kernel of TMA loads and wgmma
+products, one instance each, for f32 a CUDA-core tile loop) and
 whose backward launches the three backward kernels
-(``csrc/flash_attention_bwd.cu``: delta, then for bf16 persistent Hopper
-kernels for dK/dV and dQ, for f32 CUDA-core tile loops; the bf16 ones can
-add into f32 sums instead of writing, for K6's ring). GQA needs no second
+(``csrc/flash_attention_bwd.cu``: delta, then for bf16 and fp16 persistent
+Hopper kernels for dK/dV and dQ, for f32 CUDA-core tile loops; the 16-bit
+ones can add into f32 sums instead of writing, for K6's ring). An fp16
+instance rounds where the bf16 one does (P before P.V, P and dS before
+their products, the outputs once) and launches on fp16 tensors as they
+are: nothing is cast around a kernel. GQA needs no second
 kernel: query head h
 reads kv head h // group inside the kernels. K3's kernels are K1's with the
 segment mask and a tile-range table (``_tile_ranges``) that lets each block
 visit only the tiles its segments can see. There is no fallback between
-the tiers: a kernel that cannot build or launch raises.
+the tiers: a kernel that cannot build or launch raises. Each wrapper
+counts its launches in ``.launches`` and, of those, the fp16 instance's
+in ``.launches_fp16``.
 """
 import ctypes
 from typing import NamedTuple
 
 import torch
 
+from ..framework.nan_inf import checked
 from . import _build
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+#: the dtypes of the Hopper (TMA + wgmma) instances
+HOPPER_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _causal_mask(q, k, causal):
@@ -148,8 +156,7 @@ def _check_paddle_layout(name, q, k, v, causal, extra=()):
         # (the bf16 forward's TMA tensor maps need 16-byte aligned bases,
         # which a ring shard of a stacked tensor may not have)
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
-    chk(str(q.dtype) in _build.DTYPE_CODES, name,
-        f"dtype {q.dtype} not in {sorted(_build.DTYPE_CODES)}")
+    _build.check_dtype(name, q)
     chk(k.dtype == q.dtype and v.dtype == q.dtype, name,
         "k and v must have q's dtype")
     chk(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape, name,
@@ -170,6 +177,18 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _out_only(args, kwargs, result):
+    """A forward's checked output (``FLAGS_check_nan_inf``): out, not its
+    lse, a residual that is -inf where a row sees no key."""
+    return result[0]
+
+
+def _no_outputs(args, kwargs, result):
+    """The delta pass's: none, its rowsum is a residual of the backward."""
+    return ()
+
+
+@checked("flash_attention_fwd", _out_only)
 def flash_fwd(q, k, v, causal, scale):
     """Launch the forward kernel: returns (out [B, Sq, Hq, D] in q's dtype,
     lse [B, Hq, Sq] f32). Counted in ``flash_fwd.launches``."""
@@ -183,15 +202,16 @@ def flash_fwd(q, k, v, causal, scale):
             lse.data_ptr(), B, sq, sk, hq, hkv, D, int(causal), float(scale),
             _build.DTYPE_CODES[str(q.dtype)], _stream(q))
     _build.check_status(rc, name)
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd, like=q)
     return out, lse
 
 
+@checked("flash_attention_bwd_delta", _no_outputs)
 def flash_bwd_delta(out, dout):
     """Launch the delta pass: rowsum(dout * out) in f32, [B, Hq, Sq].
     Counted in ``flash_bwd_delta.launches``."""
     delta = _delta(out, dout, "flash_attention_bwd_delta")
-    flash_bwd_delta.launches += 1
+    _build.count_launch(flash_bwd_delta, like=out)
     return delta
 
 
@@ -205,9 +225,8 @@ def _delta(out, dout, name):
     for t in (out, dout):
         chk(t.is_contiguous(), name, "operands must be contiguous")
         chk(t.data_ptr() % 16 == 0, name, "operands must be 16-byte aligned")
-    chk(str(out.dtype) in _build.DTYPE_CODES and dout.dtype == out.dtype,
-        name, f"dtype {out.dtype}/{dout.dtype} not one of "
-        f"{sorted(_build.DTYPE_CODES)}")
+    _build.check_dtype(name, out)
+    chk(dout.dtype == out.dtype, name, "dout must have out's dtype")
     chk(out.dim() == 4 and dout.shape == out.shape, name,
         "out and dout must be [B, Sq, Hq, D]")
     B, sq, hq, D = out.shape
@@ -225,7 +244,7 @@ def _launch_grad(name, fn, q, k, v, dout, lse, delta, causal, scale, outs,
     """Validate the operands of a gradient kernel and launch it, writing
     ``outs`` (the gradient tensors, allocated by the caller) or, with
     ``accumulate``, adding into them (f32 sums of the gradients' shapes; the
-    bf16 kernels only)."""
+    bf16 and fp16 kernels only)."""
     B, sq, sk, hq, hkv, D = _check_paddle_layout(
         name, q, k, v, causal, extra=(dout, lse, delta, *outs))
     _check_grad_inputs(name, q, dout, lse, delta)
@@ -256,36 +275,39 @@ def _check_grad_inputs(name, q, dout, lse, delta):
                      name, "lse and delta must be f32 [B, Hq, Sq]")
 
 
+@checked("flash_attention_bwd_dkdv")
 def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal, scale, acc=None):
     """Launch the dK/dV kernel: returns (dk, dv) shaped and typed as k.
     ``acc``: f32 sums (dk, dv) of k's shape that the gradients are added to
-    and that are returned instead (K6's ring visits): bf16 adds them in the
-    kernel's epilogue, so they never exist in bf16; f32 launches into a
-    fresh pair and adds it. Counted in ``flash_bwd_dkdv.launches``."""
+    and that are returned instead (K6's ring visits): bf16 and fp16 add
+    them in the kernel's epilogue, so they never exist in 16 bits; f32
+    launches into a fresh pair and adds it. Counted in
+    ``flash_bwd_dkdv.launches``."""
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkdv_launch",
                       _DKDV_ARGTYPES)
-    in_kernel = acc is not None and q.dtype == torch.bfloat16
+    in_kernel = acc is not None and q.dtype in HOPPER_DTYPES
     outs = acc if in_kernel else (torch.empty_like(k), torch.empty_like(v))
     _launch_grad("flash_attention_bwd_dkdv", fn, q, k, v, dout, lse, delta,
                  causal, scale, tuple(outs), accumulate=in_kernel)
-    flash_bwd_dkdv.launches += 1
+    _build.count_launch(flash_bwd_dkdv, like=q)
     if acc is None or in_kernel:
         return tuple(outs)
     _into(acc, outs)
     return tuple(acc)
 
 
+@checked("flash_attention_bwd_dq")
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, acc=None):
     """Launch the dQ kernel: returns dq shaped and typed as q. ``acc``: an
     f32 sum of q's shape that dq is added to and that is returned instead,
     as ``flash_bwd_dkdv``'s. Counted in ``flash_bwd_dq.launches``."""
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq_launch",
                       _DQ_ARGTYPES)
-    in_kernel = acc is not None and q.dtype == torch.bfloat16
+    in_kernel = acc is not None and q.dtype in HOPPER_DTYPES
     dq = acc if in_kernel else torch.empty_like(q)
     _launch_grad("flash_attention_bwd_dq", fn, q, k, v, dout, lse, delta,
                  causal, scale, (dq,), accumulate=in_kernel)
-    flash_bwd_dq.launches += 1
+    _build.count_launch(flash_bwd_dq, like=q)
     if acc is None or in_kernel:
         return dq
     _into((acc,), (dq,))
@@ -294,7 +316,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, acc=None):
 
 KERNELS = (flash_fwd, flash_bwd_delta, flash_bwd_dkdv, flash_bwd_dq)
 for _k in KERNELS:
-    _k.launches = 0
+    _k.launches = _k.launches_fp16 = 0
 
 
 # -- K6: one ring visit, merged into the ring's running state ----------------
@@ -341,6 +363,7 @@ _RING_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
+@checked("flash_attention_ring_fwd", _out_only)
 def ring_flash_fwd(q, k, v, o_acc, lse_acc, causal, scale, first=False,
                    out=None):
     """K6, one ring visit: attention of q [B, Sq, Hq, D] over the visiting
@@ -386,11 +409,11 @@ def ring_flash_fwd(q, k, v, o_acc, lse_acc, causal, scale, first=False,
             hkv, D, int(causal), float(scale),
             _build.DTYPE_CODES[str(q.dtype)], _stream(q))
     _build.check_status(rc, name)
-    ring_flash_fwd.launches += 1
+    _build.count_launch(ring_flash_fwd, like=q)
     return target, lse_acc
 
 
-ring_flash_fwd.launches = 0
+ring_flash_fwd.launches = ring_flash_fwd.launches_fp16 = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -651,6 +674,7 @@ def _segment_pointers(name, q, k, segs, ranges, tiles):
     return [t.data_ptr() for t in (*segs, ranges)]
 
 
+@checked("flash_attention_seg_fwd", _out_only)
 def seg_flash_fwd(q, k, v, segs, key_ranges, causal, scale):
     """Launch K3's forward kernel: returns (out [B, Sq, Hq, D] in q's
     dtype, lse [B, Hq, Sq] f32, -inf where a row sees no key). Counted in
@@ -667,15 +691,16 @@ def seg_flash_fwd(q, k, v, segs, key_ranges, causal, scale):
             lse.data_ptr(), *ids, B, sq, sk, hq, hkv, D, int(causal),
             float(scale), _build.DTYPE_CODES[str(q.dtype)], _stream(q))
     _build.check_status(rc, name)
-    seg_flash_fwd.launches += 1
+    _build.count_launch(seg_flash_fwd, like=q)
     return out, lse
 
 
+@checked("flash_attention_seg_bwd_delta", _no_outputs)
 def seg_flash_bwd_delta(out, dout):
     """Launch K3's delta pass: K1's kernel, rowsum(dout * out) in f32, [B,
     Hq, Sq], counted apart in ``seg_flash_bwd_delta.launches``."""
     delta = _delta(out, dout, "flash_attention_seg_bwd_delta")
-    seg_flash_bwd_delta.launches += 1
+    _build.count_launch(seg_flash_bwd_delta, like=out)
     return delta
 
 
@@ -694,6 +719,7 @@ def _launch_seg_grad(name, fn, q, k, v, dout, lse, delta, segs, ranges,
     _build.check_status(rc, name)
 
 
+@checked("flash_attention_seg_bwd_dkdv")
 def seg_flash_bwd_dkdv(q, k, v, dout, lse, delta, segs, query_ranges,
                        causal, scale):
     """Launch K3's dK/dV kernel over each key tile's query-tile range:
@@ -706,10 +732,11 @@ def seg_flash_bwd_dkdv(q, k, v, dout, lse, delta, segs, query_ranges,
     _launch_seg_grad("flash_attention_seg_bwd_dkdv", fn, q, k, v, dout, lse,
                      delta, segs, query_ranges, k.shape[1], causal, scale,
                      (dk, dv))
-    seg_flash_bwd_dkdv.launches += 1
+    _build.count_launch(seg_flash_bwd_dkdv, like=q)
     return dk, dv
 
 
+@checked("flash_attention_seg_bwd_dq")
 def seg_flash_bwd_dq(q, k, v, dout, lse, delta, segs, key_ranges, causal,
                      scale):
     """Launch K3's dQ kernel over each query tile's key-tile range: returns
@@ -720,14 +747,14 @@ def seg_flash_bwd_dq(q, k, v, dout, lse, delta, segs, key_ranges, causal,
     _launch_seg_grad("flash_attention_seg_bwd_dq", fn, q, k, v, dout, lse,
                      delta, segs, key_ranges, q.shape[1], causal, scale,
                      (dq,))
-    seg_flash_bwd_dq.launches += 1
+    _build.count_launch(seg_flash_bwd_dq, like=q)
     return dq
 
 
 SEG_KERNELS = (seg_flash_fwd, seg_flash_bwd_delta, seg_flash_bwd_dkdv,
                seg_flash_bwd_dq)
 for _k in SEG_KERNELS:
-    _k.launches = 0
+    _k.launches = _k.launches_fp16 = 0
 
 
 class SegmentFlashAttention(torch.autograd.Function):

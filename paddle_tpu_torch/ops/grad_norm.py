@@ -2,10 +2,10 @@
 plain version.
 
 ``grad_sumsq(tensors, scale=None, clip_norm=None, groups=None)`` reads a
-list of f32 or bf16 tensors once and returns ``SumSq``: per tensor the f32
-sum of squares of ``t / scale`` and a flag that some element of it is NaN
-or Inf; per group (``groups[i]`` is tensor i's group index, or -1) the
-sums and flags; the total, its square root and, given ``clip_norm``,
+list of f32, bf16 or fp16 tensors once and returns ``SumSq``: per tensor
+the f32 sum of squares of ``t / scale`` and a flag that some element of it
+is NaN or Inf; per group (``groups[i]`` is tensor i's group index, or -1)
+the sums and flags; the total, its square root and, given ``clip_norm``,
 ClipGradByGlobalNorm's factor ``min(1, clip / max(norm, 1e-12))``, all on
 the tensors' device. The reference computes the same inside its compiled
 step (the unscale and finite check of paddle_tpu/jit_api.py:328-337, the
@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..framework.nan_inf import checked
 from . import _build
 
 CHUNK = 65536   # elements a block reads (csrc/grad_norm.cu: kChunk)
@@ -108,8 +109,7 @@ def _sumsq_cuda(tensors, scale, clip_norm, groups, n_groups):
     chk(dev.type == "cuda", name, "tensors must be CUDA tensors")
     for t in tensors:
         chk(t.device == dev, name, "tensors must share one device")
-        chk(str(t.dtype) in _build.DTYPE_CODES, name,
-            f"dtype {t.dtype} not in {sorted(_build.DTYPE_CODES)}")
+        _build.check_dtype(name, t)
         chk(t.is_contiguous(), name, "tensors must be contiguous")
         chk(t.data_ptr() % 16 == 0, name, "tensors must be 16-byte aligned")
     if scale is not None:
@@ -127,10 +127,16 @@ def _sumsq_cuda(tensors, scale, clip_norm, groups, n_groups):
             part.data_ptr(), bad.data_ptr(), out.data_ptr(), flags.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_status(rc, name)
-    grad_sumsq.launches += 1
+    _build.count_launch(grad_sumsq, like=tensors)
     return SumSq(out, flags, len(tensors), n_groups)
 
 
+def _results(args, kwargs, st):
+    """grad_sumsq's outputs: the sums, the total, norm and factor."""
+    return st.sums, st.group_sums, st.total, st.norm, st.factor
+
+
+@checked("grad_sumsq", _results)
 @torch.no_grad()
 def grad_sumsq(tensors, scale=None, clip_norm=None, groups=None,
                n_groups=0):
@@ -147,4 +153,4 @@ def grad_sumsq(tensors, scale=None, clip_norm=None, groups=None,
     return _sumsq_math(tensors, scale, clip_norm, groups, n_groups)
 
 
-grad_sumsq.launches = 0
+grad_sumsq.launches = grad_sumsq.launches_fp16 = 0

@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from ..framework.nan_inf import checked
 from . import _build
 
 MAX_K = 8          # csrc/moe_dispatch.cu: kMaxK
@@ -122,8 +123,7 @@ def _check_rows(name, x, *index):
     """Raise ValueError for an operand the kernels do not take."""
     chk = _build.check
     chk(x.is_cuda, name, "rows must be a CUDA tensor")
-    chk(str(x.dtype) in _build.DTYPE_CODES, name,
-        f"dtype {x.dtype} not in {sorted(_build.DTYPE_CODES)}")
+    _build.check_dtype(name, x, _build.F32_BF16_CODES)
     chk(x.dim() == 2 and x.shape[1] * x.element_size() % 16 == 0, name,
         f"rows [n, M] with M * itemsize a multiple of 16 bytes, got "
         f"{tuple(x.shape)} {x.dtype}")
@@ -141,6 +141,7 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+@checked("moe_dispatch")
 def dispatch_rows(x, src, scale=None):
     """Kernel D: out[s] = x[src[s]] (times ``scale[s]`` in f32, rounded
     once) or a zero row where ``src[s] < 0``. x [n, M], src [R] int32,
@@ -155,10 +156,11 @@ def dispatch_rows(x, src, scale=None):
             src.shape[0], x.shape[1], _build.DTYPE_CODES[str(x.dtype)],
             _stream(x))
     _build.check_status(rc, name)
-    dispatch_rows.launches += 1
+    _build.count_launch(dispatch_rows)
     return out
 
 
+@checked("moe_combine")
 def combine_rows(x, slot, w=None):
     """Kernel E: out[t] = sum_j w[t, j] x[slot[t, j]] over the choices with
     slot >= 0, in f32, rounded once (unit weights when ``w`` is None). x
@@ -174,10 +176,11 @@ def combine_rows(x, slot, w=None):
             None if w is None else w.data_ptr(), out.data_ptr(), T, k,
             x.shape[1], _build.DTYPE_CODES[str(x.dtype)], _stream(x))
     _build.check_status(rc, name)
-    combine_rows.launches += 1
+    _build.count_launch(combine_rows)
     return out
 
 
+@checked("moe_combine_dw")
 def combine_dw(dout, x, slot):
     """E's weight gradient: dw[t, j] = <dout[t], x[slot[t, j]]> in f32, 0
     where slot < 0. dout [T, M], x [n, M], slot [T, k] int32 -> [T, k]
@@ -195,7 +198,7 @@ def combine_dw(dout, x, slot):
     rc = fn(dout.data_ptr(), x.data_ptr(), slot.data_ptr(), dw.data_ptr(),
             T, k, x.shape[1], _build.DTYPE_CODES[str(x.dtype)], _stream(x))
     _build.check_status(rc, name)
-    combine_dw.launches += 1
+    _build.count_launch(combine_dw)
     return dw
 
 

@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from ..framework.nan_inf import checked
 from . import _build
 from .quantization import from_int8, is_quantized, quantize_to_int8
 
@@ -160,13 +161,19 @@ def split_scratch(rows, num_q_heads, num_splits, head_dim, device):
 
 def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
     """Launch K5 (its split kernel and merge; over an int8 pool K5-int8's)
-    on the current stream; validates every operand first."""
+    on the current stream; validates every operand first. An fp16 q over
+    an int8 pool reads as the reference's kernel reads it
+    (paddle_tpu/ops/paged_attention.py:175): ``q * scale`` in fp16 cast to
+    bf16, through the bf16-q instance, its output cast back to fp16."""
     name = "paged_decode_attention"
     quant = is_quantized(k_pages)
     fn = _build.entry("paged_attention",
                       "paged_decode_attention_int8_launch" if quant
                       else "paged_decode_attention_launch",
                       _ARGTYPES_INT8 if quant else _ARGTYPES)
+    if quant and q.dtype == torch.float16:
+        return _paged_cuda((q * scale).to(torch.bfloat16), k_pages, v_pages,
+                           lengths, page_indices, 1.0).to(q.dtype)
     B, Hq, D = q.shape
     pool_ptrs, (Hkv, P, bs, Dk) = _build.pool_operands(name, q, k_pages,
                                                        v_pages)
@@ -196,18 +203,19 @@ def _paged_cuda(q, k_pages, v_pages, lengths, page_indices, scale):
             per, float(scale), dtype, stream)
     _build.check_status(rc, name)
     _build.count_launch(paged_decode_attention,
-                        "launches_int8" if quant else "launches")
+                        "launches_int8" if quant else "launches", like=q)
     return out
 
 
+@checked("paged_decode_attention")
 def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
                            scale=None):
     """One-token decode attention over the paged pool.
 
-    q: [B, Hq, D]; returns [B, Hq, D] in q's dtype. lengths must already
-    INCLUDE the just-written token (the query attends to itself). The pools
-    are q's dtype, or int8 ``QuantizedTensor``s. A CUDA q launches K5 (its
-    split and merge launches one call, counted in
+    q: [B, Hq, D] (f32, bf16 or fp16); returns [B, Hq, D] in q's dtype.
+    lengths must already INCLUDE the just-written token (the query attends
+    to itself). The pools are q's dtype, or int8 ``QuantizedTensor``s. A
+    CUDA q launches K5 (its split and merge launches one call, counted in
     ``paged_decode_attention.launches``; over an int8 pool in
     ``.launches_int8``); a CPU q runs the plain version."""
     D = q.shape[-1]
@@ -219,4 +227,5 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
+paged_decode_attention.launches_fp16 = 0
 paged_decode_attention.launches_by_thread = {}

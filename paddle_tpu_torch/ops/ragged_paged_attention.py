@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from ..framework.nan_inf import checked
 from . import _build
 from .paged_attention import (
     check_geometry,
@@ -167,13 +168,19 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
                  scale):
     """Launch K4 (its tile kernel, the split kernel over the decode rows
     and their merge; over an int8 pool K4-int8's) on the current stream;
-    validates every operand first."""
+    validates every operand first. An fp16 q over an int8 pool reads as the
+    reference's kernel reads it (paddle_tpu/ops/ragged_paged_attention.py
+    :232, :281): ``q * scale`` in fp16, read in f32, through the f32-q
+    instance, its output cast back to fp16."""
     name = "ragged_paged_attention"
     quant = is_quantized(k_pages)
     fn = _build.entry("ragged_paged_attention",
                       "ragged_paged_attention_int8_launch" if quant
                       else "ragged_paged_attention_launch",
                       _ARGTYPES_INT8 if quant else _ARGTYPES)
+    if quant and q.dtype == torch.float16:
+        return _ragged_cuda((q * scale).float(), k_pages, v_pages, kv_lens,
+                            page_indices, cu_q_lens, 1.0).to(q.dtype)
     T, Hq, D = q.shape
     pool_ptrs, (Hkv, P, bs, Dk) = _build.pool_operands(name, q, k_pages,
                                                        v_pages)
@@ -205,15 +212,17 @@ def _ragged_cuda(q, k_pages, v_pages, kv_lens, page_indices, cu_q_lens,
             P, bs, pps, splits, per, float(scale), dtype, stream)
     _build.check_status(rc, name)
     _build.count_launch(ragged_paged_attention,
-                        "launches_int8" if quant else "launches")
+                        "launches_int8" if quant else "launches", like=q)
     return out
 
 
+@checked("ragged_paged_attention")
 def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
                            cu_q_lens, scale=None):
     """Mixed prefill+decode attention over the paged pool.
 
-    q: [T, Hq, D] packed token stream; returns [T, Hq, D] in q's dtype.
+    q: [T, Hq, D] packed token stream (f32, bf16 or fp16); returns
+    [T, Hq, D] in q's dtype.
     kv_lens must already include this step's tokens. Pad tokens (beyond
     cu_q_lens[-1]) return finite values that callers discard: zeros from
     the kernel, the reference's masked garbage from the plain version. The
@@ -232,4 +241,5 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, page_indices,
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_int8 = 0
+ragged_paged_attention.launches_fp16 = 0
 ragged_paged_attention.launches_by_thread = {}

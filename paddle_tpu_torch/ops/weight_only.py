@@ -30,6 +30,7 @@ import functools
 import torch
 
 from ..incubate.nn.functional import _mm_f32
+from ..framework.nan_inf import checked
 from . import _build
 
 MAX_ROWS = 64    # csrc/weight_only_linear.cu: kMaxRows
@@ -146,8 +147,7 @@ def _check_operands(x, x2, codes, scale, int4, k):
     """Raise ValueError naming the operand kernel C does not take."""
     name, chk = "weight_only_linear", _build.check
     chk(x.is_cuda, name, "x must be a CUDA tensor")
-    chk(str(x.dtype) in _build.DTYPE_CODES, name,
-        f"dtype {x.dtype} not in {sorted(_build.DTYPE_CODES)}")
+    _build.check_dtype(name, x, _build.F32_BF16_CODES)
     chk(0 < x2.shape[0] <= MAX_ROWS, name,
         f"{x2.shape[0]} rows, not 1..{MAX_ROWS}")
     chk(codes.dtype == torch.int8 and codes.dim() == 2
@@ -172,7 +172,7 @@ def _wo_cuda(x, codes, scale, int4, k):
     fn = _kernel()
     x2 = x.reshape(-1, k)
     rows, n = x2.shape[0], codes.shape[0]
-    dt = _build.DTYPE_CODES.get(str(x.dtype))
+    dt = _build.F32_BF16_CODES.get(str(x.dtype))
     if not (x.is_cuda and dt is not None and 0 < rows <= MAX_ROWS
             and codes.dtype == torch.int8 and codes.dim() == 2
             and codes.shape[1] == ((k + 1) // 2 if int4 else k)
@@ -188,10 +188,11 @@ def _wo_cuda(x, codes, scale, int4, k):
             p.stages if p else 0, p.tile_n if p else 0,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_status(rc, "weight_only_linear")
-    weight_only_matmul.launches += 1
+    _build.count_launch(weight_only_matmul)
     return y.view(*x.shape[:-1], n)
 
 
+@checked("weight_only_linear")
 def weight_only_matmul(x, codes, scale, int4, k):
     """x [..., k] @ dequant(codes, scale)^T -> [..., N] in x's dtype (the
     module docstring)."""

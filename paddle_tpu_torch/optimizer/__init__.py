@@ -1,9 +1,10 @@
 """Optimizers of the port (counterpart of ``paddle_tpu/optimizer``): the
 base class with schedulers, clipping, L1/L2 decay, param groups and master
-weights, the thirteen rules, and the learning-rate schedulers (``lr``).
-``LBFGS`` comes in a later slice (ROADMAP.md)."""
+weights, the thirteen rules, the closure-driven ``LBFGS`` and the
+learning-rate schedulers (``lr``)."""
 from . import lr
 from ..regularizer import L1Decay, L2Decay
+from .lbfgs import LBFGS
 from .optimizer import Optimizer
 from .optimizers import (
     ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Momentum, NAdam,
@@ -12,4 +13,4 @@ from .optimizers import (
 
 __all__ = ["lr", "Optimizer", "L1Decay", "L2Decay", "SGD", "Momentum",
            "Adam", "AdamW", "Adagrad", "RMSProp", "Adadelta", "Adamax",
-           "Lamb", "NAdam", "RAdam", "Rprop", "ASGD"]
+           "Lamb", "NAdam", "RAdam", "Rprop", "ASGD", "LBFGS"]

@@ -10,7 +10,8 @@ guard's tolerance and check cadence (``PADDLE_NONFINITE_TOLERANCE``,
 and ``PADDLE_LORA_CACHE_MB``, ``serving.adapters``), or are the serving
 control plane's own, under the reference's names (chaos arming, span
 tracing, devprof, the compile ledger's bounds, the handoff and wire
-transports, the KV fabric, tenancy, the disaggregation switch); none
+transports, the KV fabric, tenancy, the disaggregation switch), or are
+the flag registry's ``FLAGS_<name>`` defaults (``framework.flags``); none
 picks a kernel or its plain version, which the tensor's device alone
 decides. A garbage value reads as the default, so a typo'd variable never
 stops a process.

@@ -2,14 +2,15 @@
 the device or the kernel.
 
 - importing the package (every module of it; and the serving control
-  plane's packages, ``serving`` and ``observability``, alone) pulls in
-  neither ``jax`` nor ``paddle_tpu``, and no module of the package or
+  plane's packages, ``serving`` and ``observability``, the flag registry
+  ``framework``, ``amp.debugging`` and ``optimizer.lbfgs``, alone) pulls
+  in neither ``jax`` nor ``paddle_tpu``, and no module of the package or
   ``chip_smoke.py`` imports either, nor reads an environment variable:
   only ``utils/envs.py`` reads one, for the dynamics telemetry's
   ``PADDLE_DYNAMICS*`` switches, the non-finite guard's two variables,
-  the LoRA plane's three sizes and the serving control plane's own
-  reference names, so no variable picks a kernel, its plain version or a
-  dispatch plane (``chip_smoke.py`` may set the dynamics' switches, the
+  the LoRA plane's three sizes, the serving control plane's own
+  reference names and the flag registry's ``FLAGS_<name>`` defaults, so
+  no variable picks a kernel, its plain version or a dispatch plane (``chip_smoke.py`` may set the dynamics' switches, the
   supervisor's and the telemetry directory); the operator plane's
   packages (``distributed.fleet.elastic``, ``observability`` with
   ``statusz``, ``watchdog`` and ``flightrec``) import neither either, the
@@ -88,11 +89,14 @@ def test_import_leaves_jax_and_reference_out():
     "paddle_tpu_torch.distributed.fleet.elastic",
     "paddle_tpu_torch.observability.statusz",
     "paddle_tpu_torch.observability.watchdog",
-    "paddle_tpu_torch.observability.flightrec"])
+    "paddle_tpu_torch.observability.flightrec",
+    "paddle_tpu_torch.framework", "paddle_tpu_torch.amp.debugging",
+    "paddle_tpu_torch.optimizer.lbfgs"])
 def test_control_plane_imports_leave_jax_and_reference_out(package):
     """The serving control plane and the observability it reads (every
-    module the frontend imports) stand alone: importing either package in
-    a fresh interpreter loads neither ``jax`` nor ``paddle_tpu``."""
+    module the frontend imports), and the flag registry, ``amp.debugging``
+    and ``LBFGS``, stand alone: importing any of these packages in a fresh
+    interpreter loads neither ``jax`` nor ``paddle_tpu``."""
     code = (f"import importlib, json, sys\n"
             f"importlib.import_module({package!r})\n"
             f"print(json.dumps([m for m in {FORBIDDEN!r} "
@@ -177,8 +181,10 @@ def test_only_the_dynamics_reads_the_environment():
     serving control plane's modules for the reference's own names of
     them (chaos arming, telemetry, devprof, the compile ledger's bounds,
     the handoff and wire transports, the KV fabric, tenancy, the
-    disaggregation switch; each name also read in ``paddle_tpu/``), and
-    from nowhere else: no variable picks a kernel or a dispatch plane."""
+    disaggregation switch; each name also read in ``paddle_tpu/``), from
+    the flag registry (``framework/flags.py``) for the reference's
+    ``FLAGS_<name>`` defaults, and from nowhere else: no variable picks a
+    kernel or a dispatch plane."""
     from paddle_tpu_torch import jit_api
     from paddle_tpu_torch.inference import continuous
     from paddle_tpu_torch.observability import dynamics
@@ -198,8 +204,12 @@ def test_only_the_dynamics_reads_the_environment():
         "serving/handoff.py", "serving/transport.py", "serving/kvfabric.py",
         "serving/tenancy.py", "serving/frontend.py"} | set(OPERATOR_PLANE)
     assert callers == {"observability/dynamics.py", "jit_api.py",
-                       "inference/continuous.py",
-                       "serving/adapters.py"} | control_plane
+                       "inference/continuous.py", "serving/adapters.py",
+                       "framework/flags.py"} | control_plane
+    flag_src = (PKG / "framework" / "flags.py").read_text()
+    assert [ast.unparse(n.args[0]) for n in ast.walk(ast.parse(flag_src))
+            if isinstance(n, ast.Call)
+            and getattr(n.func, "id", None) in readers] == ["f'FLAGS_{name}'"]
     reference = "".join(p.read_text()
                         for p in (ROOT / "paddle_tpu").rglob("*.py"))
     for rel in sorted(control_plane):
